@@ -8,14 +8,24 @@ the CUDA toolkit. Imports no JAX. Phases, each printing its seconds:
 
   1. build  — compile the port's kernels (one nvcc call) and load them;
   2. kernels — each kernel against its plain PyTorch version at the
-     serving path's shapes (batch 4 windows of 128^3);
+     serving path's shapes (batch 4 windows of 128^3), the level-1
+     region's call forms included;
   3. slice  — a full-width Predictor (ps2d_eval=True, ps2d_levels=1,
      random weights from a seed) segments three synthetic 240x240x155
-     volumes in "cropped" mode; every kernel must have launched; then
-     one batch of windows through the kernel path is held against the
-     port's normal path on the card;
-  4. timings — CUDA-event times of each kernel, its plain version and
-     one library call computing the same function, beside its bound.
+     volumes in "cropped" mode; every kernel of that path must have
+     launched, as often as the forward predicts; then one batch of
+     windows through the kernel path is held against the port's
+     normal path on the card;
+  4. server — the server's request at the measured serving setting
+     (ps2d_eval=True, ps2d_levels=2; joint grade weights from the
+     port's own seeded init): segment_with_confidence("cropped"),
+     classify_tumor and classify_grade on three volumes, then one
+     mirror-TTA request and one "whole_volume" request, each with its
+     launch counts asserted; then the level-2 kernel path against the
+     normal path;
+  5. timings — CUDA-event times of each kernel (and of each of its
+     call forms), its plain version and one library call computing the
+     same function, beside its bound.
 
 It prints the per-kernel JSON line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Any failure, or a run past
@@ -84,6 +94,25 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
+def unported_bounds() -> dict:
+    """Bounds of the TPU kernels not ported yet, at the shapes where the
+    JAX package runs them or would on the serving path (bf16, 2 B a
+    value): K5 a GroupNorm (+ReLU, +residual) at the level-0 shape
+    (4, 128^3, 32); K6 one level-0 conv's forward, data grad and weight
+    grad at benchmarks/train_bench.py's batch 2 of 128^3, 32 -> 32; K7
+    benchmarks/bench_wtile.py's first shape (1, 240, 240, 160), 32 -> 32."""
+    gn = 4 * 128 ** 3 * 32 * 2
+    return {
+        "fused_group_norm": bound_ms(2 * gn, 0.0),
+        "fused_group_norm (residual)": bound_ms(3 * gn, 0.0),
+        # reads x and dy, writes y and dx; three convs' operations
+        "ps2d_conv3d_flat_train": bound_ms(
+            4 * 2 * 128 ** 3 * 32 * 2, 3 * 2.0 * 27 * 32 * 32 * 2 * 128 ** 3),
+        "wtile_conv3d": bound_ms(2 * 240 * 240 * 160 * 32 * 2,
+                                 2.0 * 27 * 32 * 32 * 240 * 240 * 160),
+    }
+
+
 class Run:
     def __init__(self):
         self.t0 = time.perf_counter()
@@ -115,10 +144,11 @@ def event_ms(fn, reps: int, warmup: int = 2) -> float:
 
 
 def profile_request(pred, vol, cropping) -> None:
-    """Where one cropped request's time goes: the host steps of
-    ``segment_tumor`` timed one by one, then the whole request under
-    ``torch.profiler`` for the device's busy share and its top kernels.
-    Opt-in (``--profile``)."""
+    """Where one server request's time goes: the host steps of
+    ``segment_with_confidence("cropped")`` timed one by one, the two
+    classifications, then the whole request under ``torch.profiler`` for
+    the device's busy share and its top kernels. Opt-in
+    (``--profile``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -139,14 +169,23 @@ def profile_request(pred, vol, cropping) -> None:
                                                                bucket))
     logits = timed("sliding window (copy in, forwards, blend)",
                    lambda: pred._sliding_window(crop))
-    labels = timed("argmax + copy out", lambda: logits.argmax(-1).to(
-        torch.int8).cpu().numpy())
-    timed("paste_full", lambda: cropping.paste_full(labels, offs,
-                                                    v.shape[:3]))
+    conf, labels = timed("softmax + max + copy out", lambda: [
+        t.cpu().numpy() for t in torch.softmax(logits, -1).max(-1)])
+    seg = timed("paste_full (labels, confidence)", lambda: (
+        cropping.paste_full(labels.astype(np.int8), offs, v.shape[:3]),
+        cropping.paste_full(conf, offs, v.shape[:3], fill=1.0)))[0]
+    timed("classify_tumor", lambda: pred.classify_tumor(vol, seg))
+    timed("classify_grade", lambda: pred.classify_grade(vol))
+
+    def request():
+        seg, _ = pred.segment_with_confidence(vol, mode="cropped")
+        pred.classify_tumor(vol, seg)
+        pred.classify_grade(vol)
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        pred.segment_tumor(vol, mode="cropped")
+        request()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
 
@@ -169,8 +208,8 @@ def main() -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also break one request down (host steps, "
-                         "device busy share, top kernels)")
+                    help="also break one server request down (host "
+                         "steps, device busy share, top kernels)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -182,7 +221,7 @@ def main() -> int:
         native = import_module(PKG + ".ops.native")
         cfg = import_module(PKG + ".config")
         Predictor = import_module(PKG + ".inference.predictor").Predictor
-        UNet3D = import_module(PKG + ".models").UNet3D
+        models = import_module(PKG + ".models")
         cropping = import_module(PKG + ".inference.cropping")
         sw = import_module(PKG + ".inference.sliding_window")
     except ImportError as e:
@@ -217,7 +256,11 @@ def main() -> int:
     def rnd(shape, s=1.0, dtype=bf16):
         return (torch.randn(shape, device=dev, generator=g) * s).to(dtype)
 
+    def ulp(m):
+        return 2.0 ** (np.floor(np.log2(m)) - 7)     # 1 bf16 ulp at m
+
     B, S, C = 4, 128, 32    # one sw batch of 128^3 windows, level-0 width
+    S1, C1 = S // 2, 2 * C  # level 1: 64^3 interior, width 64
 
     # ---------------------------------------------------------------- 2
     def kernels():
@@ -228,36 +271,66 @@ def main() -> int:
         check(err == 0, "pack_halo differs from its plain version")
         report["pack_halo"] = {"max_abs_err": err}
 
-        x2, w2 = rnd((B, S // 2, S // 2, S // 2, 2 * C)), rnd(
-            (2, 2, 2, 2 * C, C), 0.1)
-        b2 = rnd((C,), 0.1, torch.float32)
-        got, ref = T.up_k2s2_into_halo(x2, w2, b2), \
-            T.up_k2s2_into_halo_plain(x2, w2, b2)
+        x4 = ref          # (4,130^3,32) halo tensor, the level-0 skip
+        got, ref = T.pool_into_halo(x4), T.pool_into_halo_plain(x4)
         err = (got.float() - ref.float()).abs().max().item()
-        m = ref.float().abs().max().item()
-        tol = 2.0 ** (np.floor(np.log2(m)) - 7)       # 1 bf16 ulp of max
-        print(f"up_k2s2_into_halo (4,64^3,64)->(4,130^3,32): max_abs_err "
-              f"{err} (tolerance {tol}: 1 bf16 ulp of max|ref| {m})")
-        check(err <= tol, "up_k2s2_into_halo differs from its plain version")
-        report["up_k2s2_into_halo"] = {"max_abs_err": err}
+        print(f"pool_into_halo (4,130^3,32)->(4,66^3,32): max_abs_err {err}"
+              f" (tolerance 0)")
+        check(err == 0 and torch.equal(got, ref),
+              "pool_into_halo differs from its plain version")
+        report["pool_into_halo"] = {"max_abs_err": err}
 
-        wk = (2.0 / (27 * C)) ** 0.5       # kaiming fan-out scale
-        h = [T.pack_halo_plain(rnd((B, S, S, S, C))) for _ in range(2)]
+        k2 = {}
+        worst = 0.0
+        for lvl, (d2, ci, co) in {"level 0": (S // 2, 2 * C, C),
+                                  "level 1": (S // 4, 4 * C, C1)}.items():
+            x2, w2 = rnd((B, d2, d2, d2, ci)), rnd((2, 2, 2, ci, co), 0.1)
+            b2 = rnd((co,), 0.1, torch.float32)
+            got = T.up_k2s2_into_halo(x2, w2, b2)
+            ref = T.up_k2s2_into_halo_plain(x2, w2, b2)
+            err = (got.float() - ref.float()).abs().max().item()
+            m = ref.float().abs().max().item()
+            shape = (f"(4,{d2}^3,{ci})->(4,{2 * d2 + 2}^3,{co})")
+            print(f"up_k2s2_into_halo {lvl} {shape}: max_abs_err {err} "
+                  f"(tolerance {ulp(m)}: 1 bf16 ulp of max|ref| {m})")
+            check(err <= ulp(m),
+                  f"up_k2s2_into_halo {lvl} differs from its plain version")
+            worst = max(worst, err)
+            k2[lvl] = (x2, w2, b2, shape)
+        report["up_k2s2_into_halo"] = {"max_abs_err": worst}
+
+        def mask(s, c):
+            return T.pack_halo_plain(torch.rand(
+                (B, s, s, s, c), device=dev, generator=g).to(bf16))
+
+        h0 = [T.pack_halo_plain(rnd((B, S, S, S, C))) for _ in range(2)]
+        h1 = [T.pack_halo_plain(rnd((B, S1, S1, S1, c)))
+              for c in (C, C1, C1)]
+        # name -> call form; the level-0 ones first
         forms = {
             "enc0.conv2/dec0.conv2 (1 input 32, affine+relu, stats)": dict(
-                xs=(h[0],), w=rnd((3, 3, 3, C, C), wk),
+                xs=(h0[0],), w=rnd((3, 3, 3, C, C), (2 / (27 * C)) ** 0.5),
                 in_scale=1 + rnd((B, C), 0.3), in_shift=rnd((B, C), 0.3),
                 in_relu=True),
             "dec0.conv1 (2 inputs 32+32, mask, stats)": dict(
-                xs=(h[0], h[1]), w=rnd((3, 3, 3, 2 * C, C), wk),
-                in_mul0=T.pack_halo_plain(torch.rand(
-                    (B, S, S, S, C), device=dev, generator=g).to(bf16))),
+                xs=(h0[0], h0[1]), w=rnd((3, 3, 3, 2 * C, C),
+                                         (2 / (27 * C)) ** 0.5),
+                in_mul0=mask(S, C)),
+            "enc1.conv1 (1 input 32 -> 64, stats)": dict(
+                xs=(h1[0],), w=rnd((3, 3, 3, C, C1), (2 / (27 * C1)) ** 0.5)),
+            "enc1.conv2/dec1.conv2 (1 input 64, affine+relu, stats)": dict(
+                xs=(h1[1],), w=rnd((3, 3, 3, C1, C1), (2 / (27 * C1)) ** 0.5),
+                in_scale=1 + rnd((B, C1), 0.3), in_shift=rnd((B, C1), 0.3),
+                in_relu=True),
+            "dec1.conv1 (2 inputs 64+64, mask, stats)": dict(
+                xs=(h1[1], h1[2]), w=rnd((3, 3, 3, 2 * C1, C1),
+                                         (2 / (27 * C1)) ** 0.5),
+                in_mul0=mask(S1, C1)),
         }
         worst = 0.0
         for name, kw in forms.items():
-            xs, w = kw.pop("xs"), kw.pop("w")
-            y, (s1, s2) = T.conv3d_halo(xs, w, emit_stats=True, **kw)
-            yr, (r1, r2) = T.conv3d_halo_plain(xs, w, emit_stats=True, **kw)
+            y, (s1, s2) = T.conv3d_halo(emit_stats=True, **kw)
+            yr, (r1, r2) = T.conv3d_halo_plain(emit_stats=True, **kw)
             torch.cuda.synchronize()
             err = (y.float() - yr.float()).abs().max().item()
             tol = 2 ** -7 * yr.float().abs().max().item()
@@ -268,10 +341,66 @@ def main() -> int:
             check(err <= tol and serr <= 1e-3,
                   f"conv3d_halo {name} differs from its plain version")
             worst = max(worst, err)
-            kw.update(xs=xs, w=w)
         report["conv3d_halo"] = {"max_abs_err": worst}
-        return forms, (x3,), (x2, w2, b2)
-    forms, k3_in, k2_in = run.phase("kernels", kernels)
+        return forms, (x3,), k2, x4
+    forms, k3_in, k2_in, k4_in = run.phase("kernels", kernels)
+
+    def request_counts(fn):
+        """Run ``fn`` with every launch count at 0 just before it; its
+        result and the counts just after."""
+        torch.cuda.synchronize()
+        T.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, T.launch_counts()
+
+    def hold_to_normal(model, vol, conf, label):
+        """One batch of 4 windows of ``vol``'s crop through ``model``'s
+        kernel path against the port's normal path (no kernels), same
+        weights, under the JAX ps2d bounds."""
+        offs, bucket = cropping.plan_crop(
+            vol, multiple=16, min_size=S,
+            ladder=conf.inference.crop_bucket_ladder)
+        crop = torch.from_numpy(
+            cropping.extract_crop(vol, offs, bucket)).to(dev)
+        starts = [sw.compute_patch_starts(d, S, 0.5) for d in bucket]
+        wins = [(a, b, c) for a in starts[0] for b in starts[1]
+                for c in starts[2]][:4]
+        x = torch.stack([crop[a:a + S, b:b + S, c:c + S]
+                         for a, b, c in wins])
+        out = model(x).float()
+        normal = models.UNet3D(ps2d_eval=False, seed=0)
+        normal.eval()
+        ref = normal(x).float()
+        del normal
+        d = (out - ref).abs()
+        scale = max(ref.abs().max().item(), 1.0)
+        top2 = ref.topk(2, dim=-1).values
+        margin = top2[..., 0] - top2[..., 1]
+        dis = out.argmax(-1) != ref.argmax(-1)
+        wide = (dis & (margin > 2 * d.max())).sum().item()
+        print(f"{label} kernel path vs normal path, {tuple(x.shape)}: max "
+              f"|d logit| {d.max().item():.5f} (bound {2 ** -5 * scale:.5f}),"
+              f" mean {d.mean().item():.6f} (bound {2 ** -9 * scale:.6f}), "
+              f"labels agree {1 - dis.float().mean().item():.5f}, flips at "
+              f"margin > 2x max drift: {wide}; finite: "
+              f"{bool(torch.isfinite(out).all())}")
+        check(bool(torch.isfinite(out).all()), "non-finite logits")
+        check(d.max().item() <= 2 ** -5 * scale
+              and d.mean().item() <= 2 ** -9 * scale and wide == 0,
+              f"{label} kernel path drifts from the normal path")
+
+    def check_labels(lab, vol, conf, where):
+        offs, bucket = cropping.plan_crop(
+            vol, multiple=16, min_size=S,
+            ladder=conf.inference.crop_bucket_ladder)
+        check(lab.shape == VOLUME_SHAPE and lab.dtype == np.int8
+              and lab.min() >= 0 and lab.max() < 4, f"bad label map {where}")
+        inside = np.zeros(VOLUME_SHAPE, bool)
+        inside[tuple(slice(o, o + b) for o, b in zip(offs, bucket))] = 1
+        return inside, bucket, offs
+
+    vols = [make_volume(np.random.default_rng(s)) for s in range(3)]
 
     # ---------------------------------------------------------------- 3
     def slice_():
@@ -280,152 +409,208 @@ def main() -> int:
         check(conf.model.features == (32, 64, 128, 256, 512),
               "not the full-width model")
         pred = Predictor(conf, seed=0)
-        vols = [make_volume(np.random.default_rng(s)) for s in range(3)]
-        torch.cuda.synchronize()
-        T.reset_launch_counts()
-        secs, labels = [], []
-        for vol in vols:
+        want = {"conv3d_halo": 6, "up_k2s2_into_halo": 2, "pack_halo": 4,
+                "pool_into_halo": 0}        # per request: 2 forwards
+        for s, vol in enumerate(vols):
             t = time.perf_counter()
-            lab = pred.segment_tumor(vol, mode="cropped")
-            torch.cuda.synchronize()
-            secs.append(time.perf_counter() - t)
-            labels.append(lab)
-        counts = T.launch_counts()
-        print(f"launches over {len(vols)} requests: {counts}")
-        check(all(v > 0 for v in counts.values()),
-              f"a kernel never launched on the main path: {counts}")
-        for s, vol, lab in zip(range(3), vols, labels):
-            offs, bucket = cropping.plan_crop(
-                vol, multiple=16, min_size=128,
-                ladder=conf.inference.crop_bucket_ladder)
+            lab, counts = request_counts(
+                lambda: pred.segment_tumor(vol, mode="cropped"))
+            secs = time.perf_counter() - t
+            inside, bucket, offs = check_labels(lab, vol, conf, "(levels 1)")
+            check(not lab[~inside].any(), "labels outside the crop")
             hist = np.bincount(lab.reshape(-1).astype(np.int64),
                                minlength=4).tolist()
-            print(f"volume seed {s}: bucket {bucket} offsets {offs} "
-                  f"labels {hist} in {secs[s]:.3f} s")
-            check(lab.shape == VOLUME_SHAPE and lab.dtype == np.int8
-                  and lab.min() >= 0 and lab.max() < 4, "bad label map")
-            inside = np.zeros(VOLUME_SHAPE, bool)
-            inside[tuple(slice(o, o + b) for o, b in zip(offs, bucket))] = 1
-            check(not lab[~inside].any(), "labels outside the crop")
-        report["requests_s"] = secs
-        report["launches"] = counts
+            print(f"levels=1 segment_tumor, volume seed {s}: bucket {bucket}"
+                  f" offsets {offs} labels {hist} in {secs:.3f} s; "
+                  f"launches {counts}")
+            check(counts == want, f"launches {counts} != {want}")
+        hold_to_normal(pred.seg_model, vols[0], conf, "levels=1")
+    run.phase("slice", slice_)
 
-        # one batch of windows of the first crop: kernel path against the
-        # port's normal path (no kernels) with the same weights
-        offs, bucket = cropping.plan_crop(
-            vols[0], multiple=16, min_size=128,
-            ladder=conf.inference.crop_bucket_ladder)
-        crop = torch.from_numpy(
-            cropping.extract_crop(vols[0], offs, bucket)).to(dev)
-        starts = [sw.compute_patch_starts(d, 128, 0.5) for d in bucket]
-        wins = [(a, b, c) for a in starts[0] for b in starts[1]
-                for c in starts[2]][:4]
-        x = torch.stack([crop[a:a + S, b:b + S, c:c + S]
-                         for a, b, c in wins])
-        out = pred.seg_model(x).float()
-        normal = UNet3D(ps2d_eval=False, seed=0)
-        normal.eval()
-        ref = normal(x).float()
-        d = (out - ref).abs()
-        scale = max(ref.abs().max().item(), 1.0)
-        top2 = ref.topk(2, dim=-1).values
-        margin = top2[..., 0] - top2[..., 1]
-        dis = out.argmax(-1) != ref.argmax(-1)
-        wide = (dis & (margin > 2 * d.max())).sum().item()
-        print(f"kernel path vs normal path, {tuple(x.shape)}: max |d logit| "
-              f"{d.max().item():.5f} (bound {2 ** -5 * scale:.5f}), mean "
-              f"{d.mean().item():.6f} (bound {2 ** -9 * scale:.6f}), labels "
-              f"agree {1 - dis.float().mean().item():.5f}, flips at margin "
-              f"> 2x max drift: {wide}; finite: "
-              f"{bool(torch.isfinite(out).all())}")
-        check(bool(torch.isfinite(out).all()), "non-finite logits")
-        check(d.max().item() <= 2 ** -5 * scale
-              and d.mean().item() <= 2 ** -9 * scale and wide == 0,
-              "kernel path drifts from the normal path")
-        return pred, vols[0]
-    pred, vol0 = run.phase("slice", slice_)
+    # ---------------------------------------------------------------- 4
+    def server():
+        conf = cfg.Config(model=cfg.ModelConfig(ps2d_eval=True,
+                                                ps2d_levels=2))
+        pred = Predictor(conf, seed=0)
+        check(pred.seg_model.halo_levels((S, S, S)) == 2,
+              "the level-1 region is not eligible at the window shape")
+        joint = models.UNet3DWithClassifier(seed=0)
+        tree = models.to_flax_variables(joint.state_dict())
+        del joint
+        pred.load_joint_grade(tree["params"], tree["batch_stats"])
+        per_fwd = {"conv3d_halo": 7, "up_k2s2_into_halo": 2,
+                   "pack_halo": 2, "pool_into_halo": 1}
+        want = {k: 2 * v for k, v in per_fwd.items()}   # 8 windows, 2 fwd
+        total = dict.fromkeys(want, 0)
+
+        def request(vol):
+            """The three calls the server makes per upload."""
+            lab, cf = pred.segment_with_confidence(vol, mode="cropped")
+            return lab, cf, pred.classify_tumor(vol, lab), \
+                pred.classify_grade(vol)
+
+        secs = []
+        for s, vol in enumerate(vols):
+            t = time.perf_counter()
+            (lab, cf, name, grade), counts = request_counts(
+                lambda: request(vol))
+            secs.append(time.perf_counter() - t)
+            inside, bucket, offs = check_labels(lab, vol, conf, "(server)")
+            check(cf.shape == VOLUME_SHAPE and cf.dtype == np.float32
+                  and np.isfinite(cf).all() and cf.min() >= 0.25 - 1e-6
+                  and cf.max() <= 1 + 1e-6, "confidence out of range")
+            check(not lab[~inside].any() and (cf[~inside] == 1.0).all(),
+                  "outside the crop: not background with confidence 1.0")
+            check(name[0] in cfg.CLASS_NAMES + ("No Tumor Detected",)
+                  and 0 < name[1] <= 1, f"bad classification {name}")
+            check(grade is not None and grade[0] in range(4)
+                  and 0 < grade[1] <= 1, f"bad grade {grade}")
+            hist = np.bincount(lab.reshape(-1).astype(np.int64),
+                               minlength=4).tolist()
+            print(f"server request, volume seed {s}: bucket {bucket} labels "
+                  f"{hist} mean confidence {cf[inside].mean():.4f}; "
+                  f"classify {name}; grade {grade}; {secs[-1]:.3f} s; "
+                  f"launches {counts}")
+            check(counts == want, f"launches {counts} != {want}")
+            total = {k: total[k] + counts[k] for k in total}
+        report["requests_s"] = secs
+        report["launches"] = total
+
+        t = time.perf_counter()
+        (lab, cf), counts = request_counts(lambda: pred.segment_with_confidence(
+            vols[0], mode="cropped", tta=True))
+        secs = time.perf_counter() - t
+        check_labels(lab, vols[0], conf, "(tta)")
+        check(np.isfinite(cf).all() and cf.min() >= 0.25 - 1e-6
+              and cf.max() <= 1 + 1e-6, "TTA confidence out of range")
+        want_tta = {k: 8 * v for k, v in want.items()}
+        print(f"TTA request (8 flips, cropped): {secs:.3f} s; launches "
+              f"{counts}")
+        check(counts == want_tta, f"launches {counts} != {want_tta}")
+
+        t = time.perf_counter()
+        (lab, cf), counts = request_counts(lambda: pred.segment_with_confidence(
+            vols[0], mode="whole_volume"))
+        secs = time.perf_counter() - t
+        check_labels(lab, vols[0], conf, "(whole_volume)")
+        check(np.isfinite(cf).all() and cf.min() >= 0.25 - 1e-6
+              and cf.max() <= 1 + 1e-6, "whole-volume confidence out of range")
+        print(f"whole_volume request (resize to 128^3, 1 forward, resize "
+              f"back): {secs:.3f} s; launches {counts}")
+        check(counts == per_fwd, f"launches {counts} != {per_fwd}")
+        hold_to_normal(pred.seg_model, vols[0], conf, "levels=2")
+        return pred
+    pred = run.phase("server", server)
     if args.profile:
         def profile_phase():
-            profile_request(pred, vol0, cropping)
-            # the same request on the normal path (no kernels), for scale
+            profile_request(pred, vols[0], cropping)
+            # the same request on the normal path (no kernels, same
+            # weights), alternated with the kernel path: K N N K K N N K
             plain = Predictor(cfg.Config(), seed=0)
-            for i in range(3):
+            plain.joint_model = pred.joint_model
+            secs = {"kernel": [], "normal": []}
+            for side in ("kernel", "normal", "normal", "kernel") * 2:
+                p = pred if side == "kernel" else plain
                 t = time.perf_counter()
-                plain.segment_tumor(vol0, mode="cropped")
+                seg, _ = p.segment_with_confidence(vols[0], "cropped")
+                p.classify_tumor(vols[0], seg)
+                p.classify_grade(vols[0])
                 torch.cuda.synchronize()
-                print(f"  normal-path request {i}: "
-                      f"{time.perf_counter() - t:.4f} s")
+                secs[side].append(time.perf_counter() - t)
+            for side, v in secs.items():
+                print(f"  {side}-path requests: "
+                      f"{' '.join(f'{x:.4f}' for x in v)} s, median "
+                      f"{np.median(v):.4f} s")
         run.phase("profile", profile_phase)
     del pred
 
-    # ---------------------------------------------------------------- 4
+    # ---------------------------------------------------------------- 5
     def timings():
         import torch.nn.functional as F
-        rows = []
+
+        def conv_row(name):
+            kw = forms[name]
+            xs, w = kw["xs"], kw["w"]
+            y = T.conv3d_halo(emit_stats=True, **kw)[0]
+            xcat = torch.cat([T.halo_to_normal(t) for t in xs], -1).permute(
+                0, 4, 1, 2, 3)
+            wn = w.permute(4, 3, 0, 1, 2).contiguous()
+            n = xs[0].shape[0] * T.interior_count(xs[0])
+            flops = 2.0 * 27 * w.shape[3] * w.shape[4] * n
+            return (name, lambda: T.conv3d_halo(emit_stats=True, **kw),
+                    lambda: T.conv3d_halo_plain(emit_stats=True, **kw),
+                    lambda: F.conv3d(xcat, wn, padding=1),
+                    bound_ms(nbytes(*xs, w, kw.get("in_mul0"),
+                                    kw.get("in_scale"), kw.get("in_shift"),
+                                    y), flops), 10)
+
+        def up_row(lvl):
+            x2, w2, b2, shape = k2_in[lvl]
+            y2 = T.up_k2s2_into_halo_plain(x2, w2, b2)
+            x2n = x2.permute(0, 4, 1, 2, 3)          # channels-last NCDHW
+            w2n = w2.flip(0, 1, 2).permute(3, 4, 0, 1, 2).contiguous()
+            return (f"{lvl} {shape}",
+                    lambda: T.up_k2s2_into_halo(x2, w2, b2),
+                    lambda: T.up_k2s2_into_halo_plain(x2, w2, b2),
+                    lambda: F.conv_transpose3d(x2n, w2n, b2.to(bf16),
+                                               stride=2),
+                    bound_ms(nbytes(x2, w2, b2, y2),
+                             2.0 * x2.numel() * 8 * w2.shape[-1]), 20)
+
         (x3,) = k3_in
         y3 = T.pack_halo_plain(x3)
-        rows.append(("pack_halo", "pack_halo.cu", "ps2d.py:167",
-                     lambda: T.pack_halo(x3), lambda: T.pack_halo_plain(x3),
-                     lambda: F.pad(x3, (0, 0, 1, 1, 1, 1, 1, 1)),
-                     bound_ms(nbytes(x3, y3), 0.0), 20,
-                     "(4,128^3,32) -> (4,130^3,32)"))
-        x2, w2, b2 = k2_in
-        y2 = T.up_k2s2_into_halo_plain(x2, w2, b2)
-        x2n = x2.permute(0, 4, 1, 2, 3)            # channels-last NCDHW
-        w2n = w2.flip(0, 1, 2).permute(3, 4, 0, 1, 2).contiguous()
-        rows.append(("up_k2s2_into_halo", "up_k2s2_into_halo.cu",
-                     "ps2d.py:228",
-                     lambda: T.up_k2s2_into_halo(x2, w2, b2),
-                     lambda: T.up_k2s2_into_halo_plain(x2, w2, b2),
-                     lambda: F.conv_transpose3d(x2n, w2n, b2.to(bf16),
-                                                stride=2),
-                     bound_ms(nbytes(x2, w2, b2, y2),
-                              2.0 * x2.numel() * 8 * C), 20,
-                     "(4,64^3,64) -> (4,130^3,32)"))
-        kw = next(f for n, f in forms.items() if n.startswith("dec0.conv1"))
-        xs, w = kw["xs"], kw["w"]
-        yk = T.conv3d_halo(xs, w, in_mul0=kw["in_mul0"], emit_stats=True)[0]
-        xcat = torch.cat([T.halo_to_normal(t) for t in xs], -1).permute(
-            0, 4, 1, 2, 3)
-        wn = w.permute(4, 3, 0, 1, 2).contiguous()
-        flops = 2.0 * 27 * w.shape[3] * w.shape[4] * B * S ** 3
-        rows.append(("conv3d_halo", "ps2d_conv3d.cu", "ps2d.py:667",
-                     lambda: T.conv3d_halo(xs, w, in_mul0=kw["in_mul0"],
-                                           emit_stats=True),
-                     lambda: T.conv3d_halo_plain(xs, w,
-                                                 in_mul0=kw["in_mul0"],
-                                                 emit_stats=True),
-                     lambda: F.conv3d(xcat, wn, padding=1),
-                     bound_ms(nbytes(*xs, w, kw["in_mul0"], yk), flops), 10,
-                     "dec0.conv1: 2 x (4,130^3,32) + mask -> (4,130^3,32)"))
+        x4 = k4_in
+        y4 = T.pool_into_halo_plain(x4)
+        x4n = T.halo_to_normal(x4).permute(0, 4, 1, 2, 3)   # interior
+        # name, source, TPU kernel, [forms: the main path's first]
+        rows = [
+            ("conv3d_halo", "ps2d_conv3d.cu", "ps2d.py:667",
+             [conv_row(n) for n in forms]),
+            ("up_k2s2_into_halo", "up_k2s2_into_halo.cu", "ps2d.py:228",
+             [up_row("level 0"), up_row("level 1")]),
+            ("pack_halo", "pack_halo.cu", "ps2d.py:167",
+             [("(4,128^3,32) -> (4,130^3,32)", lambda: T.pack_halo(x3),
+               lambda: T.pack_halo_plain(x3),
+               lambda: F.pad(x3, (0, 0, 1, 1, 1, 1, 1, 1)),
+               bound_ms(nbytes(x3, y3), 0.0), 20)]),
+            ("pool_into_halo", "pool_into_halo.cu", "ps2d.py:316",
+             [("(4,130^3,32) -> (4,66^3,32)", lambda: T.pool_into_halo(x4),
+               lambda: T.pool_into_halo_plain(x4),
+               lambda: F.pad(F.max_pool3d(x4n, 2), (1, 1, 1, 1, 1, 1)),
+               # the function reads the interior only
+               bound_ms(nbytes(x4n, y4), 0.0), 20)]),
+        ]
+        # the main form of each kernel: dec0.conv1 for K1
+        main_form = {"conv3d_halo": 1}
         out = []
-        for (name, src, line, kern, plain, lib, (bms, by), reps,
-             shape) in rows:
-            ms = event_ms(kern, reps)
-            pms = event_ms(plain, max(reps // 2, 3))
-            lms = event_ms(lib, reps)
-            ms2 = event_ms(kern, reps)     # kernel again: spread in one call
-            print(f"{name} {shape}: kernel {ms:.4f} / {ms2:.4f} ms, plain "
-                  f"{pms:.4f} ms, library {lms:.4f} ms, bound {bms:.4f} ms "
-                  f"({by})")
+        for name, src, line, fs in rows:
+            timed = []
+            for shape, kern, plain, lib, (bms, by), reps in fs:
+                ms = event_ms(kern, reps)
+                pms = event_ms(plain, max(reps // 2, 3))
+                lms = event_ms(lib, reps)
+                ms2 = event_ms(kern, reps)   # kernel again: spread in a call
+                print(f"{name} {shape}: kernel {ms:.4f} / {ms2:.4f} ms, "
+                      f"plain {pms:.4f} ms, library {lms:.4f} ms, bound "
+                      f"{bms:.4f} ms ({by})")
+                timed.append({"shape": shape, "ms": ms, "ms_again": ms2,
+                              "plain_ms": pms, "library_ms": lms,
+                              "bound_ms": bms, "bound_by": by})
+            m = timed[main_form.get(name, 0)]
             out.append({
                 "name": name, "route": "cuda",
                 "source": f"{PKG}/csrc/{src}",
                 "replaces": f"{REF}/ops/pallas/{line}",
                 "launches": report["launches"][name],
                 "max_abs_err": report[name]["max_abs_err"],
-                "ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
-                "library_ms": lms, "shape": shape})
-        # the other K1 call form of the main path (enc0.conv2, dec0.conv2)
-        kw1 = next(f for n, f in forms.items() if n.startswith("enc0"))
-        ms = event_ms(lambda: T.conv3d_halo(
-            kw1["xs"], kw1["w"], in_scale=kw1["in_scale"],
-            in_shift=kw1["in_shift"], in_relu=True, emit_stats=True), 10)
-        bms, by = bound_ms(nbytes(kw1["xs"][0], kw1["w"], yk), flops / 2)
-        print(f"conv3d_halo enc0.conv2/dec0.conv2 (1 input 32, affine+relu,"
-              f" stats): kernel {ms:.4f} ms, bound {bms:.4f} ms ({by})")
+                "ms": m["ms"], "plain_ms": m["plain_ms"],
+                "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+                "library_ms": m["library_ms"], "shape": m["shape"],
+                "forms": timed})
         return out
     kernels_json = run.phase("timings", timings)
+    for name, (bms, by) in unported_bounds().items():
+        print(f"not ported yet: {name} bound {bms:.4f} ms ({by})")
 
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(

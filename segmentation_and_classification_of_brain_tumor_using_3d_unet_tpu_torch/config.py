@@ -30,7 +30,8 @@ class ModelConfig:
     # (ops/ps2d.py): enc0's conv2, the decoder-last stage's two convs,
     # its transposed conv and the relayouts between them
     ps2d_eval: bool = False
-    # resolution levels in that region; the port runs level 0 only
+    # resolution levels in that region: 1 is level 0 only; 2 (or more)
+    # adds the level-1 region (enc1, the level-1 skip, the dec1 stage)
     ps2d_levels: int = 1
 
 
@@ -61,6 +62,12 @@ class InferenceConfig:
     crop_bucket_ladder: Tuple[int, ...] = (96, 128, 160, 192, 224, 256)
     warmup: str = "full"
     checkpoint: str = ""
+
+
+# classifier output names (JAX ``config.py`` ``CLASS_NAMES``)
+CLASS_NAMES: Tuple[str, ...] = (
+    "Background", "Necrotic Core", "Peritumoral Edema", "Enhancing Tumor",
+)
 
 
 @dataclass(frozen=True)

@@ -1,0 +1,68 @@
+"""3-D CNN tumour classifier, eval forward in bf16 (counterpart of the
+JAX package's ``models/classifier.py``): three 3x3x3 convs 4->32->64->128
+with ReLU, a 2x2x2 max pool after the first two, an adaptive average
+pool to 4^3, then fc 8192->512 (ReLU) -> num_classes.
+
+Tensors are NDHWC, as in JAX, so the flatten before ``fc1`` takes the
+(d, h, w, c) order that ``fc1``'s weights were made for.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+
+from ..device import resolve_device
+from ..ops.conv import BF16, FastConv3D, conv3d_zcat, matmul_bf16
+from ..ops.pool import max_pool3d
+from ..ops.resize import adaptive_avg_pool
+
+
+class Dense(nn.Module):
+    """Fully connected layer (flax ``nn.Dense``) in bf16: f32
+    accumulation, one rounding, bias added in bf16. ``weight`` is
+    (out, in), as ``torch.nn.Linear`` keeps it (the weight bridge
+    transposes flax's (in, out) kernel); made lecun-normal from
+    ``generator``, bias zero, as flax initialises."""
+
+    def __init__(self, cin: int, features: int, generator=None):
+        super().__init__()
+        self.weight = nn.Parameter(
+            torch.randn((features, cin), generator=generator)
+            * math.sqrt(1.0 / cin))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x):
+        return matmul_bf16(x, self.weight.t()) + self.bias.to(BF16)
+
+
+class BrainTumorClassifier(nn.Module):
+    """``forward(x)``: x (B, D, H, W, in_channels), D, H, W at least
+    16 -> logits (B, num_classes) f32."""
+
+    def __init__(self, in_channels: int = 4, num_classes: int = 4,
+                 seed: int = 0, device="cuda"):
+        super().__init__()
+        gen = torch.Generator().manual_seed(seed)
+        self.conv1 = FastConv3D(in_channels, 32, use_bias=True,
+                                generator=gen)
+        self.conv2 = FastConv3D(32, 64, use_bias=True, generator=gen)
+        self.conv3 = FastConv3D(64, 128, use_bias=True, generator=gen)
+        self.fc1 = Dense(4 * 4 * 4 * 128, 512, gen)
+        self.fc2 = Dense(512, num_classes, gen)
+        self.to(resolve_device(device))
+
+    @torch.no_grad()
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(BF16)
+        for i, conv in enumerate((self.conv1, self.conv2, self.conv3)):
+            # flax nn.Conv: a plain SAME conv with its bias, never the
+            # ksplit formulation FastConv3D picks for narrow outputs
+            x = torch.relu(conv3d_zcat(x, conv.kernel, conv.bias))
+            if i < 2:
+                x = max_pool3d(x)
+        x = adaptive_avg_pool(x, (4, 4, 4))
+        x = torch.relu(self.fc1(x.reshape(x.shape[0], -1)))
+        return self.fc2(x).float()

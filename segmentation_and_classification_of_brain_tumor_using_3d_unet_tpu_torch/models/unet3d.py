@@ -4,7 +4,7 @@ Counterpart of the JAX package's ``models/unet3d.py`` (``fast=True``):
 NDHWC tensors, bf16 compute with f32 accumulation and f32 norm
 statistics, the head BatchNorm applied in bf16 at eval. Module and
 parameter names follow the flax tree (``down0.conv1.kernel``,
-``head_bn.mean``, ...), so ``models.weights.load_unet3d_params`` moves
+``head_bn.mean``, ...), so ``models.weights.load_flax_params`` moves
 a JAX checkpoint in without a key map.
 
 With ``ps2d_eval`` the level-0 extremities run in the halo layout on
@@ -12,7 +12,10 @@ the hand-written kernels (``ops/ps2d.py``): enc0's conv2, and the whole
 decoder-last stage — the transposed conv, the attention gate folded
 into the convs, both convs with the skip/up concat in K, and the
 GroupNorm statistics emitted by the convs. That is the JAX package's
-``ps2d_levels=1`` region; level 1 (``ps2d_levels=2``) is not ported.
+``ps2d_levels=1`` region. ``ps2d_levels=2`` adds the level-1 region:
+enc0's output is pooled straight into the level-1 halo layout (K4),
+enc1 and the dec1 stage run wholly on the kernels, and the level-1
+skip stays in the halo layout between them.
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ from ..ops.pool import global_avg_pool, max_pool3d
 from ..ops.ps2d import (conv1x1_halo, conv3d_halo, global_avg_pool_halo,
                         group_norm_halo, group_norm_halo_affine,
                         halo_to_normal, max_pool3d_from_halo, pack_halo,
-                        up_k2s2_into_halo)
+                        pool_into_halo, up_k2s2_into_halo)
+from ..ops.resize import resize_trilinear
 
 
 class GroupNorm(nn.Module):
@@ -164,6 +168,8 @@ class AttentionGate3D(nn.Module):
     def forward(self, g, x):
         g1 = self.gn_g(self.w_g(g))
         x1 = self.gn_x(self.w_x(x))
+        if g1.shape[1:4] != x1.shape[1:4]:
+            g1 = resize_trilinear(g1, x1.shape[1:4])
         psi = torch.sigmoid(self.gn_psi(self.psi(torch.relu(g1 + x1))))
         return x * psi * self._se(global_avg_pool(x))
 
@@ -188,21 +194,21 @@ class UNet3D(nn.Module):
     """Segmentation U-Net (JAX ``UNet3D``), eval forward only.
 
     ``forward(x)``: x (B, D, H, W, in_channels) -> logits
-    (B, D, H, W, out_channels) f32. Parameters are made from ``seed``
-    with a ``torch.Generator`` (kaiming fan-out normal convs, as flax's
-    initialisers; the values differ from JAX's) on ``device``."""
+    (B, D, H, W, out_channels) f32; ``forward_with_bottleneck(x)`` also
+    returns the bottleneck's output (the joint grade head reads it).
+    Parameters are made from ``seed`` with a ``torch.Generator``
+    (kaiming fan-out normal convs, as flax's initialisers; the values
+    differ from JAX's) on ``device``. ``ps2d_levels`` >= 2 turns the
+    level-1 region on, as in JAX."""
 
     def __init__(self, in_channels: int = 4, out_channels: int = 4,
                  features: Sequence[int] = (32, 64, 128, 256, 512),
                  ps2d_eval: bool = False, ps2d_levels: int = 1,
                  seed: int = 0, device="cuda"):
         super().__init__()
-        if ps2d_levels != 1:
-            raise NotImplementedError(
-                "ps2d_levels > 1 (the level-1 region and its fused pool "
-                "kernel) is not ported yet")
         feats = tuple(features)
         self.features, self.ps2d_eval = feats, ps2d_eval
+        self.ps2d_levels = ps2d_levels
         gen = torch.Generator().manual_seed(seed)
         cin = in_channels
         for i, f in enumerate(feats):
@@ -226,8 +232,32 @@ class UNet3D(nn.Module):
         self.head_out = Conv1x1(feats[0] // 2, out_channels, generator=gen)
         self.to(resolve_device(device))
 
+    def halo_levels(self, shape) -> int:
+        """How many levels (from 0) run in the halo layout for an input
+        of spatial ``shape``: JAX's eligibility rule. Level 0 needs a
+        32-multiple width (K1's channel chunks; in JAX the GN parameter
+        shapes) and even dims, so the decoder-last up doubles level 1
+        back exactly; level 1 also needs ``ps2d_levels`` >= 2, a
+        32-multiple level-1 width, D % 4 == 0 and H, W % 8 == 0. (JAX
+        also drops a level whose TPU kernel plan does not fit its
+        on-chip memory budget; that limit has no counterpart here.)"""
+        feats, (D, H, W) = self.features, tuple(shape)
+        if not (self.ps2d_eval and feats[0] % 32 == 0
+                and D % 2 == 0 and H % 2 == 0 and W % 2 == 0):
+            return 0
+        if (self.ps2d_levels >= 2 and len(feats) >= 2
+                and feats[1] % 32 == 0 and D % 4 == 0 and H % 8 == 0
+                and W % 8 == 0):
+            return 2
+        return 1
+
     @torch.no_grad()
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.forward_with_bottleneck(x)[0]
+
+    @torch.no_grad()
+    def forward_with_bottleneck(self, x: torch.Tensor):
+        """(logits f32, bottleneck output bf16 (B, ..., 2 * features[-1]))."""
         feats = self.features
         n = len(feats)
         x = x.to(BF16)
@@ -235,41 +265,39 @@ class UNet3D(nn.Module):
         if min(full) < 2 ** n:
             raise ValueError(f"input spatial dims {full} too small for {n} "
                              f"encoder levels (need >= {2 ** n})")
-        # the level-0 region needs a 32-multiple width (K1's channel
-        # chunks; in JAX the GN parameter shapes) and even dims, so
-        # the decoder-last up exactly doubles level 1 back
-        region = (self.ps2d_eval and feats[0] % 32 == 0
-                  and all(s % 2 == 0 for s in full))
+        halo = self.halo_levels(full)
         skips = []
         for i in range(n):
             block = getattr(self, f"down{i}")
-            if region and i == 0:
-                x = block.forward_entry(x)
-                skips.append(x)                # stays in the halo layout
-                x = max_pool3d_from_halo(x)
+            if i < halo:
+                # the skip stays in the halo layout until its decoder
+                # stage; level 0 pools straight into the level-1 halo
+                # layout (K4) when level 1 is a region too
+                x = (block.forward_entry(x) if i == 0
+                     else block.forward_halo((x,)))
+                skips.append(x)
+                x = (pool_into_halo(x) if i + 1 < halo
+                     else max_pool3d_from_halo(x))
             else:
                 x = block(x)
                 skips.append(x)
                 x = max_pool3d(x)
         x = self.bottleneck(x)
+        bottleneck = x
         for i in range(n):
             skip = skips[-(i + 1)]
             up, att, dec = (getattr(self, f"{p}{i}")
                             for p in ("up", "att", "dec"))
-            want = tuple(s - 2 for s in skip.shape[1:4]) if (
-                region and i == n - 1) else tuple(skip.shape[1:4])
-            if tuple(2 * s for s in x.shape[1:4]) != want:
-                raise ValueError(
-                    f"decoder level {n - 1 - i}: upsampled {x.shape[1:4]} "
-                    f"does not double to the skip's {want}; that needs "
-                    f"resize_trilinear, which is not ported (pad the input "
-                    f"to a multiple of 2**{n})")
-            if region and i == n - 1:
+            if n - 1 - i < halo:
+                # halo_levels' gate makes the up double back exactly
                 up_h = up_k2s2_into_halo(x, up.kernel, up.bias)
                 gate = att.fold_halo(g=up_h, x=skip)
                 x = halo_to_normal(dec.forward_halo((skip, up_h), gate))
             else:
                 x = up(x)
-                x = dec(torch.cat([att(g=x, x=skip), x], dim=-1))
+                x_att = att(g=x, x=skip)
+                if x.shape[1:4] != skip.shape[1:4]:
+                    x = resize_trilinear(x, skip.shape[1:4])
+                x = dec(torch.cat([x_att, x], dim=-1))
         h = torch.relu(self.head_bn(self.head_conv(x)))
-        return self.head_out(h).float()
+        return self.head_out(h).float(), bottleneck

@@ -2,24 +2,29 @@
 ``state_dict``.
 
 The port's modules carry the flax names (``down0.conv1.kernel``,
-``head_bn.mean``) and layouts (DHWIO kernels), so the bridge only
-flattens the tree; ``load_state_dict`` then checks every key and shape.
+``head_bn.mean``, ``unet.down0.conv1.kernel``) and the flax layouts of
+conv kernels (DHWIO), so the bridge flattens the tree; the one change
+of layout is a Dense kernel (in, out), which becomes the port's
+``Dense.weight`` (out, in), transposed. ``load_state_dict`` then checks
+every key and shape. ``to_flax_variables`` is the inverse: a port
+model's weights as the JAX model's variable tree.
 """
 
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Mapping
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
 
 
-def load_unet3d_params(variables: Mapping) -> "OrderedDict[str, torch.Tensor]":
+def load_flax_params(variables: Mapping) -> "OrderedDict[str, torch.Tensor]":
     """``{"params": tree, "batch_stats": tree}`` (nested dicts of
-    numpy arrays, as ``UNet3D.init`` returns them converted to numpy)
-    -> a state dict for the port's ``UNet3D`` (f32 CPU tensors).
-    ``batch_stats`` may be absent."""
+    numpy arrays, as a flax ``init`` returns them converted to numpy)
+    -> a state dict (f32 CPU tensors) for the port's counterpart of
+    the model: ``UNet3D``, ``BrainTumorClassifier`` or
+    ``UNet3DWithClassifier``. ``batch_stats`` may be absent."""
     state: "OrderedDict[str, torch.Tensor]" = OrderedDict()
 
     def walk(node: Mapping, prefix: str) -> None:
@@ -27,10 +32,31 @@ def load_unet3d_params(variables: Mapping) -> "OrderedDict[str, torch.Tensor]":
             key = f"{prefix}.{name}" if prefix else str(name)
             if isinstance(value, Mapping):
                 walk(value, key)
-            else:
-                state[key] = torch.from_numpy(
-                    np.array(value, dtype=np.float32))
+                continue
+            t = torch.from_numpy(np.array(value, dtype=np.float32))
+            if name == "kernel" and t.ndim == 2:      # a Dense layer
+                key, t = f"{prefix}.weight", t.t().contiguous()
+            state[key] = t
 
     walk(variables["params"], "")
-    walk(variables.get("batch_stats", {}), "")
+    walk(variables.get("batch_stats") or {}, "")
     return state
+
+
+def to_flax_variables(state: Mapping[str, torch.Tensor]) -> Dict:
+    """A port model's ``state_dict`` -> ``{"params": tree,
+    "batch_stats": tree}`` of numpy arrays, the JAX model's variables
+    (running BatchNorm statistics under ``batch_stats``, Dense weights
+    transposed back to flax's (in, out) kernels)."""
+    tree: Dict = {"params": {}, "batch_stats": {}}
+    for key, value in state.items():
+        parts = key.split(".")
+        top = "batch_stats" if parts[-1] in ("mean", "var") else "params"
+        v = value.detach().float().cpu().numpy()
+        if parts[-1] == "weight":
+            parts[-1], v = "kernel", v.T.copy()
+        node = tree[top]
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return tree

@@ -35,6 +35,7 @@ SIGNATURES = {
                     _I, _I, _I, _I, _I, _P),
     "up_k2s2_into_halo": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "pack_halo": (_P, _P, _I, _I, _I, _I, _I, _P),
+    "pool_into_halo": (_P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 

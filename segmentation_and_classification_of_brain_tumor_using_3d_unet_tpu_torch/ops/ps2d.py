@@ -1,5 +1,6 @@
-"""The level-0 region of the eval forward: three hand-written CUDA
-kernels and the torch glue between them.
+"""The ps2d regions of the eval forward (level 0, and level 1 at
+``ps2d_levels=2``): four hand-written CUDA kernels and the torch glue
+between them.
 
 Counterpart of the JAX package's ``ops/pallas/ps2d.py``. There the
 region's tensors live in a packed space-to-depth "flat" form that fills
@@ -17,6 +18,9 @@ Kernels (``csrc/``), each with its plain PyTorch version beside it:
   * ``conv3d_halo`` (K1) — 3x3x3 conv over 1-2 halo inputs with the
     on-load affine / ReLU / mask and the output statistics (JAX
     ``ps2d_conv3d_flat_multi``).
+  * ``pool_into_halo`` (K4) — 2x2x2 max pool of a halo tensor into the
+    next level's halo layout, the level-1 region's entry (JAX
+    ``pool_into_flat``).
 
 A wrapper takes its plain version for tensors on the CPU only; for a
 CUDA tensor it launches its kernel or raises. Each keeps a count of its
@@ -310,7 +314,41 @@ def conv3d_halo(xs, w, in_scale=None, in_shift=None, in_relu=False,
 
 conv3d_halo.launches = 0
 
-KERNELS = (conv3d_halo, up_k2s2_into_halo, pack_halo)
+# ----------------------------------------------------------------------
+# K4: pool_into_halo
+# ----------------------------------------------------------------------
+
+
+def pool_into_halo_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of K4: the 2x2x2 max pool of a halo tensor, packed
+    into the next level's halo layout."""
+    return pack_halo_plain(max_pool3d_from_halo(x))
+
+
+def pool_into_halo(x: torch.Tensor) -> torch.Tensor:
+    """K4 (JAX ``pool_into_flat``): 2x2x2 stride-2 max pool of a halo
+    tensor (B, D+2, H+2, W+2, C) bf16 -> (B, D/2+2, H/2+2, W/2+2, C)
+    with a zero halo. D, H, W must be even and C a multiple of 8."""
+    if _on_cpu(x):
+        return pool_into_halo_plain(x)
+    B, Dp, Hp, Wp, C = x.shape
+    D, H, W = Dp - 2, Hp - 2, Wp - 2
+    if C % 8 or min(B, D, H, W) < 1 or D % 2 or H % 2 or W % 2:
+        raise ValueError(f"pool_into_halo: needs an even, non-empty "
+                         f"interior and C % 8 == 0, got {tuple(x.shape)}")
+    _check("pool_into_halo x", x)
+    y = torch.empty((B, D // 2 + 2, H // 2 + 2, W // 2 + 2, C), dtype=BF16,
+                    device=x.device)
+    lib = _lib()
+    lib.check("pool_into_halo", lib.pool_into_halo(
+        x.data_ptr(), y.data_ptr(), B, D, H, W, C, _stream()))
+    pool_into_halo.launches += 1
+    return y
+
+
+pool_into_halo.launches = 0
+
+KERNELS = (conv3d_halo, up_k2s2_into_halo, pack_halo, pool_into_halo)
 
 
 def reset_launch_counts() -> None:

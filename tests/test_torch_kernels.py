@@ -7,9 +7,10 @@ PyTorch and the CUDA toolkit:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_kernels.py
 
 (``tests/conftest.py`` imports JAX, hence ``--noconftest``.) Tolerances
-as in test_torch_ps2d.py: pack bit-exact; the transposed conv within
-1 bf16 ulp of max|ref|; the conv within 2^-7 * max|ref| and its sums
-within 1e-3 of the largest sum (f32 sums in another order, atomics).
+as in test_torch_ps2d.py: pack and pool bit-exact; the transposed conv
+within 1 bf16 ulp of max|ref|; the conv within 2^-7 * max|ref| and its
+sums within 1e-3 of the largest sum (f32 sums in another order,
+atomics).
 """
 
 import numpy as np
@@ -26,8 +27,10 @@ def _ulp(m):
     return 2.0 ** (np.floor(np.log2(max(m, 1e-30))) - 7)
 
 
-# (cis, co, affine, relu, mul0, stats): the region's three call forms
-# and the remaining combinations
+# (cis, co, affine, relu, mul0, stats): the level-0 region's three call
+# forms, the level-1 region's three (enc1.conv1 32->64, enc1/dec1.conv2
+# 64->64 with affine + ReLU, dec1.conv1 64+64->64 with the mask) and
+# the remaining combinations
 K1_CASES = [
     ((32,), 32, None, False, False, False),
     ((32,), 32, "both", True, False, True),
@@ -35,6 +38,9 @@ K1_CASES = [
     ((32, 32), 16, "both", False, True, True),
     ((64,), 64, "scale", True, False, False),
     ((32, 32), 32, "shift", True, False, True),
+    ((32,), 64, None, False, False, True),
+    ((64,), 64, "both", True, False, True),
+    ((64, 64), 64, None, False, True, True),
 ]
 
 
@@ -55,12 +61,24 @@ def test_pack_halo_kernel_matches_plain(cuda):
 
 
 @pytest.mark.gpu
-def test_up_k2s2_into_halo_kernel_matches_plain(cuda):
+@pytest.mark.parametrize("shape", [(2, 6, 10, 40, 32), (1, 4, 4, 4, 64)])
+def test_pool_into_halo_kernel_matches_plain(cuda, shape):
+    x = T.pack_halo(torch.randn(shape, device=cuda).to(BF16))
+    before = T.pool_into_halo.launches
+    y = T.pool_into_halo(x)
+    torch.testing.assert_close(y, T.pool_into_halo_plain(x), rtol=0, atol=0)
+    assert T.pool_into_halo.launches == before + 1
+    assert (y.float() * (1 - T.halo_mask(y).float())).abs().max() == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ci,co", [(64, 32), (128, 64)])
+def test_up_k2s2_into_halo_kernel_matches_plain(cuda, ci, co):
     g = torch.Generator(device=cuda).manual_seed(0)
-    x = torch.randn((2, 3, 5, 6, 64), device=cuda, generator=g).to(BF16)
-    w = (torch.randn((2, 2, 2, 64, 32), device=cuda, generator=g)
+    x = torch.randn((2, 3, 5, 6, ci), device=cuda, generator=g).to(BF16)
+    w = (torch.randn((2, 2, 2, ci, co), device=cuda, generator=g)
          * 0.1).to(BF16)
-    b = torch.randn((32,), device=cuda, generator=g) * 0.1
+    b = torch.randn((co,), device=cuda, generator=g) * 0.1
     before = T.up_k2s2_into_halo.launches
     got, ref = T.up_k2s2_into_halo(x, w, b), T.up_k2s2_into_halo_plain(x, w, b)
     assert T.up_k2s2_into_halo.launches == before + 1
@@ -110,3 +128,6 @@ def test_kernels_refuse_unsupported_inputs(cuda):
         T.conv3d_halo([torch.zeros((1, 4, 4, 4, 16), device=cuda,
                                    dtype=BF16)],
                       torch.zeros((3, 3, 3, 16, 32), device=cuda))
+    with pytest.raises(ValueError):      # odd interior
+        T.pool_into_halo(torch.zeros((1, 5, 6, 6, 32), device=cuda,
+                                     dtype=BF16))

@@ -1,11 +1,24 @@
-"""The port's Predictor.segment_tumor against the JAX package's, on the
-same skull-stripped (zero-background) volume and the same trained
-weights (tests/fixtures/ps2d_parity_params.npz, features (32,)), with a
-small ROI so the crop is covered by several blended windows.
+"""The port's Predictor against the JAX package's, on the same
+skull-stripped (zero-background) volume and the same weights (the
+trained fixture tests/fixtures/ps2d_parity_params.npz, features (32,),
+or seeded random weights of features (32, 64) for the level-1 region),
+with a small ROI so the crop is covered by several blended windows.
 
-Labels must agree at >= 0.99 of the voxels (the forward drifts by a few
-bf16 ulp, see test_torch_unet.py) and exactly outside the crop, where
-both paste background.
+The forward drifts by a few bf16 ulp (test_torch_unet.py), so:
+
+  * labels agree at >= 0.99 of the voxels, exactly outside the crop
+    (both paste background), and everywhere the reference's top-2 logit
+    margin exceeds twice the largest logit drift (the margin contract);
+  * a confidence (max softmax probability) moves by at most half the
+    largest logit drift (each softmax output is 1/2-Lipschitz in the
+    max norm of the logits), plus 1e-6 of f32 rounding; outside the
+    crop it is exactly 1.0 on both sides;
+  * mirror TTA averages 8 such forwards, so its probabilities move by
+    at most half the largest drift over the 8 flips: held to the
+    cropped run's bound with a factor 2 for the drift of the other
+    flips;
+  * classification: the same class, confidence within 2^-6 (the
+    classifier's logits agree to a bf16 ulp, test_torch_classifier.py).
 """
 
 import numpy as np
@@ -20,7 +33,10 @@ from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.infe
 from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.inference.predictor import (
     Predictor)
 
-from test_torch_unet import _fixture_variables
+from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.models import (
+    BrainTumorClassifier, UNet3D, UNet3DWithClassifier)
+
+from test_torch_unet import _fixture_variables, flax_variables
 
 ROI = (16, 16, 16)
 
@@ -74,11 +90,100 @@ def test_predictor_entry_points():
             Predictor(tcfg.Config(model=tcfg.ModelConfig(features=(32,))))
     tp = Predictor(tcfg.Config(
         model=tcfg.ModelConfig(features=(32,)),
+        data=tcfg.DataConfig(image_size=ROI),
         inference=tcfg.InferenceConfig(roi_size=ROI)), seed=1,
         device="cpu")
     vol = _volume()
     labels = tp.segment_tumor(vol[..., 0])     # one modality, tiled
     assert labels.shape == vol.shape[:3] and labels.dtype == np.int8
     tp.load_seg_params(_fixture_variables()["params"])
-    with pytest.raises(NotImplementedError):
-        tp.segment_tumor(vol, mode="whole_volume")
+    labels = tp.segment_tumor(vol, mode="whole_volume")
+    assert labels.shape == vol.shape[:3] and labels.dtype == np.int8
+    assert tp.classify_grade(vol) is None      # no joint weights yet
+
+
+# ----------------------------------------------------------------------
+# the server's request: segment_with_confidence, TTA, whole_volume,
+# classify_tumor, classify_grade
+# ----------------------------------------------------------------------
+
+CASES = {
+    # trained fixture, the level-0 region
+    "fixture-levels1": dict(features=(32,), levels=1),
+    # seeded random weights, the level-1 region (ps2d_levels=2)
+    "random-levels2": dict(features=(32, 64), levels=2),
+}
+
+
+def _pair(case, ps2d=True, image_size=ROI):
+    """(JAX Predictor, port Predictor) with the same weights."""
+    c = CASES[case]
+    seg = (_fixture_variables() if c["features"] == (32,) else
+           flax_variables(UNet3D(features=c["features"], seed=6,
+                                 device="cpu")))
+    cls = flax_variables(BrainTumorClassifier(seed=7, device="cpu"))
+    inf = dict(roi_size=ROI, overlap=0.5, sw_batch_size=4,
+               crop_bucket_ladder=())
+    model = dict(features=c["features"], ps2d_eval=ps2d,
+                 ps2d_levels=c["levels"])
+    jp = JPredictor(
+        jcfg.Config(model=jcfg.ModelConfig(**model),
+                    data=jcfg.DataConfig(image_size=image_size),
+                    inference=jcfg.InferenceConfig(**inf)),
+        seg_variables=seg, cls_variables={"params": cls["params"]})
+    tp = Predictor(
+        tcfg.Config(model=tcfg.ModelConfig(**model),
+                    data=tcfg.DataConfig(image_size=image_size),
+                    inference=tcfg.InferenceConfig(**inf)),
+        seg_variables=seg, cls_variables={"params": cls["params"]},
+        device="cpu")
+    return jp, tp
+
+
+def _drift(jp, tp, vol, mode):
+    """(max |d logit|, reference top-2 margin) of one segmentation."""
+    ref = np.asarray(jp._segment_logits(jp._canon(vol), mode)[0])
+    got = tp._segment_logits(tp._canon(vol), mode)[0].numpy()
+    top2 = np.sort(ref, axis=-1)
+    return np.abs(got - ref).max(), top2[..., -1] - top2[..., -2]
+
+
+def _crop_mask(vol):
+    """(mask of the crop window in the volume, the window's slices in
+    the crop: the bucket may reach past the volume's far edge)."""
+    offs, bucket = cropping.plan_crop(vol, multiple=16, min_size=16)
+    sl = tuple(slice(o, min(o + b, f))
+               for o, b, f in zip(offs, bucket, vol.shape[:3]))
+    inside = np.zeros(vol.shape[:3], bool)
+    inside[sl] = True
+    return inside, sl, tuple(slice(0, s.stop - s.start) for s in sl)
+
+
+def test_classify_tumor_matches_jax():
+    jp, tp = _pair("fixture-levels1")
+    vol = _volume()
+    for v in (vol, vol[..., :3]):          # 3 modalities: tiled to 4
+        ref, got = jp.classify_tumor(v), tp.classify_tumor(v)
+        assert got[0] == ref[0] and abs(got[1] - ref[1]) <= 2 ** -6, (
+            got, ref)
+    seg = tp.segment_tumor(vol, mode="cropped")
+    assert (seg > 0).any()
+    ref, got = jp.classify_tumor(vol, seg), tp.classify_tumor(vol, seg)
+    assert got[0] == ref[0] and abs(got[1] - ref[1]) <= 2 ** -6
+    none = np.zeros(vol.shape[:3], np.int8)
+    assert tp.classify_tumor(vol, none) == jp.classify_tumor(vol, none) \
+        == ("No Tumor Detected", 0.95)
+
+
+def test_classify_grade_matches_jax():
+    jp, tp = _pair("fixture-levels1")
+    vol = _volume()
+    assert tp.classify_grade(vol) is None and jp.classify_grade(vol) is None
+    joint = UNet3DWithClassifier(features=(32,), seed=8, device="cpu")
+    joint.unet.load_state_dict(tp.seg_model.state_dict())
+    tree = flax_variables(joint)
+    jp.load_joint_grade(tree["params"], tree["batch_stats"])
+    tp.load_joint_grade(tree["params"], tree["batch_stats"])
+    ref, got = jp.classify_grade(vol), tp.classify_grade(vol)
+    assert isinstance(got[0], int) and got[0] == ref[0], (got, ref)
+    assert abs(got[1] - ref[1]) <= 2 ** -6, (got, ref)

@@ -91,9 +91,10 @@ def test_up_k2s2_into_halo_plain_matches_up_k2s2_into_flat(
     assert (_np(y) * (1 - _np(T.halo_mask(y)))).max() == 0
 
 
-# (cis, co, affine, relu, mul0, stats): the region's three call forms
-# (enc0/dec0 conv2: affine+relu+stats; dec0 conv1: two inputs, mask,
-# stats) and the remaining combinations
+# (cis, co, affine, relu, mul0, stats): the level-0 region's three call
+# forms (enc0/dec0 conv2: affine+relu+stats; dec0 conv1: two inputs,
+# mask, stats), two of the level-1 region's and the remaining
+# combinations
 K1_CASES = [
     ((32,), 32, None, False, False, False),
     ((32,), 32, "both", True, False, True),
@@ -101,6 +102,9 @@ K1_CASES = [
     ((32, 32), 16, "both", False, True, True),
     ((64,), 64, "scale", True, False, False),
     ((32, 32), 32, "shift", True, False, True),
+    # the level-1 region's enc1.conv1 and dec1.conv1 forms
+    ((32,), 64, None, False, False, True),
+    ((64, 64), 64, None, False, True, True),
 ]
 
 
@@ -114,7 +118,11 @@ def test_conv3d_halo_plain_matches_ps2d_conv3d_flat_multi(
     if len(cis) == 1:
         plan = J.make_ps2d_plan(H // 2, W // 2, cis[0], co)
     else:
-        plan = J.make_ps2d_plan_multi(H // 2, W // 2, cis, co)
+        # the level-1 concat conv needs the larger on-chip memory budget
+        # the JAX UNet gives it (models/unet3d.py, dec_plan_l1)
+        plan = (J.make_ps2d_plan_multi(H // 2, W // 2, cis, co)
+                or J.make_ps2d_plan_multi(H // 2, W // 2, cis, co,
+                                          vmem_budget=28 * 2 ** 20))
     xfs = [_flat(x_np, J.input_plan(plan, i))
            for i, (x_np, _) in enumerate(xs)]
     kw_j, kw_t = {}, {}

@@ -25,7 +25,7 @@ import torch
 from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu.models import (
     UNet3D as JUNet3D)
 from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.models import (
-    UNet3D, load_unet3d_params)
+    UNet3D, load_flax_params, to_flax_variables)
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures",
                        "ps2d_parity_params.npz")
@@ -41,7 +41,7 @@ def _jax_logits(features, ps2d, variables, x):
 
 def _port(variables, features, ps2d):
     model = UNet3D(features=features, ps2d_eval=ps2d, device="cpu")
-    model.load_state_dict(load_unet3d_params(variables))
+    model.load_state_dict(load_flax_params(variables))
     return model.eval()
 
 
@@ -49,15 +49,7 @@ def flax_variables(model):
     """A port model's weights as the JAX model's variable tree (numpy).
     Cheaper than ``UNet3D.init``, which takes about a minute op by op on
     one CPU core."""
-    tree = {"params": {}, "batch_stats": {}}
-    for key, value in model.state_dict().items():
-        parts = key.split(".")
-        top = "batch_stats" if parts[-1] in ("mean", "var") else "params"
-        node = tree[top]
-        for p in parts[:-1]:
-            node = node.setdefault(p, {})
-        node[parts[-1]] = value.numpy()
-    return tree
+    return to_flax_variables(model.state_dict())
 
 
 @pytest.mark.parametrize("ps2d", [False, True])
@@ -113,7 +105,7 @@ def test_weight_bridge_covers_the_tree():
     """Every JAX parameter and batch statistic lands on a port tensor of
     the same shape, and nothing of the port is left out."""
     variables = _fixture_variables()
-    state = load_unet3d_params(variables)
+    state = load_flax_params(variables)
     model = UNet3D(features=(32,), device="cpu")
     assert set(state) == set(model.state_dict())
     for k, v in model.state_dict().items():
@@ -124,10 +116,62 @@ def test_weight_bridge_covers_the_tree():
 
 
 def test_unported_options_raise():
+    from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch import config as tcfg
+    from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.inference.predictor import (
+        Predictor)
+    # the port computes in bf16 only
     with pytest.raises(NotImplementedError):
-        UNet3D(features=(32, 64), ps2d_eval=True, ps2d_levels=2,
-               device="cpu")
+        Predictor(tcfg.Config(model=tcfg.ModelConfig(
+            features=(32,), compute_dtype="float32")), device="cpu")
     model = UNet3D(features=(32, 64), device="cpu")
-    # level-1 dims that do not double back need resize_trilinear
+    # fewer than 2**levels voxels on an axis
     with pytest.raises(ValueError):
-        model(torch.zeros((1, 4, 6, 8, 4)))
+        model(torch.zeros((1, 2, 8, 8, 4)))
+
+
+def test_unet_odd_levels_match_jax():
+    """Interior levels that do not double back are reconciled with
+    resize_trilinear (decoder input and attention-gate signal), as in
+    JAX; bounds of test_unet_eval_matches_jax."""
+    rng = np.random.default_rng(8)
+    x = rng.normal(size=(1, 4, 6, 10, 4)).astype(np.float32)
+    variables = flax_variables(UNet3D(features=(32, 64), seed=4,
+                                      device="cpu"))
+    ref = _jax_logits((32, 64), False, variables, x)
+    out = _port(variables, (32, 64), False)(torch.from_numpy(x)).numpy()
+    assert out.shape == ref.shape == (1, 4, 6, 10, 4)
+    d = np.abs(out - ref)
+    scale = max(np.abs(ref).max(), 1.0)
+    assert d.max() <= 2 ** -5 * scale, (d.max(), scale)
+    assert d.mean() <= 2 ** -9 * scale, (d.mean(), scale)
+    assert (out.argmax(-1) == ref.argmax(-1)).mean() >= 0.99
+
+
+def test_level2_ineligible_shape_stays_at_level0(monkeypatch):
+    """ps2d_levels=2 on a shape whose level 1 is ineligible (H % 8 != 0):
+    both packages run the level-0 region only, and agree."""
+    from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu.ops.pallas import ps2d as J
+    rng = np.random.default_rng(9)
+    x = rng.normal(size=(1, 8, 12, 16, 4)).astype(np.float32)
+    variables = flax_variables(UNet3D(features=(32, 64), seed=5,
+                                      device="cpu"))
+    calls = []
+    real = J.pool_into_flat
+    monkeypatch.setattr(J, "pool_into_flat",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    jm = JUNet3D(out_channels=4, features=(32, 64), dtype=jnp.bfloat16,
+                 ps2d_eval=True, ps2d_levels=2)
+    ref = np.asarray(jax.jit(
+        lambda v, a: jm.apply(v, a, train=False)["logits"])(
+            variables, jnp.asarray(x)))
+    assert not calls
+    model = UNet3D(features=(32, 64), ps2d_eval=True, ps2d_levels=2,
+                   device="cpu")
+    model.load_state_dict(load_flax_params(variables))
+    assert model.halo_levels(x.shape[1:4]) == 1
+    out = model.eval()(torch.from_numpy(x)).numpy()
+    d = np.abs(out - ref)
+    scale = max(np.abs(ref).max(), 1.0)
+    assert d.max() <= 2 ** -5 * scale, (d.max(), scale)
+    assert d.mean() <= 2 ** -9 * scale, (d.mean(), scale)
+    assert (out.argmax(-1) == ref.argmax(-1)).mean() >= 0.99
