@@ -6,10 +6,12 @@
 Run from the root of a checkout, on a machine with a CUDA device and
 the CUDA toolkit. Imports no JAX. Phases, each printing its seconds:
 
-  1. build  — compile the port's kernels (one nvcc call) and load them;
+  1. build  — compile the port's kernels (one nvcc per source, all at
+     once, then a link) and load them;
   2. kernels — each kernel against its plain PyTorch version at the
      serving path's shapes (batch 4 windows of 128^3), the level-1
-     region's call forms included;
+     region's call forms included, and K1 at co = 128 (the level-1
+     width of HighQualityConfig);
   3. slice  — a full-width Predictor (ps2d_eval=True, ps2d_levels=1,
      random weights from a seed) segments three synthetic 240x240x155
      volumes in "cropped" mode; every kernel of that path must have
@@ -23,9 +25,19 @@ the CUDA toolkit. Imports no JAX. Phases, each printing its seconds:
      mirror-TTA request and one "whole_volume" request, each with its
      launch counts asserted; then the level-2 kernel path against the
      normal path;
-  5. timings — CUDA-event times of each kernel (and of each of its
+  5. train — the train step at full width (UNet3D(ps2d_train=True), remat,
+     Config() defaults: deep-supervision combined loss, AdamW 1e-4 with
+     SGDR) on a batch 2 of 4x128^3: five steps with dropout, the losses
+     finite and falling, K1 launched 7 times a step (3 forwards, 4 data
+     gradients) and K2-K4 never; K6's forward, data and weight
+     gradients against their plain versions at the region's three call
+     forms, a cotangent with garbage on the halo; the kernel path's
+     loss and gradients against the normal path's; one grad_accum=2
+     step against the full batch; one joint step and one eval step;
+  6. timings — CUDA-event times of each kernel (and of each of its
      call forms), its plain version and one library call computing the
-     same function, beside its bound.
+     same function, beside its bound; K6's forward, data gradient and
+     weight gradient apart, and the train step's time and peak memory.
 
 It prints the per-kernel JSON line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Any failure, or a run past
@@ -98,19 +110,45 @@ def unported_bounds() -> dict:
     """Bounds of the TPU kernels not ported yet, at the shapes where the
     JAX package runs them or would on the serving path (bf16, 2 B a
     value): K5 a GroupNorm (+ReLU, +residual) at the level-0 shape
-    (4, 128^3, 32); K6 one level-0 conv's forward, data grad and weight
-    grad at benchmarks/train_bench.py's batch 2 of 128^3, 32 -> 32; K7
-    benchmarks/bench_wtile.py's first shape (1, 240, 240, 160), 32 -> 32."""
+    (4, 128^3, 32); K7 benchmarks/bench_wtile.py's first shape
+    (1, 240, 240, 160), 32 -> 32."""
     gn = 4 * 128 ** 3 * 32 * 2
     return {
         "fused_group_norm": bound_ms(2 * gn, 0.0),
         "fused_group_norm (residual)": bound_ms(3 * gn, 0.0),
-        # reads x and dy, writes y and dx; three convs' operations
-        "ps2d_conv3d_flat_train": bound_ms(
-            4 * 2 * 128 ** 3 * 32 * 2, 3 * 2.0 * 27 * 32 * 32 * 2 * 128 ** 3),
         "wtile_conv3d": bound_ms(2 * 240 * 240 * 160 * 32 * 2,
                                  2.0 * 27 * 32 * 32 * 240 * 240 * 160),
     }
+
+
+def grads_directional(got: dict, ref: dict) -> tuple:
+    """Per-leaf cosine >= 0.9 and norm ratio in [0.5, 2] (JAX's rule for
+    its kernel path, tests/test_ps2d.py:538-606), leaves of fewer than 8
+    values or of norm below 1e-6 skipped; ``head_conv.bias`` feeds a
+    BatchNorm on batch statistics, so its gradient is zero in exact
+    arithmetic: only its smallness is checked. Returns (leaves checked,
+    least cosine, least ratio, largest ratio)."""
+    n, cmin, rmin, rmax = 0, 1.0, float("inf"), 0.0
+    for k, b in ref.items():
+        a = got[k]
+        if a is None or b is None:
+            check(a is None and b is None, f"gradient of {k} on one side")
+            continue
+        check(bool(a.isfinite().all()), f"non-finite gradient {k}")
+        a, b = a.float().reshape(-1), b.float().reshape(-1)
+        if k == "head_conv.bias":
+            check(a.norm() <= 1e-2 * got["head_conv.kernel"].float().norm(),
+                  "head_conv.bias gradient not ~0")
+            continue
+        na, nb = a.norm().item(), b.norm().item()
+        if a.numel() < 8 or na < 1e-6 or nb < 1e-6:
+            continue
+        c = (a @ b).item() / (na * nb)
+        n, cmin = n + 1, min(cmin, c)
+        rmin, rmax = min(rmin, na / nb), max(rmax, na / nb)
+        check(c >= 0.9 and 0.5 <= na / nb <= 2.0,
+              f"gradient of {k}: cosine {c:.4f}, norm ratio {na / nb:.4f}")
+    return n, cmin, rmin, rmax
 
 
 class Run:
@@ -150,7 +188,6 @@ def profile_request(pred, vol, cropping) -> None:
     the device's busy share and its top kernels. Opt-in
     (``--profile``)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     ic = pred.config.inference
 
@@ -182,10 +219,19 @@ def profile_request(pred, vol, cropping) -> None:
         pred.classify_tumor(vol, seg)
         pred.classify_grade(vol)
 
+    device_profile(request, "request")
+
+
+def device_profile(fn, label: str, top: int = 15) -> None:
+    """``fn`` once under ``torch.profiler``: its wall time, the device's
+    busy time and idle share, and the ``top`` kernels by device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        request()
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
 
@@ -196,9 +242,9 @@ def profile_request(pred, vol, cropping) -> None:
     kern = [e for e in prof.key_averages()
             if str(e.device_type).endswith("CUDA") and dev_us(e) > 0]
     busy = sum(dev_us(e) for e in kern) / 1e3
-    print(f"  profiled request: {wall:.2f} ms wall, device busy "
+    print(f"  profiled {label}: {wall:.2f} ms wall, device busy "
           f"{busy:.2f} ms, idle share {1 - busy / wall:.4f}")
-    for e in sorted(kern, key=dev_us, reverse=True)[:15]:
+    for e in sorted(kern, key=dev_us, reverse=True)[:top]:
         print(f"    {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
 
 
@@ -208,8 +254,9 @@ def main() -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also break one server request down (host "
-                         "steps, device busy share, top kernels)")
+                    help="also break one server request and one train "
+                         "step down (host steps, device busy share, top "
+                         "kernels)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -220,6 +267,7 @@ def main() -> int:
         T = import_module(PKG + ".ops.ps2d")
         native = import_module(PKG + ".ops.native")
         cfg = import_module(PKG + ".config")
+        train_mod = import_module(PKG + ".train")
         Predictor = import_module(PKG + ".inference.predictor").Predictor
         models = import_module(PKG + ".models")
         cropping = import_module(PKG + ".inference.cropping")
@@ -326,6 +374,13 @@ def main() -> int:
                 xs=(h1[1], h1[2]), w=rnd((3, 3, 3, 2 * C1, C1),
                                          (2 / (27 * C1)) ** 0.5),
                 in_mul0=mask(S1, C1)),
+            # any 32-multiple co (two channel tiles of 64): the level-1
+            # width of HighQualityConfig, features (64, 128, ...)
+            "co=128 (1 input 128 -> 128 at 64^3, affine+relu, stats)": dict(
+                xs=(T.pack_halo_plain(rnd((B, S1, S1, S1, 2 * C1))),),
+                w=rnd((3, 3, 3, 2 * C1, 2 * C1), (2 / (27 * 2 * C1)) ** 0.5),
+                in_scale=1 + rnd((B, 2 * C1), 0.3),
+                in_shift=rnd((B, 2 * C1), 0.3), in_relu=True),
         }
         worst = 0.0
         for name, kw in forms.items():
@@ -525,6 +580,211 @@ def main() -> int:
     del pred
 
     # ---------------------------------------------------------------- 5
+    def train():
+        conf = cfg.Config()
+        mc = conf.model
+        check(mc.features == (32, 64, 128, 256, 512) and mc.remat
+              and conf.batch_size == 2, "not the full-width train setting")
+        TB = conf.batch_size
+        gen = torch.Generator(device=dev).manual_seed(1)
+        image = torch.randn((TB, S, S, S, 4), device=dev, generator=gen)
+        # a label mask the net can fit (tests/test_ps2d.py:617-619)
+        mask = (torch.rand((TB, S, S, S), device=dev, generator=gen)
+                < 0.2).long() * 2
+        batch = {"image": image, "mask": mask}
+
+        def new_model(ps2d=True, rate=mc.dropout_rate):
+            return models.UNet3D(features=mc.features, ps2d_train=ps2d,
+                                 remat=mc.remat, dropout_rate=rate, seed=0)
+
+        # five steps at Config() defaults, dropout on
+        state = train_mod.create_train_state(new_model(), conf,
+                                             steps_per_epoch=10)
+        step = train_mod.make_train_step(conf)
+        # K6 has no kernel of its own: its forwards and data gradients
+        # are K1's launches (3 + 4 a step)
+        want = {"conv3d_halo": 7,
+                "up_k2s2_into_halo": 0, "pack_halo": 0, "pool_into_halo": 0}
+        losses, step_ms, total = [], [], dict.fromkeys(want, 0)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()   # the earlier phases' tensors
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(5):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+            def one():
+                ev[0].record()
+                out = step(state, batch, gen)
+                ev[1].record()
+                return out
+
+            (_, m), counts = request_counts(one)
+            step_ms.append(ev[0].elapsed_time(ev[1]))
+            losses.append(float(m["loss"]))
+            print(f"train step {i}: loss {losses[-1]:.5f} dice "
+                  f"{float(m['dice']):.4f} grad_norm "
+                  f"{float(m['grad_norm']):.4f} lr "
+                  f"{train_mod.current_lr(state, conf.optimizer, 10):.3e}; "
+                  f"{step_ms[-1]:.1f} ms; launches {counts}")
+            check(counts == want, f"launches {counts} != {want}")
+            total = {k: total[k] + counts[k] for k in total}
+        peak = torch.cuda.max_memory_allocated()
+        check(all(np.isfinite(losses)), f"non-finite loss {losses}")
+        check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+        if args.profile:
+            device_profile(lambda: step(state, batch, gen),
+                           "train step (a sixth, dropout on)", top=25)
+            # the kernel path's step against the normal path's, fresh
+            # states from the same seed, alternated K N N K twice
+            sides = {"kernel": True, "normal": False}
+            states = {k: train_mod.create_train_state(new_model(ps2d=v),
+                                                      conf, 10)
+                      for k, v in sides.items()}
+            secs = {k: [] for k in sides}
+            for st in states.values():          # first calls, untimed
+                step(st, batch, gen)
+            for side in ("kernel", "normal", "normal", "kernel") * 2:
+                e0, e1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                torch.cuda.reset_peak_memory_stats()
+                e0.record()
+                step(states[side], batch, gen)
+                e1.record()
+                torch.cuda.synchronize()
+                secs[side].append((e0.elapsed_time(e1),
+                                   torch.cuda.max_memory_allocated()))
+            del states
+            for side, v in secs.items():
+                print(f"  {side}-path train steps: "
+                      f"{' '.join(f'{ms:.1f}' for ms, _ in v)} ms, median "
+                      f"{np.median([ms for ms, _ in v]):.1f} ms; peak "
+                      f"{max(b for _, b in v) / 2 ** 30:.2f} GiB")
+        report["train"] = {
+            "losses": losses, "step_ms": step_ms,
+            "step_ms_median_2_5": float(np.median(step_ms[1:])),
+            "peak_bytes": peak, "peak_bytes_above_base": peak - base,
+            "launches": total}
+        print(f"train: losses {[round(v, 5) for v in losses]}; steady step "
+              f"{report['train']['step_ms_median_2_5']:.1f} ms (median of "
+              f"steps 2-5); peak memory {peak / 2 ** 30:.2f} GiB, "
+              f"{(peak - base) / 2 ** 30:.2f} GiB above the "
+              f"{base / 2 ** 30:.2f} GiB the earlier phases hold")
+
+        # eval step on the trained state (the eval forward, normal path)
+        t = time.perf_counter()
+        ev = train_mod.make_eval_step(conf, with_hausdorff=True)(state,
+                                                                 batch)
+        hd = ev["hausdorff"].tolist()
+        print(f"eval step: loss {float(ev['loss']):.5f} dice "
+              f"{float(ev['dice']):.4f} WT/TC/ET "
+              f"{[round(float(ev['dice_' + k]), 4) for k in ('WT', 'TC', 'ET')]}"
+              f" HD95 {hd} in {time.perf_counter() - t:.2f} s")
+        check(np.isfinite(float(ev["loss"])) and 0 <= float(ev["dice"]) <= 1
+              and ev["pred_labels"].shape == mask.shape
+              and not any(np.isnan(hd)), "bad eval step")
+        del state, ev
+
+        # the kernel path's loss and gradients against the normal path's,
+        # same parameters and batch, dropout off
+        loss_fn = train_mod.make_loss_fn(conf)
+
+        def loss_grads(model):
+            out = model.forward_train(image)
+            loss = loss_fn(out, mask)
+            names, params = zip(*model.named_parameters())
+            gs = torch.autograd.grad(loss, params, allow_unused=True)
+            return float(loss.detach()), dict(zip(names, gs))
+
+        km = new_model(rate=0.0)
+        lk, gk = loss_grads(km)
+        nm = new_model(ps2d=False, rate=0.0)
+        nm.load_state_dict(km.state_dict())
+        ln, gn = loss_grads(nm)
+        del km, nm
+        n, cmin, rmin, rmax = grads_directional(gk, gn)
+        print(f"train kernel path vs normal path: loss {lk:.6f} vs {ln:.6f} "
+              f"(rel {abs(lk - ln) / abs(ln):.2e}, bound 1e-2); {n} gradient "
+              f"leaves: least cosine {cmin:.4f} (bound 0.9), norm ratio "
+              f"{rmin:.4f}-{rmax:.4f} (bound 0.5-2)")
+        check(abs(lk - ln) <= 1e-2 * abs(ln), "kernel-path loss drifts")
+        del gk, gn
+
+        # grad_accum=2 against the full batch, dropout off
+        norms = []
+        for accum in (1, 2):
+            st = train_mod.create_train_state(new_model(rate=0.0), conf,
+                                              steps_per_epoch=10)
+            (_, m), counts = request_counts(lambda: train_mod.make_train_step(
+                conf.replace(grad_accum=accum))(st, batch, gen))
+            norms.append(float(m["grad_norm"]))
+            w = {k: v * accum if k.startswith("conv3d_halo") else v
+                 for k, v in want.items()}
+            check(counts == w, f"grad_accum={accum}: launches {counts}")
+            del st
+        print(f"grad_accum=2 vs full batch: grad_norm {norms[1]:.6f} vs "
+              f"{norms[0]:.6f} (rel {abs(norms[1] - norms[0]) / norms[0]:.2e},"
+              f" bound 1e-3)")
+        check(abs(norms[1] - norms[0]) <= 1e-3 * norms[0],
+              "grad_accum=2 gradient differs from the full batch's")
+
+        # one joint step (the trunk on the normal path, as in JAX)
+        joint = models.UNet3DWithClassifier(seed=0, remat=mc.remat)
+        js = train_mod.create_train_state(joint, conf, steps_per_epoch=10)
+        (_, m), counts = request_counts(
+            lambda: train_mod.make_joint_train_step(conf)(js, batch, gen))
+        vals = {k: float(v) for k, v in m.items()}
+        print(f"joint step: {vals}; launches {counts}")
+        check(all(np.isfinite(list(vals.values())))
+              and 0 <= vals["grade_acc"] <= 1 and not any(counts.values()),
+              "bad joint step")
+        del joint, js
+
+        # K6 against its plain version at the region's three call forms,
+        # batch 2: a cotangent with garbage on the halo
+        def halo(c):
+            return T.pack_halo_plain(rnd((TB, S, S, S, c)))
+
+        k6 = {
+            "enc0.conv2 (2,130^3,32)->32": ((halo(C),), C),
+            "dec0.conv1 2x(2,130^3,32)->32": ((halo(C), halo(C)), C),
+            "dec0.conv2 (2,130^3,32)->32": ((halo(C),), C),
+        }
+        worst, forms6 = 0.0, {}
+        for name, (xs, co) in k6.items():
+            ci = sum(x.shape[-1] for x in xs)
+            w = rnd((3, 3, 3, ci, co), (2 / (27 * co)) ** 0.5)
+            dy = T.pack_halo_plain(rnd((TB, S, S, S, co)))
+            dy = dy + 100 * rnd(dy.shape) * (1 - T.halo_mask(dy))
+
+            def run(fn):
+                xr = [x.clone().requires_grad_() for x in xs]
+                wr = w.clone().requires_grad_()
+                y = fn(xr, wr)
+                g = torch.autograd.grad(y, [wr, *xr], dy)
+                return [y.detach(), g[0], *g[1:]]
+
+            got, ref = run(T.conv3d_halo_train), run(T.conv3d_halo_train_plain)
+            torch.cuda.synchronize()
+            errs = []
+            for label, a, b, tol in zip(["y", "dw"] + [f"dx{i}" for i in
+                                                       range(len(xs))],
+                                        got, ref, [2 ** -7] + [2 ** -5] * 3):
+                e = (a.float() - b.float()).abs().max().item()
+                m = b.float().abs().max().item()
+                errs.append(f"{label} {e:.5f} (tolerance {tol * m:.5f})")
+                check(e <= tol * m, f"K6 {name}: {label} differs from the "
+                      f"plain version ({e} > {tol} * {m})")
+                worst = max(worst, e)
+            for dx in got[2:]:
+                check((dx.float() * (1 - T.halo_mask(dx).float())).abs()
+                      .max().item() == 0, "K6 dx has a non-zero halo")
+            print(f"conv3d_halo_train {name}: max_abs_err " + ", ".join(errs))
+            forms6[name] = (xs, w, dy)
+        report["conv3d_halo_train"] = {"max_abs_err": worst}
+        return forms6
+    forms6 = run.phase("train", train)
+
+    # ---------------------------------------------------------------- 6
     def timings():
         import torch.nn.functional as F
 
@@ -557,6 +817,42 @@ def main() -> int:
                     bound_ms(nbytes(x2, w2, b2, y2),
                              2.0 * x2.numel() * 8 * w2.shape[-1]), 20)
 
+        def train_row(name):
+            """K6 at one call form: forward + both gradients (the
+            function), and the three pieces apart."""
+            xs, w, dy = forms6[name]
+            cis = [x.shape[-1] for x in xs]
+            xr = [x.clone().requires_grad_() for x in xs]
+            wr = w.clone().requires_grad_()
+
+            def fwd_bwd(fn):
+                return lambda: torch.autograd.grad(fn(xr, wr), [wr, *xr], dy)
+
+            xn = torch.cat([T.halo_to_normal(x) for x in xs], -1).permute(
+                0, 4, 1, 2, 3)
+            wn = w.permute(4, 3, 0, 1, 2).contiguous()
+            dyn = T.halo_to_normal(dy).permute(0, 4, 1, 2, 3)
+
+            def library():
+                F.conv3d(xn, wn, padding=1)
+                torch.ops.aten.convolution_backward(
+                    dyn, xn, wn, None, [1, 1, 1], [1, 1, 1], [1, 1, 1],
+                    False, [0, 0, 0], 1, [True, True, False])
+
+            n = xs[0].shape[0] * T.interior_count(xs[0])
+            flops = 3 * 2.0 * 27 * sum(cis) * w.shape[-1] * n
+            # reads xs, w, dy; writes y, the dxs (as large as the xs), dw
+            nb = 2 * nbytes(*xs, w) + 2 * nbytes(dy)
+            pieces = {
+                "forward": lambda: T.conv3d_halo(xs, w),
+                "data_grad": lambda: [T.conv3d_halo_dgrad(dy, w, i, cis)
+                                      for i in range(len(xs))],
+                "weight_grad": lambda: T.conv3d_halo_wgrad(xs, dy),
+            }
+            return (name, fwd_bwd(T.conv3d_halo_train),
+                    fwd_bwd(T.conv3d_halo_train_plain), library,
+                    bound_ms(nb, flops), 5, pieces)
+
         (x3,) = k3_in
         y3 = T.pack_halo_plain(x3)
         x4 = k4_in
@@ -579,29 +875,52 @@ def main() -> int:
                lambda: F.pad(F.max_pool3d(x4n, 2), (1, 1, 1, 1, 1, 1)),
                # the function reads the interior only
                bound_ms(nbytes(x4n, y4), 0.0), 20)]),
+            # K6: forward, data gradients (K1) and weight gradient
+            # (library), against autograd through the plain version
+            ("conv3d_halo_train", "ps2d_conv3d.cu", "ps2d.py:840",
+             [train_row(n) for n in forms6]),
         ]
         # the main form of each kernel: dec0.conv1 for K1
         main_form = {"conv3d_halo": 1}
+        # launches per path: the server requests' (K1-K4), the five
+        # train steps' (K1, forwards and K6's data gradients)
+        paths = {"server": report["launches"],
+                 "train": report["train"]["launches"]}
+        main_path = {"conv3d_halo_train": "train"}
+
+        def launches(name, path):
+            """K6 has no kernel of its own: its launches are K1's on
+            the train path, and none on the server's."""
+            if name == "conv3d_halo_train":
+                return paths[path]["conv3d_halo"] if path == "train" else 0
+            return paths[path][name]
         out = []
         for name, src, line, fs in rows:
             timed = []
-            for shape, kern, plain, lib, (bms, by), reps in fs:
+            for shape, kern, plain, lib, (bms, by), reps, *pieces in fs:
                 ms = event_ms(kern, reps)
                 pms = event_ms(plain, max(reps // 2, 3))
                 lms = event_ms(lib, reps)
                 ms2 = event_ms(kern, reps)   # kernel again: spread in a call
+                row = {"shape": shape, "ms": ms, "ms_again": ms2,
+                       "plain_ms": pms, "library_ms": lms,
+                       "bound_ms": bms, "bound_by": by}
+                for piece, fn in (pieces[0] if pieces else {}).items():
+                    row[f"{piece}_ms"] = event_ms(fn, reps)
                 print(f"{name} {shape}: kernel {ms:.4f} / {ms2:.4f} ms, "
                       f"plain {pms:.4f} ms, library {lms:.4f} ms, bound "
-                      f"{bms:.4f} ms ({by})")
-                timed.append({"shape": shape, "ms": ms, "ms_again": ms2,
-                              "plain_ms": pms, "library_ms": lms,
-                              "bound_ms": bms, "bound_by": by})
+                      f"{bms:.4f} ms ({by})" + "".join(
+                          f", {k} {v:.4f}" for k, v in row.items()
+                          if k.endswith("_ms") and k[:-3] in
+                          ("forward", "data_grad", "weight_grad")))
+                timed.append(row)
             m = timed[main_form.get(name, 0)]
             out.append({
                 "name": name, "route": "cuda",
                 "source": f"{PKG}/csrc/{src}",
                 "replaces": f"{REF}/ops/pallas/{line}",
-                "launches": report["launches"][name],
+                "launches": launches(name, main_path.get(name, "server")),
+                "launches_by_path": {p: launches(name, p) for p in paths},
                 "max_abs_err": report[name]["max_abs_err"],
                 "ms": m["ms"], "plain_ms": m["plain_ms"],
                 "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
@@ -617,6 +936,10 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
+    tr = report["train"]
+    print(f"train step (full width, batch 2 of 4x128^3, ps2d_train): "
+          f"{tr['step_ms_median_2_5']:.1f} ms steady, peak memory "
+          f"{tr['peak_bytes'] / 2 ** 30:.2f} GiB, losses {tr['losses']}")
     print(f"total {time.perf_counter() - run.t0:.2f} s")
     print(json.dumps({"kernels": kernels_json}))
     print(smi)

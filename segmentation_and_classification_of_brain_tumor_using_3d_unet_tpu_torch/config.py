@@ -1,16 +1,17 @@
 """Configuration of the PyTorch port.
 
-The model, data and inference settings of the JAX package's
-``config.py``, with the same field names and defaults, so the two
-packages are configured alike. Only the sections the port runs are
-here; the loss, optimizer, augmentation and mesh sections come with the
-slices that use them.
+The model, data, inference, loss and optimizer settings of the JAX
+package's ``config.py``, with the same field names and defaults, so the
+two packages are configured alike. Only the sections the port runs are
+here; the augmentation and mesh sections come with the slices that use
+them.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Dict, Tuple
 
 
 @dataclass(frozen=True)
@@ -33,6 +34,41 @@ class ModelConfig:
     # resolution levels in that region: 1 is level 0 only; 2 (or more)
     # adds the level-1 region (enc1, the level-1 skip, the dec1 stage)
     ps2d_levels: int = 1
+
+
+@dataclass(frozen=True)
+class LossConfig:
+    """Loss weighting (JAX ``config.py`` ``LossConfig``)."""
+
+    dice_weight: float = 0.5
+    ce_weight: float = 0.3
+    focal_weight: float = 0.2
+    focal_alpha: float = 1.0
+    focal_gamma: float = 2.0
+    # deep supervision weights, main output first
+    deep_supervision_weights: Tuple[float, ...] = (1.0, 0.8, 0.6, 0.4)
+    use_deep_supervision: bool = True
+    # False: deep losses at each head's native scale against
+    # nearest-resized targets; True: heads resized to full resolution in
+    # the model
+    deep_supervision_full_res: bool = False
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    """AdamW + cosine warm restarts (JAX ``config.py`` ``OptimizerConfig``)."""
+
+    name: str = "adamw"
+    learning_rate: float = 1e-4
+    weight_decay: float = 1e-4
+    beta1: float = 0.9
+    beta2: float = 0.999
+    eps: float = 1e-8
+    scheduler: str = "cosine_warm_restarts"
+    t_0: int = 10            # first restart period (epochs)
+    t_mult: int = 2          # period multiplier
+    eta_min: float = 1e-6
+    grad_clip_norm: float = 0.0   # 0 = off
 
 
 @dataclass(frozen=True)
@@ -69,6 +105,13 @@ CLASS_NAMES: Tuple[str, ...] = (
     "Background", "Necrotic Core", "Peritumoral Edema", "Enhancing Tumor",
 )
 
+# composite BraTS regions over the remapped labels (JAX ``BRATS_REGIONS``)
+BRATS_REGIONS: Dict[str, Tuple[int, ...]] = {
+    "WT": (1, 2, 3),   # whole tumour
+    "TC": (1, 3),      # tumour core
+    "ET": (3,),        # enhancing tumour
+}
+
 
 @dataclass(frozen=True)
 class Config:
@@ -76,6 +119,20 @@ class Config:
 
     name: str = "Config"
     model: ModelConfig = field(default_factory=ModelConfig)
+    loss: LossConfig = field(default_factory=LossConfig)
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
     data: DataConfig = field(default_factory=DataConfig)
     inference: InferenceConfig = field(default_factory=InferenceConfig)
+
+    # training loop
+    epochs: int = 100
+    batch_size: int = 2
+    # microbatches averaged per optimizer update (train/loop.py); 1 = off
+    grad_accum: int = 1
+    # parameter EMA (ema = d * ema + (1 - d) * params) after each
+    # update; 0 = off
+    ema_decay: float = 0.0
     seed: int = 42
+
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)

@@ -33,6 +33,16 @@
 // all 27 taps of its 8x32 output voxels; each warp holds a 64 voxel x co
 // accumulator in registers. Simple first: no TMA, no wgmma, no
 // pipelining of the next tile's load behind the current tile's math.
+//
+// Output channels: co is 16 or any multiple of 32, as the TPU kernel
+// takes. The grid runs over output-channel tiles of CT = 64 channels
+// (32 when co % 64 != 0; 16 for co = 16): each block reads its CT columns
+// of w and writes its CT-channel slice of y and stats at a stride of co,
+// so a wide conv re-stages its input tile once per channel tile. A conv
+// of one tile (co 16, 32 or 64, every form of the UNet's level 0) runs an
+// instantiation with co a compile-time constant and no channel-tile axis:
+// with co a runtime value the level-0 forms ran 9-11% slower on an H100
+// (compare_builds.py).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -63,28 +73,36 @@ struct Args {
   const bf16* mul0;     // (B, D+2, H+2, W+2, ci[0]) or null
   bf16* y;              // (B, D+2, H+2, W+2, co)
   float* stats;         // (B, 2, co), zeroed by the caller, or null
-  int D, H, W;
+  int D, H, W, co;
 };
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-template <int NF>   // co = 16 * NF
+// output-channel tile CT = 16 * NF; kOneTile: co == CT
+template <int NF, bool kOneTile>
 __global__ void __launch_bounds__(kThreads) conv_kernel(const Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ float red[2][16 * NF];
+  constexpr int CT = 16 * NF;
+  __shared__ float red[2][CT];
   bf16* tile = reinterpret_cast<bf16*>(smem);   // (3, kIH, kIW, kLD)
 
-  constexpr int co = 16 * NF;
+  const int co = kOneTile ? CT : a.co;
+  const int n_ct = co / CT;
+  const int co0 = kOneTile ? 0 : (blockIdx.x % n_ct) * CT;   // channel tile
+  // the spatial tile's index stays unsigned, as blockIdx.x is: a signed
+  // division here left h0 and w0 in local memory, and the level-0 forms
+  // 5-6% slower on an H100 (compare_builds.py)
+  const unsigned sp = kOneTile ? blockIdx.x : blockIdx.x / n_ct;
   const int n_wt = (a.W + kTW - 1) / kTW;
-  const int w0 = (blockIdx.x % n_wt) * kTW;
-  const int h0 = (blockIdx.x / n_wt) * kTH;
+  const int w0 = (sp % n_wt) * kTW;
+  const int h0 = (sp / n_wt) * kTH;
   const int d = blockIdx.y, b = blockIdx.z;
   const int Dp = a.D + 2, Hp = a.H + 2, Wp = a.W + 2;
   const int warp = threadIdx.x >> 5;
 
-  for (int i = threadIdx.x; i < 2 * co; i += kThreads) red[i / co][i % co] = 0.f;
+  for (int i = threadIdx.x; i < 2 * CT; i += kThreads) red[i / CT][i % CT] = 0.f;
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][NF];
 #pragma unroll
@@ -144,7 +162,8 @@ __global__ void __launch_bounds__(kThreads) conv_kernel(const Args a) {
 #pragma unroll
         for (int ks = 0; ks < kCK / 16; ++ks) {
           wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr[NF];
-          const bf16* wp = a.w + ((size_t)tap * a.ci_total + coff + c0 + ks * 16) * co;
+          const bf16* wp =
+              a.w + ((size_t)tap * a.ci_total + coff + c0 + ks * 16) * co + co0;
 #pragma unroll
           for (int j = 0; j < NF; ++j) wmma::load_matrix_sync(bfr[j], wp + j * 16, co);
 #pragma unroll
@@ -165,14 +184,14 @@ __global__ void __launch_bounds__(kThreads) conv_kernel(const Args a) {
 
   // ---- epilogue: accumulators -> smem -> bf16 halo layout + stats -----
   __syncthreads();
-  float* stage = reinterpret_cast<float*>(smem);   // (kTH * kTW, co)
+  float* stage = reinterpret_cast<float*>(smem);   // (kTH * kTW, CT)
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < NF; ++j)
       wmma::store_matrix_sync(
-          stage + ((warp * 2 + (i >> 1)) * kTW + (i & 1) * 16) * co + j * 16,
-          acc[i][j], co, wmma::mem_row_major);
+          stage + ((warp * 2 + (i >> 1)) * kTW + (i & 1) * 16) * CT + j * 16,
+          acc[i][j], CT, wmma::mem_row_major);
   __syncthreads();
 
   // The block writes its tile and, at the volume's edges, the adjacent
@@ -182,7 +201,7 @@ __global__ void __launch_bounds__(kThreads) conv_kernel(const Args a) {
   const int hlo = h0 == 0 ? 0 : h0 + 1, hhi = h0 + kTH >= a.H ? a.H + 1 : h0 + kTH;
   const int wlo = w0 == 0 ? 0 : w0 + 1, whi = w0 + kTW >= a.W ? a.W + 1 : w0 + kTW;
   const int nh = hhi - hlo + 1, nw = whi - wlo + 1;
-  constexpr int pairs = co / 2;   // divides kThreads: a thread keeps its pair
+  constexpr int pairs = CT / 2;   // divides kThreads: a thread keeps its pair
   const int items = (dhi - dlo + 1) * nh * nw * pairs;
   float s1x = 0.f, s1y = 0.f, s2x = 0.f, s2y = 0.f;
   for (int it = threadIdx.x; it < items; it += kThreads) {
@@ -194,7 +213,7 @@ __global__ void __launch_bounds__(kThreads) conv_kernel(const Args a) {
     const int pd = dlo + p / nh;
     __nv_bfloat162 v = __floats2bfloat162_rn(0.f, 0.f);
     if (pd >= 1 && pd <= a.D && ph >= 1 && ph <= a.H && pw >= 1 && pw <= a.W) {
-      const float* s = stage + ((ph - 1 - h0) * kTW + (pw - 1 - w0)) * co + 2 * cp;
+      const float* s = stage + ((ph - 1 - h0) * kTW + (pw - 1 - w0)) * CT + 2 * cp;
       v = __floats2bfloat162_rn(s[0], s[1]);
       const float2 f = __bfloat1622float2(v);
       s1x += f.x;
@@ -203,7 +222,7 @@ __global__ void __launch_bounds__(kThreads) conv_kernel(const Args a) {
       s2y += f.y * f.y;
     }
     *reinterpret_cast<__nv_bfloat162*>(
-        a.y + ((((size_t)b * Dp + pd) * Hp + ph) * Wp + pw) * co + 2 * cp) = v;
+        a.y + ((((size_t)b * Dp + pd) * Hp + ph) * Wp + pw) * co + co0 + 2 * cp) = v;
   }
   if (a.stats != nullptr) {
     const int cp = threadIdx.x % pairs;
@@ -212,26 +231,31 @@ __global__ void __launch_bounds__(kThreads) conv_kernel(const Args a) {
     atomicAdd(&red[1][2 * cp], s2x);
     atomicAdd(&red[1][2 * cp + 1], s2y);
     __syncthreads();
-    for (int i = threadIdx.x; i < 2 * co; i += kThreads)
-      atomicAdd(a.stats + ((size_t)b * 2 + i / co) * co + i % co, red[i / co][i % co]);
+    for (int i = threadIdx.x; i < 2 * CT; i += kThreads)
+      atomicAdd(a.stats + ((size_t)b * 2 + i / CT) * co + co0 + i % CT,
+                red[i / CT][i % CT]);
   }
 }
 
-template <int NF>
+template <int NF, bool kOneTile>
 int launch(const Args& a, int B, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      conv_kernel<NF>, cudaFuncAttributeMaxDynamicSharedMemorySize, kTileBytes);
+  cudaError_t err = cudaFuncSetAttribute(conv_kernel<NF, kOneTile>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         kTileBytes);
   if (err != cudaSuccess) return (int)err;
   const int n_wt = (a.W + kTW - 1) / kTW, n_ht = (a.H + kTH - 1) / kTH;
-  conv_kernel<NF><<<dim3(n_wt * n_ht, a.D, B), kThreads, kTileBytes, stream>>>(a);
+  const int n_ct = a.co / (16 * NF);
+  conv_kernel<NF, kOneTile>
+      <<<dim3(n_wt * n_ht * n_ct, a.D, B), kThreads, kTileBytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // x1 may be null (one input, ci1 = 0); scale/shift/mul0/stats may be
-// null. The caller checks shapes: ci0, ci1 multiples of 32; co 16, 32 or
-// 64; every pointer 16 B aligned. Returns the launch's cudaError_t.
+// null. The caller checks shapes: ci0, ci1 multiples of 32; co 16 or a
+// multiple of 32; every pointer 16 B aligned. Returns the launch's
+// cudaError_t.
 extern "C" int ps2d_conv3d(const void* x0, const void* x1, int ci0, int ci1,
                            const void* w, const void* scale, const void* shift,
                            int relu, const void* mul0, void* y, void* stats,
@@ -253,13 +277,14 @@ extern "C" int ps2d_conv3d(const void* x0, const void* x1, int ci0, int ci1,
   a.D = D;
   a.H = H;
   a.W = W;
+  a.co = co;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (co) {
-    case 16: return launch<1>(a, B, s);
-    case 32: return launch<2>(a, B, s);
-    case 64: return launch<4>(a, B, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (co == 16) return launch<1, true>(a, B, s);
+  if (co == 32) return launch<2, true>(a, B, s);
+  if (co == 64) return launch<4, true>(a, B, s);
+  if (co > 0 && co % 64 == 0) return launch<4, false>(a, B, s);
+  if (co > 0 && co % 32 == 0) return launch<2, false>(a, B, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* ps2d_error_string(int code) {

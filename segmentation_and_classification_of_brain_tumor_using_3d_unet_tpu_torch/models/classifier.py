@@ -1,7 +1,7 @@
-"""3-D CNN tumour classifier, eval forward in bf16 (counterpart of the
-JAX package's ``models/classifier.py``): three 3x3x3 convs 4->32->64->128
-with ReLU, a 2x2x2 max pool after the first two, an adaptive average
-pool to 4^3, then fc 8192->512 (ReLU) -> num_classes.
+"""3-D CNN tumour classifier in bf16 (counterpart of the JAX package's
+``models/classifier.py``): three 3x3x3 convs 4->32->64->128 with ReLU, a
+2x2x2 max pool after the first two, an adaptive average pool to 4^3,
+then fc 8192->512 (ReLU) -> Dropout(0.5) in train mode -> num_classes.
 
 Tensors are NDHWC, as in JAX, so the flatten before ``fc1`` takes the
 (d, h, w, c) order that ``fc1``'s weights were made for.
@@ -16,6 +16,7 @@ import torch.nn as nn
 
 from ..device import resolve_device
 from ..ops.conv import BF16, FastConv3D, conv3d_zcat, matmul_bf16
+from ..ops.dropout import dropout
 from ..ops.pool import max_pool3d
 from ..ops.resize import adaptive_avg_pool
 
@@ -40,7 +41,11 @@ class Dense(nn.Module):
 
 class BrainTumorClassifier(nn.Module):
     """``forward(x)``: x (B, D, H, W, in_channels), D, H, W at least
-    16 -> logits (B, num_classes) f32."""
+    16 -> logits (B, num_classes) f32 (eval, no gradients);
+    ``forward_train(x, generator)`` the same with dropout, with
+    gradients."""
+
+    dropout_rate = 0.5
 
     def __init__(self, in_channels: int = 4, num_classes: int = 4,
                  seed: int = 0, device="cuda"):
@@ -56,6 +61,12 @@ class BrainTumorClassifier(nn.Module):
 
     @torch.no_grad()
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._forward(x)
+
+    def forward_train(self, x: torch.Tensor, generator) -> torch.Tensor:
+        return self._forward(x, generator, train=True)
+
+    def _forward(self, x, generator=None, train: bool = False):
         x = x.to(BF16)
         for i, conv in enumerate((self.conv1, self.conv2, self.conv3)):
             # flax nn.Conv: a plain SAME conv with its bias, never the
@@ -65,4 +76,6 @@ class BrainTumorClassifier(nn.Module):
                 x = max_pool3d(x)
         x = adaptive_avg_pool(x, (4, 4, 4))
         x = torch.relu(self.fc1(x.reshape(x.shape[0], -1)))
+        if train:
+            x = dropout(x, self.dropout_rate, generator)
         return self.fc2(x).float()

@@ -1,21 +1,21 @@
-"""Joint segmentation + tumour-grade model, eval forward (counterpart
-of the JAX package's ``models/joint.py``): the ``UNet3D`` trunk, then a
-grade head on the global-average-pooled bottleneck and the log of the
-trunk's own predicted tumour burden.
+"""Joint segmentation + tumour-grade model (counterpart of the JAX
+package's ``models/joint.py``): the ``UNet3D`` trunk, then a grade head
+on the global-average-pooled bottleneck and the log of the trunk's own
+predicted tumour burden; ``joint_loss`` and ``grade_from_volume``.
 
 The trunk runs the normal path, as the JAX joint model's does (it sets
-no ps2d flag). The joint loss and ``grade_from_volume`` belong to
-training and come with it.
+no ps2d flag).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Callable, Dict, Sequence
 
 import torch
 import torch.nn as nn
 
 from ..device import resolve_device
+from ..ops.dropout import dropout
 from ..ops.pool import global_avg_pool
 from .classifier import Dense
 from .unet3d import UNet3D
@@ -23,16 +23,22 @@ from .unet3d import UNet3D
 
 class UNet3DWithClassifier(nn.Module):
     """``forward(x)`` -> {"logits": (B, D, H, W, out) f32,
-    "grade_logits": (B, num_grades) f32}."""
+    "grade_logits": (B, num_grades) f32} (eval, no gradients);
+    ``forward_train(x, generator)`` the trunk's train outputs plus
+    "grade_logits", with the grade head's Dropout(0.3)."""
+
+    grade_dropout = 0.3
 
     def __init__(self, in_channels: int = 4, out_channels: int = 4,
                  num_grades: int = 4,
                  features: Sequence[int] = (32, 64, 128, 256, 512),
-                 seed: int = 0, device="cuda"):
+                 seed: int = 0, device="cuda", dropout_rate: float = 0.2,
+                 remat: bool = False):
         super().__init__()
         dev = resolve_device(device)
         self.unet = UNet3D(in_channels, out_channels, features, seed=seed,
-                           device=dev)
+                           device=dev, dropout_rate=dropout_rate,
+                           remat=remat)
         gen = torch.Generator().manual_seed(seed + 1)
         # GAP'd bottleneck (2 * features[-1]) + log burden of each
         # tumour class (out - 1) + log foreground fraction (1)
@@ -43,12 +49,52 @@ class UNet3DWithClassifier(nn.Module):
     @torch.no_grad()
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         logits, bottleneck = self.unet.forward_with_bottleneck(x)
-        h = global_avg_pool(bottleneck).reshape(x.shape[0], -1)   # bf16
+        grade = self._grade(logits, bottleneck)
+        return {"logits": logits, "grade_logits": grade}
+
+    def forward_train(self, x: torch.Tensor, generator,
+                      batch_stats=None) -> Dict[str, torch.Tensor]:
+        out = self.unet.forward_train(x, generator, batch_stats)
+        # the burden features read the logits without their gradient
+        # (JAX stop_gradient): grade-CE reaches the trunk through the
+        # pooled bottleneck only
+        out["grade_logits"] = self._grade(out["logits"].detach(),
+                                          out["bottleneck"], True, generator)
+        return out
+
+    def _grade(self, logits, bottleneck, train=False, generator=None):
+        """Grade logits f32; at train, dropout on the hidden layer."""
+        h = global_avg_pool(bottleneck).reshape(logits.shape[0], -1)
         probs = torch.softmax(logits, dim=-1)
         burden = probs[..., 1:].mean((1, 2, 3))                   # (B, C-1)
         # foreground fraction of the trunk's own argmax mask
         hard = (logits.argmax(-1) > 0).float().mean((1, 2, 3))[:, None]
         feats = torch.log(torch.cat([burden, hard], dim=-1) + 1e-6)
         h = torch.cat([h, feats.to(h.dtype)], dim=-1)
-        grade = self.grade_out(torch.relu(self.grade_fc1(h)))
-        return {"logits": logits, "grade_logits": grade.float()}
+        h = torch.relu(self.grade_fc1(h))
+        if train:
+            h = dropout(h, self.grade_dropout, generator)
+        return self.grade_out(h).float()
+
+
+def joint_loss(out: Dict, seg_targets: torch.Tensor,
+               grade_targets: torch.Tensor, seg_loss_fn: Callable,
+               cls_weight: float = 0.3):
+    """seg loss (deep supervision included) + ``cls_weight`` * grade CE
+    -> (loss, {"seg_loss", "grade_ce"})."""
+    seg_loss = seg_loss_fn(out, seg_targets)
+    logp = torch.log_softmax(out["grade_logits"], dim=-1)
+    ids = torch.arange(logp.shape[-1], device=logp.device)
+    onehot = (grade_targets[..., None] == ids).to(logp.dtype)
+    ce = -(logp * onehot).sum(-1).mean()
+    return seg_loss + cls_weight * ce, {"seg_loss": seg_loss,
+                                        "grade_ce": ce}
+
+
+def grade_from_volume(tumor_voxels, total_voxels) -> torch.Tensor:
+    """Synthetic grade label from the tumour burden (the clinical volume
+    ladder): 0 none/benign .. 3 high-grade, int32."""
+    t = torch.as_tensor(tumor_voxels)
+    frac = t / max(int(total_voxels), 1)
+    return ((frac > 0.001).int() + (frac > 0.01).int()
+            + (frac > 0.05).int())

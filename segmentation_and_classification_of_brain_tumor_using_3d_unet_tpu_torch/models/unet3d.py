@@ -1,4 +1,4 @@
-"""Attention-gated residual 3-D U-Net, eval forward in bf16.
+"""Attention-gated residual 3-D U-Net in bf16: the eval and train forwards.
 
 Counterpart of the JAX package's ``models/unet3d.py`` (``fast=True``):
 NDHWC tensors, bf16 compute with f32 accumulation and f32 norm
@@ -16,6 +16,15 @@ GroupNorm statistics emitted by the convs. That is the JAX package's
 enc0's output is pooled straight into the level-1 halo layout (K4),
 enc1 and the dec1 stage run wholly on the kernels, and the level-1
 skip stays in the halo layout between them.
+
+``forward_train`` is the train forward (JAX ``__call__(train=True)``):
+the deep-supervision heads, channel dropout after each pool, the head
+BatchNorm on f32 batch statistics, and activation checkpointing of the
+DoubleConv blocks under ``remat``. With ``ps2d_train`` its level-0
+region runs in the halo layout on the differentiable conv K6
+(``ops/ps2d.py::conv3d_halo_train``, K1 forwards and backwards): enc0's
+conv2 and the dec0 stage's two convs; the glue between them stays plain
+differentiable ops (no eval-only folds), as in JAX.
 """
 
 from __future__ import annotations
@@ -24,14 +33,18 @@ from typing import Sequence
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..ops.conv import BF16, Conv1x1, FastConv3D, FastConvTranspose3D
-from ..ops.norm import batch_norm_infer, group_norm, group_norm_bf16
+from ..ops.dropout import dropout
+from ..ops.norm import (batch_norm_infer, batch_norm_train, group_norm,
+                        group_norm_bf16)
 from ..ops.pool import global_avg_pool, max_pool3d
-from ..ops.ps2d import (conv1x1_halo, conv3d_halo, global_avg_pool_halo,
-                        group_norm_halo, group_norm_halo_affine,
-                        halo_to_normal, max_pool3d_from_halo, pack_halo,
+from ..ops.ps2d import (conv1x1_halo, conv3d_halo, conv3d_halo_train,
+                        global_avg_pool_halo, group_norm_halo,
+                        group_norm_halo_affine, halo_to_normal,
+                        max_pool3d_from_halo, pack_halo, pack_halo_plain,
                         pool_into_halo, up_k2s2_into_halo)
 from ..ops.resize import resize_trilinear
 
@@ -67,8 +80,8 @@ class GroupNorm(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Eval BatchNorm: ``scale``/``bias`` parameters and the running
-    ``mean``/``var`` (flax ``batch_stats``)."""
+    """BatchNorm: ``scale``/``bias`` parameters and the running
+    ``mean``/``var`` (flax ``batch_stats``, momentum 0.9)."""
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -81,6 +94,14 @@ class BatchNorm(nn.Module):
     def forward(self, x):
         return batch_norm_infer(x, self.scale, self.bias, self.mean,
                                 self.var, self.eps)
+
+    def train_stats(self, x, stats=None):
+        """Train mode on batch statistics: (y f32, (new mean, new
+        var)); ``stats`` = the running (mean, var) to advance, the
+        buffers when None (they are not written here)."""
+        mean, var = stats if stats is not None else (self.mean, self.var)
+        return batch_norm_train(x, self.scale, self.bias, mean, var,
+                                eps=self.eps)
 
 
 class DoubleConv3D(nn.Module):
@@ -120,6 +141,32 @@ class DoubleConv3D(nn.Module):
                                in_shift=sh1, in_relu=True, emit_stats=True)
         out = torch.relu(self.gn2.halo(out, sums=st2))
         return out + pack_halo(self.gn_proj.bf16(self.proj(x)))
+
+    def forward_entry_train(self, x):
+        """The entry block at train (JAX ``_ps2d_entry(trainable=True)``):
+        conv1's output packed by K3's plain version (JAX's XLA pad),
+        gn1 + ReLU as plain ops, conv2 on K6; the projection residual on
+        the NDHWC input, packed at the add."""
+        if self.in_ch == self.out_ch:
+            raise ValueError("the entry block needs a projection residual")
+        # GroupNorm.halo re-zeroes the halo after its affine: relu(gn(x))
+        # would otherwise leave relu(shift) there, which the plain K1
+        # reads and the card's K1 ignores (the CPU and card answers split)
+        out = torch.relu(self.gn1.halo(pack_halo_plain(self.conv1(x))))
+        out = conv3d_halo_train((out,), self.conv2.kernel)
+        out = torch.relu(self.gn2.halo(out))
+        return out + pack_halo_plain(self.gn_proj.bf16(self.proj(x)))
+
+    def forward_halo_train(self, xs):
+        """The dec0 block on halo tensors at train (JAX ``_ps2d(trainable=
+        True)``): both convs on K6 (the inputs' concat in its K), the
+        GroupNorms and ReLUs as plain ops, the projection residual; the
+        gate was applied by the caller."""
+        out = conv3d_halo_train(xs, self.conv1.kernel)
+        out = torch.relu(self.gn1.halo(out))
+        out = conv3d_halo_train((out,), self.conv2.kernel)
+        out = torch.relu(self.gn2.halo(out))
+        return out + self.gn_proj.halo(conv1x1_halo(xs, self.proj.kernel))
 
     def forward_halo(self, xs, gate=None):
         """The block on halo tensors (JAX ``_ps2d``): ``xs`` is a tuple
@@ -189,33 +236,47 @@ class AttentionGate3D(nn.Module):
         se = self._se(global_avg_pool_halo(x))
         return psi, se.reshape(x.shape[0], x.shape[-1])
 
+    def forward_halo(self, g, x):
+        """The gated skip on halo tensors (JAX ``_ps2d(fold=False)``, the
+        train path): x * psi * se, zero on the halo."""
+        psi, se = self.fold_halo(g, x)
+        return x * psi * se[:, None, None, None, :]
+
 
 class UNet3D(nn.Module):
-    """Segmentation U-Net (JAX ``UNet3D``), eval forward only.
+    """Segmentation U-Net (JAX ``UNet3D``).
 
     ``forward(x)``: x (B, D, H, W, in_channels) -> logits
     (B, D, H, W, out_channels) f32; ``forward_with_bottleneck(x)`` also
     returns the bottleneck's output (the joint grade head reads it).
-    Parameters are made from ``seed`` with a ``torch.Generator``
-    (kaiming fan-out normal convs, as flax's initialisers; the values
-    differ from JAX's) on ``device``. ``ps2d_levels`` >= 2 turns the
-    level-1 region on, as in JAX."""
+    Both are the eval forward, without gradients. ``forward_train`` is
+    the train forward. Parameters are made from ``seed`` with a
+    ``torch.Generator`` (kaiming fan-out normal convs, as flax's
+    initialisers; the values differ from JAX's) on ``device``.
+    ``ps2d_levels`` >= 2 turns the level-1 region on at eval, as in
+    JAX; ``ps2d_train`` the level-0 region at train."""
 
     def __init__(self, in_channels: int = 4, out_channels: int = 4,
                  features: Sequence[int] = (32, 64, 128, 256, 512),
                  ps2d_eval: bool = False, ps2d_levels: int = 1,
-                 seed: int = 0, device="cuda"):
+                 seed: int = 0, device="cuda", dropout_rate: float = 0.2,
+                 remat: bool = False, ps2d_train: bool = False,
+                 deep_sup_full_res: bool = False):
         super().__init__()
         feats = tuple(features)
         self.features, self.ps2d_eval = feats, ps2d_eval
         self.ps2d_levels = ps2d_levels
+        self.dropout_rate, self.remat = dropout_rate, remat
+        self.ps2d_train = ps2d_train
+        # deep heads at full resolution (the reference model's written
+        # behaviour) instead of their native scale
+        self.deep_sup_full_res = deep_sup_full_res
         gen = torch.Generator().manual_seed(seed)
         cin = in_channels
         for i, f in enumerate(feats):
             setattr(self, f"down{i}", DoubleConv3D(cin, f, gen))
             if i < len(feats) - 1:
-                # deep-supervision heads: used in training only, kept so
-                # the parameter tree matches the JAX model's
+                # deep-supervision heads (forward_train only)
                 setattr(self, f"deep{i}", Conv1x1(f, out_channels,
                                                   generator=gen))
             cin = f
@@ -241,11 +302,14 @@ class UNet3D(nn.Module):
         32-multiple level-1 width, D % 4 == 0 and H, W % 8 == 0. (JAX
         also drops a level whose TPU kernel plan does not fit its
         on-chip memory budget; that limit has no counterpart here.)"""
+        return self._halo_levels(shape, self.ps2d_eval, self.ps2d_levels)
+
+    def _halo_levels(self, shape, on: bool, levels: int) -> int:
         feats, (D, H, W) = self.features, tuple(shape)
-        if not (self.ps2d_eval and feats[0] % 32 == 0
+        if not (on and feats[0] % 32 == 0
                 and D % 2 == 0 and H % 2 == 0 and W % 2 == 0):
             return 0
-        if (self.ps2d_levels >= 2 and len(feats) >= 2
+        if (levels >= 2 and len(feats) >= 2
                 and feats[1] % 32 == 0 and D % 4 == 0 and H % 8 == 0
                 and W % 8 == 0):
             return 2
@@ -258,6 +322,35 @@ class UNet3D(nn.Module):
     @torch.no_grad()
     def forward_with_bottleneck(self, x: torch.Tensor):
         """(logits f32, bottleneck output bf16 (B, ..., 2 * features[-1]))."""
+        out = self._forward(x, train=False)
+        return out["logits"], out["bottleneck"]
+
+    def forward_train(self, x: torch.Tensor, generator=None,
+                      batch_stats=None) -> dict:
+        """The train forward, with gradients: {"logits": f32, "deep":
+        [one bf16 head per encoder level but the last, at its level's
+        scale, or full resolution with ``deep_sup_full_res``],
+        "bottleneck": bf16, "batch_stats": the head BatchNorm's new
+        running (mean, var)}. ``generator`` (on x's device) draws the
+        dropout masks; ``batch_stats`` is the running (mean, var) to
+        advance, the buffers when None. Nothing of the module is
+        written: the train step stores the new statistics."""
+        return self._forward(x, train=True, generator=generator,
+                             bn_stats=batch_stats)
+
+    def _block(self, block, x, train: bool):
+        if train and self.remat:
+            # activation checkpointing (JAX nn.remat on each DoubleConv)
+            return checkpoint(block, x, use_reentrant=False)
+        return block(x)
+
+    def _deep(self, i: int, x, full):
+        """Deep-supervision head i (train only), at its level's scale or
+        resized to the input's."""
+        d = getattr(self, f"deep{i}")(x)
+        return resize_trilinear(d, full) if self.deep_sup_full_res else d
+
+    def _forward(self, x, train: bool, generator=None, bn_stats=None):
         feats = self.features
         n = len(feats)
         x = x.to(BF16)
@@ -265,11 +358,23 @@ class UNet3D(nn.Module):
         if min(full) < 2 ** n:
             raise ValueError(f"input spatial dims {full} too small for {n} "
                              f"encoder levels (need >= {2 ** n})")
-        halo = self.halo_levels(full)
-        skips = []
+        # at train only level 0 can be a region (JAX: level 1 is
+        # eval-only); its blocks are not checkpointed, as JAX's are not:
+        # a checkpointed region would replay its three K1 forwards in the
+        # backward (10 launches a step instead of 3 + 4)
+        halo = (self._halo_levels(full, self.ps2d_train, 1) if train
+                else self.halo_levels(full))
+        skips, deep = [], []
         for i in range(n):
             block = getattr(self, f"down{i}")
-            if i < halo:
+            if i < halo and train:
+                x = block.forward_entry_train(x)
+                skips.append(x)
+                x = halo_to_normal(x)
+                if i < n - 1:
+                    deep.append(self._deep(i, x, full))
+                x = max_pool3d(x)
+            elif i < halo:
                 # the skip stays in the halo layout until its decoder
                 # stage; level 0 pools straight into the level-1 halo
                 # layout (K4) when level 1 is a region too
@@ -279,16 +384,27 @@ class UNet3D(nn.Module):
                 x = (pool_into_halo(x) if i + 1 < halo
                      else max_pool3d_from_halo(x))
             else:
-                x = block(x)
+                x = self._block(block, x, train)
                 skips.append(x)
+                if train and i < n - 1:
+                    deep.append(self._deep(i, x, full))
                 x = max_pool3d(x)
-        x = self.bottleneck(x)
+            if train:
+                # channel dropout: one mask value per (batch, channel)
+                x = dropout(x, self.dropout_rate, generator, (1, 2, 3))
+        x = self._block(self.bottleneck, x, train)
         bottleneck = x
         for i in range(n):
             skip = skips[-(i + 1)]
             up, att, dec = (getattr(self, f"{p}{i}")
                             for p in ("up", "att", "dec"))
-            if n - 1 - i < halo:
+            if n - 1 - i < halo and train:
+                # the library up into the halo layout; the gate applied
+                # as plain ops, then both convs on K6
+                up_h = up.halo_train(x)
+                skip_g = att.forward_halo(g=up_h, x=skip)
+                x = halo_to_normal(dec.forward_halo_train((skip_g, up_h)))
+            elif n - 1 - i < halo:
                 # halo_levels' gate makes the up double back exactly
                 up_h = up_k2s2_into_halo(x, up.kernel, up.bias)
                 gate = att.fold_halo(g=up_h, x=skip)
@@ -298,6 +414,14 @@ class UNet3D(nn.Module):
                 x_att = att(g=x, x=skip)
                 if x.shape[1:4] != skip.shape[1:4]:
                     x = resize_trilinear(x, skip.shape[1:4])
-                x = dec(torch.cat([x_att, x], dim=-1))
-        h = torch.relu(self.head_bn(self.head_conv(x)))
-        return self.head_out(h).float(), bottleneck
+                x = self._block(dec, torch.cat([x_att, x], dim=-1), train)
+        h = self.head_conv(x)
+        new_stats = None
+        if train:
+            # f32 batch statistics (JAX: BatchNorm in f32 at train)
+            h, new_stats = self.head_bn.train_stats(h, bn_stats)
+            h = torch.relu(h).to(BF16)
+        else:
+            h = torch.relu(self.head_bn(h))
+        return {"logits": self.head_out(h).float(), "deep": deep,
+                "bottleneck": bottleneck, "batch_stats": new_stats}

@@ -47,12 +47,15 @@ def to_flax_variables(state: Mapping[str, torch.Tensor]) -> Dict:
     """A port model's ``state_dict`` -> ``{"params": tree,
     "batch_stats": tree}`` of numpy arrays, the JAX model's variables
     (running BatchNorm statistics under ``batch_stats``, Dense weights
-    transposed back to flax's (in, out) kernels)."""
+    transposed back to flax's (in, out) kernels). The arrays are copies:
+    a CPU tensor's ``numpy()`` shares its memory, and an optimizer step
+    that updates the model in place would otherwise rewrite them, even
+    while JAX still reads them (``jnp.asarray`` need not copy)."""
     tree: Dict = {"params": {}, "batch_stats": {}}
     for key, value in state.items():
         parts = key.split(".")
         top = "batch_stats" if parts[-1] in ("mean", "var") else "params"
-        v = value.detach().float().cpu().numpy()
+        v = value.detach().float().cpu().numpy().copy()
         if parts[-1] == "weight":
             parts[-1], v = "kernel", v.T.copy()
         node = tree[top]

@@ -4,8 +4,10 @@ Counterparts of the JAX package's ``ops/conv.py``. There these are XLA
 ops, not Pallas kernels, so here they are library calls: cuDNN's conv3d
 and cuBLAS's matmul on the card. Every op takes bf16 operands,
 accumulates in f32 and rounds its result to bf16 once, as the JAX
-functions do. Kernels are kept in flax's layouts (DHWIO), so parameters
-move between the packages unchanged.
+functions do, and carries gradients (autograd through the library
+calls; on the CPU through the widened operands). Kernels are kept in
+flax's layouts (DHWIO), so parameters move between the packages
+unchanged.
 """
 
 from __future__ import annotations
@@ -139,6 +141,23 @@ class _ConvParams(nn.Module):
                      if use_bias else None)
 
 
+def conv_transpose3d_k2s2_halo(x: torch.Tensor, w: torch.Tensor,
+                               bias: torch.Tensor = None) -> torch.Tensor:
+    """The train route of the decoder-last up conv: the library
+    transposed conv (k = s = 2; flax's kernel flipped into torch's
+    (Cin, Cout, 2, 2, 2)), the bias added in bf16, padded into the halo
+    layout (B, 2D+2, 2H+2, 2W+2, Cout) with ``F.pad``. Same function as
+    K2, with a backward (JAX: the s2d-out up and the XLA pad,
+    ``models/unet3d.py:772-792``)."""
+    wt = w.to(BF16).flip(0, 1, 2).permute(3, 4, 0, 1, 2)
+    y = f32_accumulate(lambda a, b: F.conv_transpose3d(a, b, stride=2),
+                       x.to(BF16).permute(0, 4, 1, 2, 3), wt)
+    y = y.permute(0, 2, 3, 4, 1)
+    if bias is not None:
+        y = y + bias.to(BF16)
+    return F.pad(y, (0, 0, 1, 1, 1, 1, 1, 1))
+
+
 class Conv1x1(_ConvParams):
     """Pointwise conv; parameters as flax ``nn.Conv(features, (1,1,1))``."""
 
@@ -171,3 +190,7 @@ class FastConvTranspose3D(_ConvParams):
 
     def forward(self, x):
         return conv_transpose3d_k2s2(x, self.kernel, self.bias)
+
+    def halo_train(self, x):
+        """Into the halo layout, differentiable (the train path)."""
+        return conv_transpose3d_k2s2_halo(x, self.kernel, self.bias)

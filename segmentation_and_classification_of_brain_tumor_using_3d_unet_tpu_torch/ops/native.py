@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` source is compiled by ONE ``nvcc`` call into one
-shared library with a plain C interface, loaded with ``ctypes``. No
+Every ``csrc/*.cu`` source is compiled by its own ``nvcc`` call, all
+started together, and the objects are linked into one shared library
+with a plain C interface, loaded with ``ctypes``. No
 source includes PyTorch's headers, so the build takes seconds, not the
 minutes of ``torch.utils.cpp_extension``. The library is built at first
 use into ``build/torch_kernels/`` beside the package (a directory git
@@ -25,7 +26,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -54,10 +55,11 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def build() -> Build:
-    """Compile ``csrc/*.cu`` with one nvcc call unless this exact build
-    exists. Raises with nvcc's output if the compile fails."""
-    sources = sorted(CSRC_DIR.glob("*.cu"))
+def build(csrc_dir: Path = CSRC_DIR) -> Build:
+    """Compile ``csrc_dir/*.cu`` (the package's sources by default), one
+    nvcc process per source, all at once, and link them, unless this
+    exact build exists. Raises with nvcc's output if a step fails."""
+    sources = sorted(Path(csrc_dir).glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
         digest.update(src.name.encode() + src.read_bytes())
@@ -66,15 +68,35 @@ def build() -> Build:
         return Build(target, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    log = "".join(logs)
+    try:
+        if any(p.returncode for p in procs):
+            raise RuntimeError(
+                "nvcc failed: " + ", ".join(
+                    f"{s.name} ({p.returncode})"
+                    for s, p in zip(sources, procs) if p.returncode)
+                + f"\n{log}")
+        proc = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{log}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
     os.replace(tmp, target)     # atomic: concurrent builders agree
-    return Build(target, seconds, proc.stdout + proc.stderr)
+    return Build(target, seconds, log)
 
 
 class Library:

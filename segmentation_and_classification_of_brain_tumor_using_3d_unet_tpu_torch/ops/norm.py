@@ -5,7 +5,8 @@
 All GroupNorms take one-pass f32 moments (mean of x and of x^2) with the
 variance clamped at 0. That is not ``torch.nn.GroupNorm``'s two-pass
 form: near-constant groups come out differently, and the port follows
-the reference.
+the reference. Every op here is differentiable (plain tensor ops), so
+the train forward runs the same functions as the eval forward.
 """
 
 from __future__ import annotations
@@ -75,6 +76,32 @@ def group_norm_bf16(x: torch.Tensor, gamma: torch.Tensor,
     scale, shift = group_affine(*bf16_moments(x, count), gamma, beta,
                                 num_groups, eps)
     return apply_affine_bf16(x, scale, shift)
+
+
+def batch_norm_train(x: torch.Tensor, gamma: torch.Tensor,
+                     beta: torch.Tensor, mean: torch.Tensor,
+                     var: torch.Tensor, momentum: float = 0.9,
+                     eps: float = 1e-5):
+    """Train BatchNorm over (N, ..., C) as flax's ``BatchNorm`` with
+    ``use_running_average=False`` computes it -> (y f32, (new_mean,
+    new_var)).
+
+    The batch statistics are f32 one-pass moments, the variance
+    E[x^2] - E[x]^2 clamped at 0: the BIASED variance, which flax also
+    keeps in its running statistics (``F.batch_norm`` keeps the unbiased
+    one, so it is not used). ``y = (x - mean) * (rsqrt(var + eps) *
+    gamma) + beta`` in f32. The running statistics move as
+    ``momentum * running + (1 - momentum) * batch`` (flax's momentum 0.9
+    is torch's 0.1) and carry no gradient."""
+    xf = x.float()
+    axes = tuple(range(x.ndim - 1))
+    mu = xf.mean(axes)
+    v = torch.clamp(xf.square().mean(axes) - mu.square(), min=0.0)
+    y = (xf - mu) * (torch.rsqrt(v + eps) * gamma.float()) + beta.float()
+    with torch.no_grad():
+        new_mean = momentum * mean.float() + (1.0 - momentum) * mu
+        new_var = momentum * var.float() + (1.0 - momentum) * v
+    return y, (new_mean, new_var)
 
 
 def batch_norm_infer(x: torch.Tensor, gamma: torch.Tensor,

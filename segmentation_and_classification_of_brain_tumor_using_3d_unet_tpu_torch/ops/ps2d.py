@@ -1,5 +1,6 @@
 """The ps2d regions of the eval forward (level 0, and level 1 at
-``ps2d_levels=2``): four hand-written CUDA kernels and the torch glue
+``ps2d_levels=2``) and of the train forward (level 0): four hand-written
+CUDA kernels, the differentiable conv built on K1, and the torch glue
 between them.
 
 Counterpart of the JAX package's ``ops/pallas/ps2d.py``. There the
@@ -20,7 +21,11 @@ Kernels (``csrc/``), each with its plain PyTorch version beside it:
     ``ps2d_conv3d_flat_multi``).
   * ``pool_into_halo`` (K4) — 2x2x2 max pool of a halo tensor into the
     next level's halo layout, the level-1 region's entry (JAX
-    ``pool_into_flat``).
+    ``pool_into_flat``);
+  * ``conv3d_halo_train`` (K6) — K1 made differentiable (JAX
+    ``ps2d_conv3d_flat_train``): forward and data gradient on K1, the
+    weight gradient a library weight-grad conv. It has no kernel of its
+    own: its launches are K1's, counted in ``conv3d_halo.launches``.
 
 A wrapper takes its plain version for tensors on the CPU only; for a
 CUDA tensor it launches its kernel or raises. Each keeps a count of its
@@ -31,6 +36,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.nn.grad import conv3d_weight
 
 from .conv import BF16, f32_accumulate, matmul_bf16
 from .norm import apply_affine_bf16, bf16_moments, group_affine
@@ -100,6 +106,7 @@ def halo_to_normal(x: torch.Tensor) -> torch.Tensor:
     return x[:, 1:-1, 1:-1, 1:-1].contiguous()
 
 
+
 # ----------------------------------------------------------------------
 # K3: pack_halo
 # ----------------------------------------------------------------------
@@ -107,11 +114,9 @@ def halo_to_normal(x: torch.Tensor) -> torch.Tensor:
 
 def pack_halo_plain(x: torch.Tensor) -> torch.Tensor:
     """Plain version of K3: (B, D, H, W, C) -> (B, D+2, H+2, W+2, C)
-    with a zero halo."""
-    B, D, H, W, C = x.shape
-    y = x.new_zeros((B, D + 2, H + 2, W + 2, C))
-    y[:, 1:-1, 1:-1, 1:-1] = x
-    return y
+    with a zero halo. Differentiable: the train path packs with it, as
+    JAX trains with ``pack_flat`` (the XLA pad; K3 has no backward)."""
+    return F.pad(x, (0, 0, 1, 1, 1, 1, 1, 1))
 
 
 def pack_halo(x: torch.Tensor) -> torch.Tensor:
@@ -268,8 +273,8 @@ def conv3d_halo(xs, w, in_scale=None, in_shift=None, in_relu=False,
     * ``emit_stats``: also return ``(s1, s2)``, each (B, co) f32, the
       per-channel sum and sum of squares of the bf16 output.
 
-    Kernel limits: each input's channels a multiple of 32, co in
-    (16, 32, 64)."""
+    Kernel limits: each input's channels a multiple of 32, co 16 or a
+    multiple of 32."""
     xs = tuple(xs)
     if in_relu and in_scale is None and in_shift is None:
         raise ValueError("conv3d_halo: in_relu applies after an affine")
@@ -279,13 +284,14 @@ def conv3d_halo(xs, w, in_scale=None, in_shift=None, in_relu=False,
     B, Dp, Hp, Wp, _ = xs[0].shape
     cis = [x.shape[-1] for x in xs]
     ci_total, co = sum(cis), w.shape[-1]
-    if (len(xs) > 2 or any(c % 32 for c in cis) or co not in (16, 32, 64)
+    if (len(xs) > 2 or any(c % 32 for c in cis)
+            or not (co == 16 or (co > 0 and co % 32 == 0))
             or min(Dp, Hp, Wp) < 3
             or tuple(w.shape) != (3, 3, 3, ci_total, co)):
         raise ValueError(
             f"conv3d_halo: unsupported inputs {[tuple(x.shape) for x in xs]}"
-            f" / kernel {tuple(w.shape)} (1-2 inputs, ci % 32 == 0, co in "
-            f"16/32/64)")
+            f" / kernel {tuple(w.shape)} (1-2 inputs, ci % 32 == 0, co 16 "
+            f"or a multiple of 32)")
     for i, x in enumerate(xs):
         _check(f"conv3d_halo x{i}", x, (B, Dp, Hp, Wp, cis[i]))
     wb = w.to(BF16).contiguous()
@@ -348,6 +354,84 @@ def pool_into_halo(x: torch.Tensor) -> torch.Tensor:
 
 pool_into_halo.launches = 0
 
+# ----------------------------------------------------------------------
+# K6: conv3d_halo_train
+# ----------------------------------------------------------------------
+
+
+def conv3d_halo_dgrad(dy: torch.Tensor, w: torch.Tensor, i: int, cis):
+    """K6's data gradient for input ``i`` of a conv of inputs with
+    ``cis`` channels: K1 on the cotangent ``dy`` (halo layout) with the
+    flipped taps of that input's slice of ``w``, ci and co swapped (the
+    transpose of a SAME 3x3x3 conv), and the identity on-load affine,
+    as JAX's backward runs it (``ps2d.py:856-877``): the output's halo
+    is a constant zero, so its cotangent must not reach dx. The plain K1
+    zeroes the halo under an affine; the card's K1 never loads it."""
+    off = sum(cis[:i])
+    w_t = w[:, :, :, off:off + cis[i]].flip(0, 1, 2).transpose(3, 4)
+    ones = torch.ones((dy.shape[0], dy.shape[-1]), dtype=BF16,
+                      device=dy.device)
+    return conv3d_halo((dy,), w_t, in_scale=ones, in_shift=ones * 0)
+
+
+def conv3d_halo_wgrad(xs, dy: torch.Tensor) -> torch.Tensor:
+    """K6's weight gradient (3, 3, 3, sum ci, co), bf16: the library
+    weight-grad conv per input (JAX: XLA's, outside Pallas) over the
+    cotangent's interior. A VALID weight grad over the input's zero
+    halo is the SAME one over its interior."""
+    dy_in = halo_to_normal(dy).permute(0, 4, 1, 2, 3)   # channels-last
+    co = dy.shape[-1]
+    dws = [f32_accumulate(
+        lambda a, b: conv3d_weight(a, (co, x.shape[-1], 3, 3, 3), b),
+        x.permute(0, 4, 1, 2, 3), dy_in).permute(2, 3, 4, 1, 0)
+        for x in xs]
+    return (torch.cat(dws, dim=3) if len(dws) > 1 else dws[0]).contiguous()
+
+
+class _ConvHaloTrain(torch.autograd.Function):
+    """K1 with a backward (JAX ``ps2d_conv3d_flat_train``'s custom VJP,
+    ``ps2d.py:839-890``): the data gradients on K1, the weight gradient
+    a library call, both blind to the cotangent's halo."""
+
+    @staticmethod
+    def forward(ctx, w, *xs):
+        ctx.save_for_backward(w, *xs)
+        return conv3d_halo(xs, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        w, *xs = ctx.saved_tensors
+        dy = dy.to(BF16).contiguous()
+        if dy.data_ptr() % 16:          # a view at an odd offset
+            dy = dy.clone()
+        cis = [x.shape[-1] for x in xs]
+        dxs = [conv3d_halo_dgrad(dy, w, i, cis)
+               if ctx.needs_input_grad[1 + i] else None
+               for i in range(len(xs))]
+        dw = (conv3d_halo_wgrad(xs, dy).to(w.dtype)
+              if ctx.needs_input_grad[0] else None)
+        return (dw, *dxs)
+
+
+def conv3d_halo_train(xs, w) -> torch.Tensor:
+    """K6 (JAX ``ps2d_conv3d_flat_train``): ``conv3d_halo(xs, w)`` (bf16
+    halo tensors in, the halo-layout output) with gradients to every
+    input and to ``w``. On CUDA tensors the forward and each input's
+    data gradient launch K1 (counted in ``conv3d_halo.launches``); on
+    the CPU they run K1's plain version. The weight gradient is a
+    library weight-grad conv, as JAX's is XLA's. No fused transforms:
+    the train path applies its GroupNorms as separate ops."""
+    return _ConvHaloTrain.apply(w.to(BF16), *xs)
+
+
+def conv3d_halo_train_plain(xs, w) -> torch.Tensor:
+    """Plain version of K6: autograd through ``conv3d_halo_plain``, the
+    inputs' halos masked (zero, and passing no gradient) and the
+    output's halo a constant (its cotangent dropped)."""
+    xs = [x * halo_mask(x) for x in xs]
+    return conv3d_halo_plain(xs, w.to(BF16))
+
+
 KERNELS = (conv3d_halo, up_k2s2_into_halo, pack_halo, pool_into_halo)
 
 
@@ -370,7 +454,9 @@ def group_norm_halo_affine(x: torch.Tensor, gamma, beta, num_groups: int,
     """GroupNorm statistics of a halo tensor -> per-channel (scale,
     shift), each (B, C) f32 (JAX ``group_norm_flat_affine``). ``sums``:
     K1's emitted (sum, sum of squares); without them the statistics
-    are read from ``x`` (f32 accumulation, squares rounded to bf16)."""
+    are read from ``x`` (f32 accumulation, squares rounded to bf16).
+    Under autograd the halo's share of the gradient is dropped by the
+    producer of ``x`` (K6's backward, ``F.pad``), not here."""
     n = interior_count(x)
     if sums is None:
         s1, s2 = bf16_moments(x, n)

@@ -55,6 +55,23 @@ def resize_trilinear(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
     return y.contiguous().to(x.dtype)
 
 
+def resize_nearest(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
+    """Nearest-neighbour resize of NDHWC ``x`` (labels, masks) to spatial
+    ``size``: bit-exact with ``jax.image.resize(..., "nearest")``, which
+    takes source index ``floor((i + 0.5) * n_in / n_out)`` per axis,
+    computed in float32."""
+    size = tuple(int(s) for s in size)
+    if x.ndim != 5:
+        raise ValueError(f"expected an NDHWC tensor, got {tuple(x.shape)}")
+    for axis, (n_in, n_out) in enumerate(zip(x.shape[1:4], size), start=1):
+        if n_in == n_out:
+            continue
+        src = ((torch.arange(n_out, dtype=torch.float32, device=x.device)
+                + 0.5) * n_in / n_out).floor().long()
+        x = x.index_select(axis, src)
+    return x
+
+
 def adaptive_avg_pool(x: torch.Tensor, out_size: Sequence[int]
                       ) -> torch.Tensor:
     """AdaptiveAvgPool over the spatial dims of NDHWC ``x`` (JAX

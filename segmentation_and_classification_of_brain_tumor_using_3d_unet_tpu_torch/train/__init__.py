@@ -1,0 +1,5 @@
+from .loop import (make_eval_step, make_joint_train_step,  # noqa: F401
+                   make_loss_fn, make_train_step)
+from .state import (Optimizer, TrainState, build_optimizer,  # noqa: F401
+                    cosine_warm_restarts, create_train_state, current_lr,
+                    ema_eval_state)

@@ -1,0 +1,173 @@
+"""Train, joint-train and eval steps (counterpart of the JAX package's
+``train/loop.py``).
+
+One step: the train forward (bf16, ``forward_train``), the
+deep-supervision combined loss, the backward, the AdamW update, the new
+BatchNorm statistics and the on-device Dice; the metrics stay tensors on
+the device, so a step never waits on the host. JAX jits the step; here
+it runs eagerly, and on a CUDA model nothing of it touches the CPU.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+from ..config import Config
+from ..losses import combined_loss, deep_supervision_loss
+from ..metrics import mean_foreground_dice, region_dice
+from .state import TrainState, global_norm
+
+
+def make_loss_fn(config: Config) -> Callable:
+    """``loss_fn(out, targets)``: the combined loss of ``out["logits"]``,
+    with deep supervision over ``out["deep"]`` when configured and
+    present."""
+    lw = (config.loss.dice_weight, config.loss.ce_weight,
+          config.loss.focal_weight)
+    base = functools.partial(
+        combined_loss, weights=lw, focal_alpha=config.loss.focal_alpha,
+        focal_gamma=config.loss.focal_gamma)
+
+    def loss_fn(out: Dict, targets: torch.Tensor) -> torch.Tensor:
+        if config.loss.use_deep_supervision and out["deep"]:
+            return deep_supervision_loss(
+                out["logits"], out["deep"], targets,
+                config.loss.deep_supervision_weights, base)
+        return base(out["logits"], targets)
+
+    return loss_fn
+
+
+def _grads(loss: torch.Tensor, params) -> list:
+    """d loss / d params, zeros for a parameter the loss does not reach
+    (the last deep head: computed, unweighted), as JAX's gradient tree
+    holds zeros there, so AdamW still decays it."""
+    gs = torch.autograd.grad(loss, params, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g
+            for p, g in zip(params, gs)]
+
+
+def make_train_step(config: Config, num_classes: int = 4,
+                    grad_accum: Optional[int] = None) -> Callable:
+    """``step(state, batch, generator) -> (state, metrics)``; batch =
+    {"image": (B, D, H, W, C), "mask": (B, D, H, W) int}, ``generator``
+    on the model's device draws the dropout masks.
+
+    ``grad_accum`` > 1 (default ``config.grad_accum``) runs the batch as
+    that many microbatches, one after another: every loss term is a
+    per-sample mean and GroupNorm is per sample, so the averaged gradient
+    is the full batch's (up to the head BatchNorm's batch statistics,
+    which are per microbatch); the BatchNorm statistics advance once per
+    microbatch. Activations are held for one microbatch at a time."""
+    loss_fn = make_loss_fn(config)
+    accum = config.grad_accum if grad_accum is None else grad_accum
+
+    def micro_grads(state, images, targets, generator, bn_stats):
+        params = list(state.model.parameters())
+        out = state.model.forward_train(images, generator,
+                                        batch_stats=bn_stats)
+        loss = loss_fn(out, targets)
+        return (loss.detach(), _grads(loss, params),
+                out["logits"].detach(), out["batch_stats"])
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor],
+             generator: torch.Generator
+             ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        images, targets = batch["image"], batch["mask"]
+        b = images.shape[0]
+        if b % accum:
+            raise ValueError(f"batch {b} not divisible by grad_accum "
+                             f"{accum}")
+        mb = b // accum
+        bn_stats, gsum, lsum, dsum = None, None, 0.0, 0.0
+        for i in range(accum):
+            sl = slice(i * mb, (i + 1) * mb)
+            loss, grads, logits, bn_stats = micro_grads(
+                state, images[sl], targets[sl], generator, bn_stats)
+            gsum = grads if gsum is None else [
+                a + g for a, g in zip(gsum, grads)]
+            lsum = lsum + loss
+            dsum = dsum + mean_foreground_dice(logits, targets[sl],
+                                               num_classes)
+        grads = [g / accum for g in gsum] if accum > 1 else gsum
+        metrics = {"loss": lsum / accum, "dice": dsum / accum,
+                   "grad_norm": global_norm(grads)}
+        state.apply_gradients(grads, batch_stats=bn_stats)
+        return state, metrics
+
+    return step
+
+
+def make_joint_train_step(config: Config, num_classes: int = 4,
+                          cls_weight: float = 0.3) -> Callable:
+    """Train step of ``UNet3DWithClassifier``: ``step(state, batch,
+    generator)``, the batch's integer ``grade`` labels taken from the
+    burden of its masks when absent."""
+    from ..models.joint import grade_from_volume, joint_loss
+    seg_loss_fn = make_loss_fn(config)
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor],
+             generator: torch.Generator
+             ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        images, targets = batch["image"], batch["mask"]
+        if "grade" in batch:
+            grades = batch["grade"]
+        else:
+            grades = grade_from_volume((targets > 0).sum((1, 2, 3)),
+                                       targets[0].numel())
+        params = list(state.model.parameters())
+        out = state.model.forward_train(images, generator)
+        loss, parts = joint_loss(out, targets, grades, seg_loss_fn,
+                                 cls_weight)
+        grads = _grads(loss, params)
+        state.apply_gradients(grads, batch_stats=out["batch_stats"])
+        grade_acc = (out["grade_logits"].detach().argmax(-1) == grades
+                     ).float().mean()
+        metrics = {
+            "loss": loss.detach(), "seg_loss": parts["seg_loss"].detach(),
+            "grade_ce": parts["grade_ce"].detach(), "grade_acc": grade_acc,
+            "dice": mean_foreground_dice(out["logits"].detach(), targets,
+                                         num_classes),
+        }
+        return state, metrics
+
+    return step
+
+
+def make_eval_step(config: Config, num_classes: int = 4,
+                   with_hausdorff: bool = False,
+                   hd_percentile: float = 95.0) -> Callable:
+    """``eval_step(state, batch) -> metrics``: the eval forward's loss
+    (no deep heads), mean foreground Dice, WT/TC/ET region Dice, the
+    argmax labels and, with ``with_hausdorff``, each sample's
+    (percentile-)Hausdorff distance through the exact EDT
+    (``ops/edt.py``) — all on the device."""
+    from ..ops.edt import hausdorff_distance_device
+    loss_fn = make_loss_fn(config)
+
+    @torch.no_grad()
+    def step(state: TrainState, batch: Dict[str, torch.Tensor]
+             ) -> Dict[str, torch.Tensor]:
+        images, targets = batch["image"], batch["mask"]
+        res = state.model(images)
+        out = dict(res) if isinstance(res, dict) else {"logits": res}
+        out["deep"] = []
+        labels = out["logits"].argmax(-1)
+        metrics = {
+            "loss": loss_fn(out, targets),
+            "dice": mean_foreground_dice(labels, targets, num_classes),
+            "pred_labels": labels,
+        }
+        for name, val in region_dice(labels, targets).items():
+            metrics[f"dice_{name}"] = val
+        if with_hausdorff:
+            metrics["hausdorff"] = torch.stack([
+                hausdorff_distance_device(p > 0, t > 0,
+                                          percentile=hd_percentile)
+                for p, t in zip(labels, targets)])
+        return metrics
+
+    return step

@@ -10,7 +10,9 @@ PyTorch and the CUDA toolkit:
 as in test_torch_ps2d.py: pack and pool bit-exact; the transposed conv
 within 1 bf16 ulp of max|ref|; the conv within 2^-7 * max|ref| and its
 sums within 1e-3 of the largest sum (f32 sums in another order,
-atomics).
+atomics). The differentiable conv (K6) against autograd through the
+plain conv: its gradients within 2^-5 * max|ref| (JAX's rule for its
+own kernel's VJP, tests/test_ps2d.py:446-451).
 """
 
 import numpy as np
@@ -41,6 +43,11 @@ K1_CASES = [
     ((32,), 64, None, False, False, True),
     ((64,), 64, "both", True, False, True),
     ((64, 64), 64, None, False, True, True),
+    # any 32-multiple co: channel tiles of 32 (96) and of 64 (128)
+    ((32,), 96, "both", True, False, True),
+    ((64, 32), 96, None, False, True, True),
+    ((32,), 128, "both", True, False, True),
+    ((64, 64), 128, None, False, True, True),
 ]
 
 
@@ -131,3 +138,54 @@ def test_kernels_refuse_unsupported_inputs(cuda):
     with pytest.raises(ValueError):      # odd interior
         T.pool_into_halo(torch.zeros((1, 5, 6, 6, 32), device=cuda,
                                      dtype=BF16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("co", [8, 48, 80])
+def test_conv3d_halo_refuses_other_widths(cuda, co):
+    x = torch.zeros((1, 4, 4, 4, 32), device=cuda, dtype=BF16)
+    with pytest.raises(ValueError):
+        T.conv3d_halo([x], torch.zeros((3, 3, 3, 32, co), device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cis,co", [((32,), 32), ((32, 32), 32),
+                                    ((64,), 96), ((32, 64), 128)])
+def test_conv3d_halo_train_kernel_matches_plain(cuda, cis, co):
+    """K6's forward, data gradients and weight gradient against autograd
+    through the plain conv, with garbage in the cotangent's halo (the
+    output's halo is a constant zero; its cotangent must be dropped)."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    B, D, H, W = 2, 3, 19, 37
+
+    def rnd(shape, s=1.0):
+        return torch.randn(shape, device=cuda, generator=g) * s
+
+    xs0 = [T.pack_halo(rnd((B, D, H, W, c)).to(BF16)) for c in cis]
+    w0 = rnd((3, 3, 3, sum(cis), co), 0.1)
+    r = rnd((B, D + 2, H + 2, W + 2, co))
+    r = r + 100 * r * (1 - T.halo_mask(r))      # garbage on the halo
+
+    def run(fn):
+        xs = [x.clone().requires_grad_() for x in xs0]
+        w = w0.clone().requires_grad_()
+        y = fn(xs, w)
+        (y.float() * r).sum().backward()
+        return y.detach(), [x.grad for x in xs], w.grad
+
+    before = T.conv3d_halo.launches
+    y, dxs, dw = run(T.conv3d_halo_train)
+    torch.cuda.synchronize()
+    n = 1 + len(cis)            # the forward, one data gradient per input
+    assert T.conv3d_halo.launches == before + n     # K6's launches are K1's
+    yr, dxs_r, dw_r = run(T.conv3d_halo_train_plain)
+
+    def close(a, b, rel):
+        d = (a.float() - b.float()).abs().max().item()
+        assert d <= rel * max(b.float().abs().max().item(), 1e-3), d
+
+    close(y, yr, 2 ** -7)
+    for a, b in zip(dxs, dxs_r):
+        close(a, b, 2 ** -5)
+        assert (a.float() * (1 - T.halo_mask(a).float())).abs().max() == 0
+    close(dw, dw_r, 2 ** -5)
