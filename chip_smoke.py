@@ -34,10 +34,21 @@ the CUDA toolkit. Imports no JAX. Phases, each printing its seconds:
      forms, a cotangent with garbage on the halo; the kernel path's
      loss and gradients against the normal path's; one grad_accum=2
      step against the full batch; one joint step and one eval step;
-  6. timings — CUDA-event times of each kernel (and of each of its
+  6. groupnorm — K5 through its entry point ``fused_group_norm`` at
+     the DoubleConv tail's forms (4x128^3x32 GN8 with ReLU, the same
+     with the residual, 240x240x160x32 with both, in bf16; one f32
+     form), 3 launches a call; each against its plain version, and two
+     runs bit-identical;
+  7. wtile — K7 through its entry point ``wtile_conv3d`` at
+     benchmarks/bench_wtile.py's nine shapes (batch 1, bf16), and its
+     VJP at the first shape (forward and data gradient on K7, 11
+     launches in all); the kernel against its plain version at four
+     shapes, the VJP against autograd through the plain version;
+  8. timings — CUDA-event times of each kernel (and of each of its
      call forms), its plain version and one library call computing the
-     same function, beside its bound; K6's forward, data gradient and
-     weight gradient apart, and the train step's time and peak memory.
+     same function, beside its bound; K6's and K7's forward, data
+     gradient and weight gradient apart, and the train step's time and
+     peak memory.
 
 It prints the per-kernel JSON line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Any failure, or a run past
@@ -104,21 +115,6 @@ def bound_ms(nbytes: float, flops: float):
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
-
-
-def unported_bounds() -> dict:
-    """Bounds of the TPU kernels not ported yet, at the shapes where the
-    JAX package runs them or would on the serving path (bf16, 2 B a
-    value): K5 a GroupNorm (+ReLU, +residual) at the level-0 shape
-    (4, 128^3, 32); K7 benchmarks/bench_wtile.py's first shape
-    (1, 240, 240, 160), 32 -> 32."""
-    gn = 4 * 128 ** 3 * 32 * 2
-    return {
-        "fused_group_norm": bound_ms(2 * gn, 0.0),
-        "fused_group_norm (residual)": bound_ms(3 * gn, 0.0),
-        "wtile_conv3d": bound_ms(2 * 240 * 240 * 160 * 32 * 2,
-                                 2.0 * 27 * 32 * 32 * 240 * 240 * 160),
-    }
 
 
 def grads_directional(got: dict, ref: dict) -> tuple:
@@ -265,6 +261,8 @@ def main() -> int:
     try:
         from importlib import import_module
         T = import_module(PKG + ".ops.ps2d")
+        GN = import_module(PKG + ".ops.groupnorm")
+        K7 = import_module(PKG + ".ops.conv3d")
         native = import_module(PKG + ".ops.native")
         cfg = import_module(PKG + ".config")
         train_mod = import_module(PKG + ".train")
@@ -400,14 +398,22 @@ def main() -> int:
         return forms, (x3,), k2, x4
     forms, k3_in, k2_in, k4_in = run.phase("kernels", kernels)
 
+    counted = (T.conv3d_halo, T.up_k2s2_into_halo, T.pack_halo,
+               T.pool_into_halo, GN.fused_group_norm, K7.conv3d_same)
+
+    def launches_of(**nonzero):
+        """A launch count for every kernel: ``nonzero``'s, else 0."""
+        return {k.__name__: nonzero.get(k.__name__, 0) for k in counted}
+
     def request_counts(fn):
         """Run ``fn`` with every launch count at 0 just before it; its
         result and the counts just after."""
         torch.cuda.synchronize()
-        T.reset_launch_counts()
+        for k in counted:
+            k.launches = 0
         out = fn()
         torch.cuda.synchronize()
-        return out, T.launch_counts()
+        return out, {k.__name__: k.launches for k in counted}
 
     def hold_to_normal(model, vol, conf, label):
         """One batch of 4 windows of ``vol``'s crop through ``model``'s
@@ -464,8 +470,8 @@ def main() -> int:
         check(conf.model.features == (32, 64, 128, 256, 512),
               "not the full-width model")
         pred = Predictor(conf, seed=0)
-        want = {"conv3d_halo": 6, "up_k2s2_into_halo": 2, "pack_halo": 4,
-                "pool_into_halo": 0}        # per request: 2 forwards
+        want = launches_of(conv3d_halo=6, up_k2s2_into_halo=2,
+                           pack_halo=4)     # per request: 2 forwards
         for s, vol in enumerate(vols):
             t = time.perf_counter()
             lab, counts = request_counts(
@@ -493,8 +499,8 @@ def main() -> int:
         tree = models.to_flax_variables(joint.state_dict())
         del joint
         pred.load_joint_grade(tree["params"], tree["batch_stats"])
-        per_fwd = {"conv3d_halo": 7, "up_k2s2_into_halo": 2,
-                   "pack_halo": 2, "pool_into_halo": 1}
+        per_fwd = launches_of(conv3d_halo=7, up_k2s2_into_halo=2,
+                              pack_halo=2, pool_into_halo=1)
         want = {k: 2 * v for k, v in per_fwd.items()}   # 8 windows, 2 fwd
         total = dict.fromkeys(want, 0)
 
@@ -603,8 +609,7 @@ def main() -> int:
         step = train_mod.make_train_step(conf)
         # K6 has no kernel of its own: its forwards and data gradients
         # are K1's launches (3 + 4 a step)
-        want = {"conv3d_halo": 7,
-                "up_k2s2_into_halo": 0, "pack_halo": 0, "pool_into_halo": 0}
+        want = launches_of(conv3d_halo=7)
         losses, step_ms, total = [], [], dict.fromkeys(want, 0)
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()   # the earlier phases' tensors
@@ -785,6 +790,125 @@ def main() -> int:
     forms6 = run.phase("train", train)
 
     # ---------------------------------------------------------------- 6
+    def groupnorm():
+        """K5's path: its entry point at the DoubleConv tail's forms."""
+        def gn_form(shape, dtype, relu, residual=None):
+            """residual: None, "x" (x itself) or "other" (a tensor of
+            its own)."""
+            x = rnd(shape, 2.0, dtype) + 0.5
+            c = shape[-1]
+            r = (x if residual == "x" else None if residual is None
+                 else rnd(shape, 1.0, dtype))
+            return dict(x=x, gamma=1 + rnd((c,), 0.3, torch.float32),
+                        beta=rnd((c,), 0.3, torch.float32), num_groups=8,
+                        relu=relu, residual=r)
+
+        big = (1, 240, 240, 160, C)   # the shape of groupnorm.py:152
+        gforms = {
+            "(4,128^3,32) GN8 ReLU bf16": gn_form(
+                (B, S, S, S, C), bf16, True),
+            "(4,128^3,32) GN8 ReLU + x bf16 (DoubleConv tail)": gn_form(
+                (B, S, S, S, C), bf16, True, "x"),
+            "(1,240,240,160,32) GN8 ReLU + residual bf16": gn_form(
+                big, bf16, True, "other"),
+            "(4,128^3,32) GN8 f32": gn_form(
+                (B, S, S, S, C), torch.float32, False),
+        }
+        outs, counts = request_counts(lambda: {
+            k: GN.fused_group_norm(**kw) for k, kw in gforms.items()})
+        want = launches_of(fused_group_norm=3 * len(gforms))
+        print(f"groupnorm path ({len(gforms)} calls): launches {counts}")
+        check(counts == want, f"launches {counts} != {want}")
+        worst = 0.0
+        for name, kw in gforms.items():
+            y = outs[name]
+            ref = GN.fused_group_norm_plain(**kw)
+            again = GN.fused_group_norm(**kw)
+            torch.cuda.synchronize()
+            m = ref.float().abs().max().item()
+            bf = kw["x"].dtype == bf16
+            tol = ulp(m) if bf else 1e-5 * m
+            err = (y.float() - ref.float()).abs().max().item()
+            ndiff = (y != ref).sum().item()
+            same = torch.equal(y, again)
+            print(f"fused_group_norm {name}: max_abs_err {err} (tolerance "
+                  f"{tol}: {'1 bf16 ulp' if bf else '1e-5'} of max|ref| {m});"
+                  f" {ndiff} of {y.numel()} values differ; two runs "
+                  f"bit-identical: {same}; finite: "
+                  f"{bool(torch.isfinite(y).all())}")
+            check(y.shape == kw["x"].shape and y.dtype == kw["x"].dtype
+                  and bool(torch.isfinite(y).all()) and err <= tol and same,
+                  f"fused_group_norm {name} differs from its plain version")
+            worst = max(worst, err)
+            del ref, again
+        report["fused_group_norm"] = {"max_abs_err": worst}
+        report["groupnorm"] = {"launches": counts}
+        return gforms
+    gforms = run.phase("groupnorm", groupnorm)
+
+    # ---------------------------------------------------------------- 7
+    def wtile():
+        """K7's path: its entry point at bench_wtile.py's nine shapes
+        (batch 1, bf16, weights * 0.05 as there), and its VJP at the
+        first with the JAX test's loss sum(y^2)."""
+        shapes = [(32, 32, 240, 240, 160), (64, 32, 240, 240, 160),
+                  (32, 64, 120, 120, 80), (64, 64, 120, 120, 80),
+                  (128, 64, 120, 120, 80), (64, 128, 60, 60, 40),
+                  (128, 128, 60, 60, 40), (256, 256, 30, 30, 20),
+                  (512, 512, 15, 15, 10)]
+        ins = {f"{ci}->{co} @({D},{H},{W})": (rnd((1, D, H, W, ci)),
+                                              rnd((3, 3, 3, ci, co), 0.05))
+               for ci, co, D, H, W in shapes}
+        first = next(iter(ins))
+
+        def path():
+            ys = {k: K7.wtile_conv3d(x, w) for k, (x, w) in ins.items()}
+            x, w = (t.clone().requires_grad_() for t in ins[first])
+            loss = (K7.wtile_conv3d(x, w).float() ** 2).sum()
+            return ys, torch.autograd.grad(loss, [x, w])
+
+        (ys, grads), counts = request_counts(path)
+        want = launches_of(conv3d_same=len(ins) + 2)
+        print(f"wtile path ({len(ins)} forwards, one VJP): launches {counts}")
+        check(counts == want, f"launches {counts} != {want}")
+        worst = 0.0
+        # the first shape, co 64 (one channel tile), co 128 (two), and
+        # the smallest (16x16-voxel blocks, eight channel tiles)
+        keys = list(ins)
+        for k in (keys[0], keys[2], keys[6], keys[8]):
+            y, ref = ys[k], K7.wtile_conv3d_plain(*ins[k])
+            torch.cuda.synchronize()
+            m = ref.float().abs().max().item()
+            err = (y.float() - ref.float()).abs().max().item()
+            print(f"conv3d_same {k}: max_abs_err {err} (tolerance "
+                  f"{2 ** -7 * m} = 2^-7 max|ref|); finite: "
+                  f"{bool(torch.isfinite(y).all())}")
+            check(y.shape == ref.shape and bool(torch.isfinite(y).all())
+                  and err <= 2 ** -7 * m,
+                  f"conv3d_same {k} differs from its plain version")
+            worst = max(worst, err)
+            del ref
+        for k, y in ys.items():
+            check(bool(torch.isfinite(y).all()), f"non-finite output {k}")
+        del ys
+        x, w = (t.clone().requires_grad_() for t in ins[first])
+        loss = (K7.wtile_conv3d_plain(x, w).float() ** 2).sum()
+        refs = torch.autograd.grad(loss, [x, w])
+        errs = []
+        for label, a, b in zip(("dx", "dw"), grads, refs):
+            e = (a.float() - b.float()).abs().max().item()
+            m = b.float().abs().max().item()
+            errs.append(f"{label} {e} (tolerance {2 ** -5 * m})")
+            check(e <= 2 ** -5 * m, f"wtile_conv3d VJP: {label} differs "
+                  f"from autograd through the plain version")
+        print(f"wtile_conv3d VJP {first}, loss sum(y^2): max_abs_err "
+              + ", ".join(errs))
+        report["conv3d_same"] = {"max_abs_err": worst}
+        report["wtile"] = {"launches": counts}
+        return ins
+    k7_in = run.phase("wtile", wtile)
+
+    # ---------------------------------------------------------------- 8
     def timings():
         import torch.nn.functional as F
 
@@ -853,6 +977,74 @@ def main() -> int:
                     fwd_bwd(T.conv3d_halo_train_plain), library,
                     bound_ms(nb, flops), 5, pieces)
 
+        def gn_row(name):
+            """K5 at one form. The library's F.group_norm computes the
+            function where it is a GroupNorm alone; beside the fused forms
+            it is timed as a piece. The bound counts x (and a residual
+            that is not x) read once and y written once; the two passes
+            read x twice: their floor is the bound with x's bytes once
+            more."""
+            kw = gforms[name]
+            x, r = kw["x"], kw["residual"]
+            xn = x.permute(0, 4, 1, 2, 3)             # channels-last NCDHW
+            gm, bt = kw["gamma"].to(x.dtype), kw["beta"].to(x.dtype)
+
+            def gn_alone():
+                F.group_norm(xn, kw["num_groups"], gm, bt, 1e-5)
+
+            fused = kw["relu"] or r is not None
+            nb = nbytes(x, None if r is x else r, x)  # x, residual, y
+            return (name, lambda: GN.fused_group_norm(**kw),
+                    lambda: GN.fused_group_norm_plain(**kw),
+                    None if fused else gn_alone, bound_ms(nb, 0.0),
+                    10 if x.numel() > 3e8 else 20,
+                    {"group_norm_alone": gn_alone} if fused else {},
+                    {"two_pass_floor_ms": bound_ms(nb + nbytes(x), 0.0)[0]})
+
+        def wtile_row(name):
+            """K7 forward at one benchmark shape."""
+            x, w = k7_in[name]
+            xn = x.permute(0, 4, 1, 2, 3)             # channels-last NCDHW
+            wn = w.permute(4, 3, 0, 1, 2).contiguous()
+            ci, co = w.shape[3], w.shape[4]
+            vox = x.numel() // ci
+            reps = 5 if x.numel() > 2e8 else 20
+            return (name, lambda: K7.conv3d_same(x, w),
+                    lambda: K7.wtile_conv3d_plain(x, w),
+                    lambda: F.conv3d(xn, wn, padding=1),
+                    bound_ms(nbytes(x, w) + 2 * vox * co,      # y in bf16
+                             2.0 * 27 * ci * co * vox), reps)
+
+        def wtile_vjp_row(name):
+            """K7's op at the first shape: forward + both gradients for a
+            cotangent dy, and the three pieces apart."""
+            x, w = k7_in[name]
+            xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+            dy = rnd(x.shape[:-1] + (w.shape[-1],))
+            xn, dyn = x.permute(0, 4, 1, 2, 3), dy.permute(0, 4, 1, 2, 3)
+            wn = w.permute(4, 3, 0, 1, 2).contiguous()
+
+            def fwd_bwd(fn):
+                return lambda: torch.autograd.grad(fn(xr, wr), [xr, wr], dy)
+
+            def library():
+                F.conv3d(xn, wn, padding=1)
+                torch.ops.aten.convolution_backward(
+                    dyn, xn, wn, None, [1, 1, 1], [1, 1, 1], [1, 1, 1],
+                    False, [0, 0, 0], 1, [True, True, False])
+
+            flops = 3 * 2.0 * 27 * w.shape[3] * dy.numel()
+            # reads x, w, dy; writes y, dx, dw
+            nb = 2 * nbytes(x, w) + 2 * nbytes(dy)
+            pieces = {
+                "forward": lambda: K7.conv3d_same(x, w),
+                "data_grad": lambda: K7.conv3d_same_dgrad(dy, w),
+                "weight_grad": lambda: K7.conv3d_same_wgrad(x, dy, w.dtype),
+            }
+            return (f"VJP {name}: forward + data grad + weight grad",
+                    fwd_bwd(K7.wtile_conv3d), fwd_bwd(K7.wtile_conv3d_plain),
+                    library, bound_ms(nb, flops), 3, pieces)
+
         (x3,) = k3_in
         y3 = T.pack_halo_plain(x3)
         x4 = k4_in
@@ -879,41 +1071,58 @@ def main() -> int:
             # (library), against autograd through the plain version
             ("conv3d_halo_train", "ps2d_conv3d.cu", "ps2d.py:840",
              [train_row(n) for n in forms6]),
+            ("fused_group_norm", "group_norm.cu", "groupnorm.py:68",
+             [gn_row(n) for n in gforms]),
+            # K7: the nine benchmark shapes, then the VJP at the first
+            ("conv3d_same", "conv3d_same.cu", "conv3d.py:338",
+             [wtile_row(n) for n in k7_in]
+             + [wtile_vjp_row(next(iter(k7_in)))]),
         ]
         # the main form of each kernel: dec0.conv1 for K1
         main_form = {"conv3d_halo": 1}
         # launches per path: the server requests' (K1-K4), the five
-        # train steps' (K1, forwards and K6's data gradients)
+        # train steps' (K1, forwards and K6's data gradients), the
+        # entry points' of K5 and K7
         paths = {"server": report["launches"],
-                 "train": report["train"]["launches"]}
-        main_path = {"conv3d_halo_train": "train"}
+                 "train": report["train"]["launches"],
+                 "groupnorm": report["groupnorm"]["launches"],
+                 "wtile": report["wtile"]["launches"]}
+        main_path = {"conv3d_halo_train": "train",
+                     "fused_group_norm": "groupnorm",
+                     "conv3d_same": "wtile"}
 
         def launches(name, path):
             """K6 has no kernel of its own: its launches are K1's on
-            the train path, and none on the server's."""
+            the train path, and none on the others."""
             if name == "conv3d_halo_train":
                 return paths[path]["conv3d_halo"] if path == "train" else 0
             return paths[path][name]
         out = []
         for name, src, line, fs in rows:
             timed = []
-            for shape, kern, plain, lib, (bms, by), reps, *pieces in fs:
+            for shape, kern, plain, lib, (bms, by), reps, *more in fs:
+                pieces, extra = (*more, {}, {})[:2]
                 ms = event_ms(kern, reps)
                 pms = event_ms(plain, max(reps // 2, 3))
-                lms = event_ms(lib, reps)
+                lms = event_ms(lib, reps) if lib else None
                 ms2 = event_ms(kern, reps)   # kernel again: spread in a call
                 row = {"shape": shape, "ms": ms, "ms_again": ms2,
                        "plain_ms": pms, "library_ms": lms,
-                       "bound_ms": bms, "bound_by": by}
-                for piece, fn in (pieces[0] if pieces else {}).items():
+                       "bound_ms": bms, "bound_by": by, **extra}
+                for piece, fn in pieces.items():
                     row[f"{piece}_ms"] = event_ms(fn, reps)
                 print(f"{name} {shape}: kernel {ms:.4f} / {ms2:.4f} ms, "
-                      f"plain {pms:.4f} ms, library {lms:.4f} ms, bound "
-                      f"{bms:.4f} ms ({by})" + "".join(
-                          f", {k} {v:.4f}" for k, v in row.items()
-                          if k.endswith("_ms") and k[:-3] in
-                          ("forward", "data_grad", "weight_grad")))
+                      f"plain {pms:.4f} ms, library "
+                      + ("none" if lms is None else f"{lms:.4f} ms")
+                      + f", bound {bms:.4f} ms ({by})" + "".join(
+                          f", {k} {row[k]:.4f}" for k in
+                          [*extra, *(f"{p}_ms" for p in pieces)]))
                 timed.append(row)
+            if name == "conv3d_same":
+                fwd = timed[:len(k7_in)]
+                tk, tl = (sum(r[k] for r in fwd) for k in ("ms", "library_ms"))
+                print(f"TOTAL sampled: F.conv3d {tl:.3f} ms  conv3d_same "
+                      f"{tk:.3f} ms  ({tl / tk:.2f}x)")
             m = timed[main_form.get(name, 0)]
             out.append({
                 "name": name, "route": "cuda",
@@ -928,8 +1137,6 @@ def main() -> int:
                 "forms": timed})
         return out
     kernels_json = run.phase("timings", timings)
-    for name, (bms, by) in unported_bounds().items():
-        print(f"not ported yet: {name} bound {bms:.4f} ms ({by})")
 
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(

@@ -37,6 +37,9 @@ SIGNATURES = {
     "up_k2s2_into_halo": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "pack_halo": (_P, _P, _I, _I, _I, _I, _I, _P),
     "pool_into_halo": (_P, _P, _I, _I, _I, _I, _I, _P),
+    "group_norm_stats": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _P),
+    "group_norm_apply": (_P, _I, _P, _P, _P, _I, _I, _P, _I, _I, _I, _P),
+    "conv3d_same": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

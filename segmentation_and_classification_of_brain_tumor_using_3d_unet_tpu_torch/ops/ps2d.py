@@ -72,6 +72,13 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous with a 16 B aligned data pointer (a copy if it is
+    a view at an odd offset)."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
 def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 

@@ -12,13 +12,18 @@ within 1 bf16 ulp of max|ref|; the conv within 2^-7 * max|ref| and its
 sums within 1e-3 of the largest sum (f32 sums in another order,
 atomics). The differentiable conv (K6) against autograd through the
 plain conv: its gradients within 2^-5 * max|ref| (JAX's rule for its
-own kernel's VJP, tests/test_ps2d.py:446-451).
+own kernel's VJP, tests/test_ps2d.py:446-451). The fused GroupNorm (K5)
+within 1 bf16 ulp of max|ref| in bf16 and 1e-5 of max|ref| in f32, and
+bit-identical across two runs (no float atomics). The unpadded conv (K7)
+within 2^-7 * max|ref|, its gradients within 2^-5 * max|ref|.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.ops import conv3d as K7
+from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.ops import groupnorm as K5
 from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.ops import ps2d as T
 
 BF16 = torch.bfloat16
@@ -189,3 +194,126 @@ def test_conv3d_halo_train_kernel_matches_plain(cuda, cis, co):
         close(a, b, 2 ** -5)
         assert (a.float() * (1 - T.halo_mask(a).float())).abs().max() == 0
     close(dw, dw_r, 2 ** -5)
+
+
+# (shape, groups): a ragged voxel count, C = 24 (3 vectors a row), C = 12
+# (one value an access), C = 512 (more vectors a row than a warp), and a
+# sample of 20480 voxels (40 chunks in the statistics pass)
+K5_CASES = [
+    ((2, 5, 9, 20, 32), 8),
+    ((1, 5, 3, 7, 32), 4),
+    ((3, 4, 4, 4, 16), 1),
+    ((2, 3, 5, 7, 24), 4),
+    ((2, 3, 5, 7, 12), 4),
+    ((1, 2, 3, 5, 512), 8),
+    ((2, 16, 32, 40, 32), 8),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("relu,residual", [(False, None), (True, None),
+                                           (True, "same"), (False, "f32")])
+@pytest.mark.parametrize("shape,groups", K5_CASES)
+def test_fused_group_norm_kernel_matches_plain(cuda, shape, groups, relu,
+                                               residual, dtype):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = (torch.randn(shape, device=cuda, generator=g) * 2 + 0.5).to(dtype)
+    gamma = 1 + 0.3 * torch.randn(shape[-1], device=cuda, generator=g)
+    beta = 0.3 * torch.randn(shape[-1], device=cuda, generator=g)
+    r = None
+    if residual is not None:
+        r = torch.randn(shape, device=cuda, generator=g).to(
+            dtype if residual == "same" else torch.float32)
+    before = K5.fused_group_norm.launches
+    got = K5.fused_group_norm(x, gamma, beta, groups, residual=r, relu=relu)
+    torch.cuda.synchronize()
+    assert K5.fused_group_norm.launches == before + 3
+    again = K5.fused_group_norm(x, gamma, beta, groups, residual=r,
+                                relu=relu)
+    ref = K5.fused_group_norm_plain(x, gamma, beta, groups, residual=r,
+                                    relu=relu)
+    assert got.dtype == dtype and got.shape == x.shape
+    assert torch.equal(got, again)
+    m = ref.float().abs().max().item()
+    d = (got.float() - ref.float()).abs().max().item()
+    assert d <= (_ulp(m) if dtype == BF16 else 1e-5 * m), d
+
+
+@pytest.mark.gpu
+def test_fused_group_norm_refuses_ragged_groups(cuda):
+    with pytest.raises(ValueError):
+        K5.fused_group_norm(torch.zeros((1, 2, 2, 2, 12), device=cuda),
+                            torch.ones(12, device=cuda),
+                            torch.zeros(12, device=cuda), 8)
+
+
+# (ci, co, D, H, W): ragged against the 8x32 block (co 32 and 64 one
+# channel tile, 96 three of 32, 128 two of 64), and 16x16 blocks where W is
+# narrow (the smallest benchmark shape's W = 10, H = 15)
+K7_CASES = [
+    (32, 32, 3, 19, 37),
+    (64, 32, 2, 8, 8),
+    (32, 64, 3, 7, 12),
+    (32, 96, 2, 9, 33),
+    (64, 128, 2, 10, 40),
+    (128, 64, 2, 15, 10),
+    (512, 512, 2, 15, 10),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ci,co,D,H,W", K7_CASES)
+def test_conv3d_same_kernel_matches_plain(cuda, ci, co, D, H, W):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn((2, D, H, W, ci), device=cuda, generator=g).to(BF16)
+    w = torch.randn((3, 3, 3, ci, co), device=cuda, generator=g) * 0.05
+    before = K7.conv3d_same.launches
+    y = K7.conv3d_same(x, w)
+    torch.cuda.synchronize()
+    assert K7.conv3d_same.launches == before + 1
+    ref = K7.wtile_conv3d_plain(x, w)
+    assert y.dtype == BF16 and y.shape == ref.shape
+    d = (y.float() - ref.float()).abs().max().item()
+    assert d <= 2 ** -7 * ref.float().abs().max().item(), d
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w_dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("ci,co,D,H,W", [(32, 32, 3, 19, 37),
+                                         (64, 32, 2, 15, 10)])
+def test_wtile_conv3d_grads_match_plain(cuda, ci, co, D, H, W, w_dtype):
+    """K7's op: forward and data gradient on the kernel (2 launches), the
+    weight gradient a library call in the weights' dtype, against
+    autograd through the plain version, with the loss of the JAX test,
+    sum(y^2)."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x0 = torch.randn((1, D, H, W, ci), device=cuda, generator=g).to(BF16)
+    w0 = (torch.randn((3, 3, 3, ci, co), device=cuda, generator=g)
+          * 0.05).to(w_dtype)
+
+    def run(fn):
+        x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+        (fn(x, w).float() ** 2).sum().backward()
+        return x.grad, w.grad
+
+    before = K7.conv3d_same.launches
+    dx, dw = run(K7.wtile_conv3d)
+    torch.cuda.synchronize()
+    assert K7.conv3d_same.launches == before + 2
+    rx, rw = run(K7.wtile_conv3d_plain)
+    assert dx.dtype == BF16 and dw.dtype == w_dtype
+    for a, b in ((dx, rx), (dw, rw)):
+        d = (a.float() - b.float()).abs().max().item()
+        assert d <= 2 ** -5 * b.float().abs().max().item(), d
+
+
+@pytest.mark.gpu
+def test_conv3d_same_refuses_f32_and_other_widths(cuda):
+    with pytest.raises(TypeError, match="bfloat16"):
+        K7.conv3d_same(torch.zeros((1, 2, 3, 4, 32), device=cuda),
+                       torch.zeros((3, 3, 3, 32, 32), device=cuda))
+    with pytest.raises(ValueError):
+        K7.conv3d_same(torch.zeros((1, 2, 3, 4, 16), device=cuda,
+                                   dtype=BF16),
+                       torch.zeros((3, 3, 3, 16, 32), device=cuda))
