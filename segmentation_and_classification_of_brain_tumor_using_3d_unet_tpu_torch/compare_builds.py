@@ -1,19 +1,28 @@
-"""Time K1 (``ops/ps2d.py::conv3d_halo``) as built from other source
-trees beside the package's own build, in one process on one card.
+"""Time a kernel as built from other source trees beside the package's
+own build, in one process on one card.
 
 Each ``--against LABEL=DIR`` names a ``csrc`` directory (for example the
 parent commit's, unpacked with ``git archive``). Every tree is built by
 ``ops/native.py`` as the package's own is, and the wrapper is pointed at
-each build in turn. At each of the UNet's level-0 call forms, at the
-server's batch of 4 windows of 128^3, the builds are timed in rounds
-that run them forward and then backward (A B B A for two), each time the
-mean of ``--reps`` launches between CUDA events; the script prints the
-median per build. Every build's output must equal the package build's
-bit for bit, and its statistics (summed with float atomics, in no fixed
-order) within 1e-5 relative.
+each build in turn. The builds are timed in rounds that run them forward
+and then backward (A B B A for two), each time the mean of ``--reps``
+launches between CUDA events; the script prints the median per build.
+
+  * ``--kernel k1`` (the default): K1 (``ops/ps2d.py::conv3d_halo``) at
+    the UNet's level-0 call forms, at the server's batch of 4 windows of
+    128^3. Every build's output must equal the package build's bit for
+    bit, and its statistics (summed with float atomics, in no fixed
+    order) within 1e-5 relative.
+  * ``--kernel k7``: K7 (``ops/conv3d.py::conv3d_same``) at
+    ``benchmarks/bench_wtile.py``'s nine shapes (batch 1) and at the data
+    gradient of its VJP at the first shape; ``F.conv3d`` on the same
+    inputs is timed in the same rounds. Every build's output must lie
+    within 2^-7 * max|ref| of the plain version (a new summation order
+    changes the last bits). Prints each shape's launch geometry in this
+    build and each build's share of the shape's bound.
 
     python -m segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.compare_builds \\
-        --against parent=/path/to/parent/csrc
+        --kernel k7 --against parent=/path/to/parent/csrc
 
 The last line is a JSON object of the medians, with the card's name and
 power limit.
@@ -67,42 +76,107 @@ def level0_forms(B: int = 4, S: int = 128, C: int = 32, seed: int = 0):
     }
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--against", action="append", default=[],
-                    metavar="LABEL=DIR", help="a csrc directory to compare")
-    ap.add_argument("--rounds", type=int, default=5)
-    ap.add_argument("--reps", type=int, default=10)
-    args = ap.parse_args(argv)
+K7_SHAPES = [(32, 32, 240, 240, 160), (64, 32, 240, 240, 160),
+             (32, 64, 120, 120, 80), (64, 64, 120, 120, 80),
+             (128, 64, 120, 120, 80), (64, 128, 60, 60, 40),
+             (128, 128, 60, 60, 40), (256, 256, 30, 30, 20),
+             (512, 512, 15, 15, 10)]
+PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
 
+
+def k7_forms(seed: int = 0):
+    """K7's timed forms: name -> (kernel call, plain call, F.conv3d call,
+    bound ms, reps). The nine benchmark shapes (weights * 0.05 as
+    there), then the VJP's data gradient at the first."""
+    import torch
+    import torch.nn.functional as F
+    from .ops import conv3d as K7
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(shape, scale=1.0):
+        return (torch.randn(shape, device="cuda", generator=g)
+                * scale).to(torch.bfloat16)
+
+    def form(x, w, kern, plain, reps):
+        ci, co = w.shape[3], w.shape[4]
+        vox = x.numel() // ci
+        xn = x.permute(0, 4, 1, 2, 3)             # channels-last NCDHW
+        wn = w.permute(4, 3, 0, 1, 2).contiguous()
+        flops = 2.0 * 27 * ci * co * vox
+        nb = (x.numel() + w.numel() + vox * co) * 2
+        bound = max(flops / PEAK_BF16_FLOPS, nb / PEAK_HBM_BYTES) * 1e3
+        return (kern, plain, lambda: F.conv3d(xn, wn, padding=1), bound,
+                reps)
+
+    out = {}
+    for ci, co, D, H, W in K7_SHAPES:
+        x, w = rnd((1, D, H, W, ci)), rnd((3, 3, 3, ci, co), 0.05)
+        reps = 5 if x.numel() > 2e8 else 20
+        out[f"{ci}->{co} @({D},{H},{W})"] = form(
+            x, w, lambda x=x, w=w: K7.conv3d_same(x, w),
+            lambda x=x, w=w: K7.wtile_conv3d_plain(x, w), reps)
+    ci, co, D, H, W = K7_SHAPES[0]
+    dy, w = rnd((1, D, H, W, co)), rnd((3, 3, 3, ci, co), 0.05)
+    wt = w.flip(0, 1, 2).transpose(3, 4)
+    out[f"data grad {co}->{ci} @({D},{H},{W})"] = form(
+        dy, wt, lambda: K7.conv3d_same_dgrad(dy, w),
+        lambda: K7.wtile_conv3d_plain(dy, wt), 5)
+    return out
+
+
+def compare_k7(libs, use, rounds: int) -> dict:
+    """K7 at its forms in every build: checked against the plain
+    version, then timed in alternated rounds beside F.conv3d."""
+    import numpy as np
+    from .ops import conv3d as K7
+
+    result = {}
+    order = list(libs) + list(libs)[::-1]
+    for name, (kern, plain, lib_fn, bound, reps) in k7_forms().items():
+        ref = plain().float()
+        tol = 2 ** -7 * ref.abs().max().item()
+        for label in libs:
+            use(label)
+            err = (kern().float() - ref).abs().max().item()
+            if not err <= tol:
+                raise SystemExit(f"compare_builds: {label} differs from the "
+                                 f"plain version at {name}: {err} > {tol}")
+        del ref
+        use("this")
+        if name[0].isdigit():
+            ci, co = (int(v) for v in name.split(" ")[0].split("->"))
+            D, H, W = (int(v) for v in name.split("(")[1][:-1].split(","))
+            print(f"{name}: this build's launch "
+                  f"{K7.conv3d_same_plan(1, D, H, W, ci, co)}")
+        times = {label: [] for label in [*libs, "F.conv3d"]}
+        for _ in range(rounds):
+            for label in order:
+                use(label)
+                times[label].append(event_ms(kern, reps))
+            times["F.conv3d"].append(event_ms(lib_fn, reps))
+        med = {k: float(np.median(v)) for k, v in times.items()}
+        result[name] = {"median_ms": med, "bound_ms": bound,
+                        "bound_share": {k: bound / v for k, v in med.items()}}
+        print(f"{name}: bound {bound:.4f} ms; " + ", ".join(
+            f"{k} {v:.4f} ms ({bound / v:.1%} of bound; "
+            f"{' '.join(f'{t:.4f}' for t in times[k])})"
+            for k, v in med.items()))
+    fwd = [v["median_ms"] for k, v in result.items() if k[0].isdigit()]
+    total = {k: sum(m[k] for m in fwd) for k in fwd[0]}
+    print("TOTAL sampled (nine forwards): " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in total.items()))
+    return {"forms": {k: v["median_ms"] for k, v in result.items()},
+            "bound_ms": {k: v["bound_ms"] for k, v in result.items()},
+            "total_sampled_ms": total}
+
+
+def compare_k1(libs, use, rounds: int, reps: int) -> dict:
+    """K1 at the level-0 call forms: bit-equal outputs, then timed."""
     import numpy as np
     import torch
-    from .ops import native
     from .ops import ps2d as T
-
-    if not torch.cuda.is_available():
-        raise SystemExit("compare_builds: needs a CUDA device")
-    trees = {"this": native.CSRC_DIR}
-    for spec in args.against:
-        label, _, path = spec.partition("=")
-        if not path or label in trees:
-            raise SystemExit(f"compare_builds: bad --against {spec!r}")
-        trees[label] = Path(path)
-    libs = {}
-    for label, src in trees.items():
-        built = native.build(src)
-        libs[label] = native.Library(built)
-        print(f"build {label} ({src}): {built.seconds:.2f} s -> "
-              f"{built.path.name}")
-        # ptxas -v: each conv entry's registers (the lines follow it)
-        log = built.log.splitlines()
-        for i, line in enumerate(log):
-            if "entry function" in line and "conv_kernel" in line:
-                regs = next((x for x in log[i + 1:i + 5] if "Used" in x), "")
-                print(f"  {line.split(chr(39))[1]}: {regs.strip()}")
-
-    def use(label):
-        native._library = libs[label]
 
     order = list(libs) + list(libs)[::-1]
     result = {}
@@ -120,23 +194,68 @@ def main(argv=None) -> int:
                                  f"this build at {name}")
         del outs
         times = {label: [] for label in libs}
-        for _ in range(args.rounds):
+        for _ in range(rounds):
             for label in order:
                 use(label)
                 times[label].append(event_ms(
-                    lambda: T.conv3d_halo(emit_stats=True, **kw), args.reps))
+                    lambda: T.conv3d_halo(emit_stats=True, **kw), reps))
         med = {k: float(np.median(v)) for k, v in times.items()}
-        result[name] = {"median_ms": med, "ms": times}
+        result[name] = med
         print(f"{name}: " + ", ".join(
             f"{k} {v:.4f} ms ({' '.join(f'{t:.4f}' for t in times[k])})"
             for k, v in med.items()))
+    return {"forms": result}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--against", action="append", default=[],
+                    metavar="LABEL=DIR", help="a csrc directory to compare")
+    ap.add_argument("--kernel", choices=("k1", "k7"), default="k1")
+    ap.add_argument("--rounds", type=int, default=5)
+    ap.add_argument("--reps", type=int, default=10,
+                    help="launches per timing (k1; k7 takes 5-20 by size)")
+    args = ap.parse_args(argv)
+
+    import torch
+    from .ops import native
+
+    if not torch.cuda.is_available():
+        raise SystemExit("compare_builds: needs a CUDA device")
+    trees = {"this": native.CSRC_DIR}
+    for spec in args.against:
+        label, _, path = spec.partition("=")
+        if not path or label in trees or label == "F.conv3d":
+            raise SystemExit(f"compare_builds: bad --against {spec!r}")
+        trees[label] = Path(path)
+    libs = {}
+    for label, src in trees.items():
+        built = native.build(src)
+        libs[label] = native.Library(built)
+        print(f"build {label} ({src}): {built.seconds:.2f} s -> "
+              f"{built.path.name}")
+        # ptxas -v: each conv entry's registers and spills (the lines
+        # follow it)
+        log = built.log.splitlines()
+        for i, line in enumerate(log):
+            if "entry function" in line and "conv_kernel" in line:
+                info = [x.strip() for x in log[i + 1:i + 5]
+                        if "Used" in x or "spill" in x]
+                print(f"  {line.split(chr(39))[1]}: {'; '.join(info)}")
+
+    def use(label):
+        native._library = libs[label]
+
+    if args.kernel == "k7":
+        out = compare_k7(libs, use, args.rounds)
+    else:
+        out = compare_k1(libs, use, args.rounds, args.reps)
     native._library = None
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
-    print(json.dumps({"card": smi, "forms": {
-        k: v["median_ms"] for k, v in result.items()}}))
+    print(json.dumps({"card": smi, "kernel": args.kernel, **out}))
     return 0
 
 

@@ -78,9 +78,7 @@ def conv3d_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     B, D, H, W, ci = x.shape
     co = w.shape[-1]
     x = _aligned(x)
-    wk = w.to(BF16).reshape(27, ci, co).contiguous()
-    if wk.data_ptr() % 32:                      # wmma's alignment
-        wk = wk.clone()
+    wk = _aligned(w.to(BF16).reshape(27, ci, co))   # 16 B copies
     _check("wtile_conv3d w", wk)
     y = torch.empty((B, D, H, W, co), dtype=BF16, device=x.device)
     lib = _lib()
@@ -92,6 +90,50 @@ def conv3d_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 conv3d_same.launches = 0
+
+
+def conv3d_same_plan(B: int, D: int, H: int, W: int, ci: int,
+                     co: int) -> dict:
+    """The launch geometry K7 picks for x (B, D, H, W, ci) -> co: output
+    channels N and input channels KC per step, M output voxels (GEMM
+    rows) a block, the TD x TH x TW output patch they cover, the block
+    count and the dynamic shared memory in bytes."""
+    import ctypes
+    lib = _lib()
+    fn = lib._dll.conv3d_same_plan
+    fn.argtypes = (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
+    fn.restype = ctypes.c_int
+    keys = ("N", "KC", "M", "TD", "TH", "TW", "blocks", "smem")
+    out = (ctypes.c_int * len(keys))()
+    lib.check("conv3d_same_plan",
+              fn(B, D, H, W, ci, co, ctypes.addressof(out)))
+    return dict(zip(keys, out))
+
+
+def wgmma_tile_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One 64 x n x 16 product a @ b (a (64, 16), b (16, n) bf16 on the
+    card, n 32, 64 or 128) -> (64, n) f32 through K7's own operand path:
+    its ldmatrix rows, its weight-slab layout and wgmma descriptor, its
+    accumulator mapping. For tests: it tells a descriptor fault from an
+    indexing fault in the conv."""
+    import ctypes
+    n = b.shape[-1]
+    if (tuple(a.shape) != (64, 16) or tuple(b.shape) != (16, n)
+            or n not in (32, 64, 128)):
+        raise ValueError(f"wgmma_tile_product: needs (64, 16) @ (16, n), "
+                         f"n in 32/64/128, got {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)}")
+    a, b = _aligned(a), _aligned(b)
+    _check("wgmma_tile_product a", a)
+    _check("wgmma_tile_product b", b)
+    d = torch.empty((64, n), dtype=torch.float32, device=a.device)
+    lib = _lib()
+    fn = lib._dll.conv3d_same_wgmma_probe
+    fn.argtypes = (ctypes.c_void_p,) * 3 + (ctypes.c_int, ctypes.c_void_p)
+    fn.restype = ctypes.c_int
+    lib.check("conv3d_same_wgmma_probe", fn(a.data_ptr(), b.data_ptr(),
+                                            d.data_ptr(), n, _stream()))
+    return d
 
 
 def conv3d_same_dgrad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -15,7 +15,9 @@ plain conv: its gradients within 2^-5 * max|ref| (JAX's rule for its
 own kernel's VJP, tests/test_ps2d.py:446-451). The fused GroupNorm (K5)
 within 1 bf16 ulp of max|ref| in bf16 and 1e-5 of max|ref| in f32, and
 bit-identical across two runs (no float atomics). The unpadded conv (K7)
-within 2^-7 * max|ref|, its gradients within 2^-5 * max|ref|.
+within 2^-7 * max|ref|, its gradients within 2^-5 * max|ref|, two runs
+bit-identical, and its wgmma tile step alone within 1e-5 * max|ref| of
+torch.matmul (f32 sums of 16 exact products).
 """
 
 import numpy as np
@@ -248,9 +250,13 @@ def test_fused_group_norm_refuses_ragged_groups(cuda):
                             torch.zeros(12, device=cuda), 8)
 
 
-# (ci, co, D, H, W): ragged against the 8x32 block (co 32 and 64 one
-# channel tile, 96 three of 32, 128 two of 64), and 16x16 blocks where W is
-# narrow (the smallest benchmark shape's W = 10, H = 15)
+# (ci, co, D, H, W) at batch 2: ragged patches (D, H and W not multiples
+# of the patch, narrow and wide patches), D = 1, a volume smaller than one
+# patch (3x5x7), ci 96 (three chunks of 32), co 96 (three channel tiles of
+# 32), co 256, and between them every kernel instantiation (N 32/64/128 x
+# (M 128 with KC 32 or 64, M 256 with KC 32) x one or several channel
+# tiles; test_k7_cases_cover_every_instantiation checks that; the last six
+# are large enough for M 256)
 K7_CASES = [
     (32, 32, 3, 19, 37),
     (64, 32, 2, 8, 8),
@@ -259,6 +265,24 @@ K7_CASES = [
     (64, 128, 2, 10, 40),
     (128, 64, 2, 15, 10),
     (512, 512, 2, 15, 10),
+    (32, 32, 1, 9, 20),
+    (32, 64, 3, 5, 7),
+    (64, 64, 2, 19, 37),
+    (96, 96, 2, 9, 33),
+    (64, 96, 2, 13, 21),
+    (32, 256, 3, 7, 12),
+    (32, 128, 8, 30, 40),
+    (64, 128, 8, 31, 41),
+    (96, 256, 8, 30, 20),
+    (128, 256, 8, 29, 23),
+    (32, 192, 3, 7, 12),
+    (64, 192, 2, 10, 12),
+    (32, 32, 25, 41, 39),
+    (64, 96, 17, 33, 31),
+    (96, 64, 23, 40, 41),
+    (32, 192, 16, 33, 32),
+    (64, 128, 24, 39, 40),
+    (32, 256, 15, 40, 41),
 ]
 
 
@@ -317,3 +341,52 @@ def test_conv3d_same_refuses_f32_and_other_widths(cuda):
         K7.conv3d_same(torch.zeros((1, 2, 3, 4, 16), device=cuda,
                                    dtype=BF16),
                        torch.zeros((3, 3, 3, 16, 32), device=cuda))
+
+
+@pytest.mark.gpu
+def test_k7_cases_cover_every_instantiation(cuda):
+    """The cases above reach each (N, KC, M, one channel tile or
+    several) the launch can pick."""
+    seen = set()
+    for ci, co, D, H, W in K7_CASES:
+        p = K7.conv3d_same_plan(2, D, H, W, ci, co)
+        assert p["TD"] * p["TH"] * p["TW"] <= p["M"] and p["blocks"] >= 1
+        seen.add((p["N"], p["KC"], p["M"], p["N"] == co))
+    assert seen == {(n, kc, m, one) for n in (32, 64, 128)
+                    for kc, m in ((32, 128), (64, 128), (32, 256))
+                    for one in (True, False)}, sorted(seen)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ci,co,D,H,W", [(512, 512, 15, 15, 10),
+                                         (32, 32, 6, 40, 24),
+                                         (64, 128, 8, 30, 40)])
+def test_conv3d_same_two_runs_bit_identical(cuda, ci, co, D, H, W):
+    """No float atomics: two launches on the same inputs give the same
+    bits (batch 1, the deepest benchmark shape among them), and agree
+    with the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn((1, D, H, W, ci), device=cuda, generator=g).to(BF16)
+    w = (torch.randn((3, 3, 3, ci, co), device=cuda, generator=g)
+         * 0.05).to(BF16)
+    y1, y2 = K7.conv3d_same(x, w), K7.conv3d_same(x, w)
+    assert torch.equal(y1, y2)
+    ref = K7.wtile_conv3d_plain(x, w)
+    d = (y1.float() - ref.float()).abs().max().item()
+    assert d <= 2 ** -7 * ref.float().abs().max().item(), d
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [32, 64, 128])
+def test_wgmma_tile_product_matches_matmul(cuda, n):
+    """K7's operand path alone: one 64 x n x 16 wgmma (A through ldmatrix,
+    B through the weight-slab layout and its descriptor) against
+    torch.matmul of the same bf16 tiles; f32 sums of 16 exact products."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    a = torch.randn((64, 16), device=cuda, generator=g).to(BF16)
+    b = torch.randn((16, n), device=cuda, generator=g).to(BF16)
+    d = K7.wgmma_tile_product(a, b)
+    torch.cuda.synchronize()
+    ref = torch.matmul(a.double(), b.double()).float()
+    assert d.shape == ref.shape and d.dtype == torch.float32
+    assert (d - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
