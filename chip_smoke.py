@@ -11,7 +11,9 @@ the CUDA toolkit. Imports no JAX. Phases, each printing its seconds:
   2. kernels — each kernel against its plain PyTorch version at the
      serving path's shapes (batch 4 windows of 128^3), the level-1
      region's call forms included, and K1 at co = 128 (the level-1
-     width of HighQualityConfig);
+     width of HighQualityConfig); K1 also run twice at each form (output
+     and statistics bit-identical), with its launch geometry there and
+     its kernels' registers, spills and C7513 notes from the build log;
   3. slice  — a full-width Predictor (ps2d_eval=True, ps2d_levels=1,
      random weights from a seed) segments three synthetic 240x240x155
      volumes in "cropped" mode; every kernel of that path must have
@@ -385,17 +387,43 @@ def main() -> int:
         worst = 0.0
         for name, kw in forms.items():
             y, (s1, s2) = T.conv3d_halo(emit_stats=True, **kw)
+            y2, (t1, t2) = T.conv3d_halo(emit_stats=True, **kw)
             yr, (r1, r2) = T.conv3d_halo_plain(emit_stats=True, **kw)
             torch.cuda.synchronize()
             err = (y.float() - yr.float()).abs().max().item()
             tol = 2 ** -7 * yr.float().abs().max().item()
             serr = max(((s - r).abs().max() / r.abs().max()).item()
                        for s, r in ((s1, r1), (s2, r2)))
+            # no float atomics: a second run gives the same bits
+            same = (torch.equal(y, y2) and torch.equal(s1, t1)
+                    and torch.equal(s2, t2))
+            xs = kw["xs"]
+            geo = T.conv3d_halo_plan(
+                xs[0].shape[0], *(n - 2 for n in xs[0].shape[1:4]),
+                xs[0].shape[-1], sum(x.shape[-1] for x in xs[1:]),
+                kw["w"].shape[-1])
             print(f"conv3d_halo {name}: max_abs_err {err} (tolerance {tol}"
-                  f" = 2^-7 max|ref|); stats rel err {serr} (tolerance 1e-3)")
+                  f" = 2^-7 max|ref|); stats rel err {serr} (tolerance 1e-3)"
+                  f"; two runs bit-identical (y, stats): {same}; launch "
+                  f"{geo}")
             check(err <= tol and serr <= 1e-3,
                   f"conv3d_halo {name} differs from its plain version")
+            check(same, f"conv3d_halo {name}: two runs differ")
             worst = max(worst, err)
+            del y2, yr
+        # K1's kernels: registers and spills, and ptxas's notes of
+        # serialised wgmmas (C7513), from the build log
+        log = built.log.splitlines()
+        if not log:
+            print("ps2d_conv3d kernels: build reused, no ptxas report")
+        for i, line in enumerate(log):
+            if "entry function" in line and "ps2d_conv3d" in line:
+                info = [x.strip().removeprefix("ptxas info    : ")
+                        for x in log[i + 1:i + 4]
+                        if "Used" in x or "spill" in x]
+                print(f"  {line.split(chr(39))[1]}: {'; '.join(info)}")
+            elif "C7513" in line and "ps2d_conv3d" in line:
+                print("  " + line.strip())
         report["conv3d_halo"] = {"max_abs_err": worst}
         return forms, (x3,), k2, x4
     forms, k3_in, k2_in, k4_in = run.phase("kernels", kernels)

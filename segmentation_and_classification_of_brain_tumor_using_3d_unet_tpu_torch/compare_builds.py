@@ -9,20 +9,26 @@ and then backward (A B B A for two), each time the mean of ``--reps``
 launches between CUDA events; the script prints the median per build.
 
   * ``--kernel k1`` (the default): K1 (``ops/ps2d.py::conv3d_halo``) at
-    the UNet's level-0 call forms, at the server's batch of 4 windows of
-    128^3. Every build's output must equal the package build's bit for
-    bit, and its statistics (summed with float atomics, in no fixed
-    order) within 1e-5 relative.
+    ``chip_smoke.py``'s six call forms (the UNet's level-0 and level-1
+    forms at the server's batch of 4 windows of 128^3, and co = 128 at
+    level 1) and at K6's data gradient of enc0.conv2 (batch 2, garbage on
+    the cotangent's halo); ``F.conv3d`` on the same inputs is timed in
+    the same rounds. Every build's output must lie within 2^-7 * max|ref|
+    of the plain version and its statistics within 1e-3 relative (a new
+    summation order changes the last bits). A build from before per-block
+    statistics (no ``ps2d_conv3d_plan``, PR 9's and earlier) is called
+    with its own statistics buffer. Prints each form's launch geometry in
+    this build and each build's share of the form's bound.
   * ``--kernel k7``: K7 (``ops/conv3d.py::conv3d_same``) at
     ``benchmarks/bench_wtile.py``'s nine shapes (batch 1) and at the data
     gradient of its VJP at the first shape; ``F.conv3d`` on the same
     inputs is timed in the same rounds. Every build's output must lie
-    within 2^-7 * max|ref| of the plain version (a new summation order
-    changes the last bits). Prints each shape's launch geometry in this
-    build and each build's share of the shape's bound.
+    within 2^-7 * max|ref| of the plain version; whether it equals this
+    build's bit for bit is printed. Prints each shape's launch geometry
+    in this build and each build's share of the shape's bound.
 
     python -m segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.compare_builds \\
-        --kernel k7 --against parent=/path/to/parent/csrc
+        --kernel k1 --against parent=/path/to/parent/csrc
 
 The last line is a JSON object of the medians, with the card's name and
 power limit.
@@ -49,30 +55,57 @@ def event_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def level0_forms(B: int = 4, S: int = 128, C: int = 32, seed: int = 0):
-    """K1's level-0 call forms in the server's request (as
-    ``chip_smoke.py``'s kernel phase builds them): name -> kwargs."""
+def k1_forms(seed: int = 0):
+    """K1's timed forms: ``chip_smoke.py``'s six (the UNet's level-0 and
+    level-1 call forms in the server's batch of 4 windows of 128^3, and
+    co = 128 at level 1), then K6's data gradient at enc0.conv2 (batch 2,
+    as the train step runs it, garbage on the cotangent's halo): name ->
+    (kwargs of ``conv3d_halo``, or for the data gradient (dy, w, cis)).
+    """
     import torch
     from .ops import ps2d as T
 
     g = torch.Generator(device="cuda").manual_seed(seed)
 
-    def rnd(shape, scale=1.0, dtype=torch.bfloat16):
+    def rnd(shape, scale=1.0):
         return (torch.randn(shape, device="cuda", generator=g)
-                * scale).to(dtype)
+                * scale).to(torch.bfloat16)
 
-    h0 = [T.pack_halo_plain(rnd((B, S, S, S, C))) for _ in range(2)]
-    mask = T.pack_halo_plain(torch.rand((B, S, S, S, C), device="cuda",
-                                        generator=g).to(torch.bfloat16))
-    std = (2 / (27 * C)) ** 0.5
+    def halo(b, s, c):
+        return T.pack_halo_plain(rnd((b, s, s, s, c)))
+
+    def mask(s, c):
+        return T.pack_halo_plain(torch.rand(
+            (B, s, s, s, c), device="cuda", generator=g).to(torch.bfloat16))
+
+    def conv(ci, co):
+        return rnd((3, 3, 3, ci, co), (2 / (27 * co)) ** 0.5)
+
+    def affine(c):
+        return dict(in_scale=1 + rnd((B, c), 0.3), in_shift=rnd((B, c), 0.3),
+                    in_relu=True)
+
+    B, S, C = 4, 128, 32
+    S1, C1 = S // 2, 2 * C
+    h0 = [halo(B, S, C) for _ in range(2)]
+    h1 = [halo(B, S1, c) for c in (C, C1, C1)]
+    dy = halo(2, S, C)
+    dy = dy + 100 * rnd(dy.shape) * (1 - T.halo_mask(dy))
     return {
         "enc0.conv2/dec0.conv2 (4,130^3,32)->32, affine+relu": dict(
-            xs=(h0[0],), w=rnd((3, 3, 3, C, C), std),
-            in_scale=1 + rnd((B, C), 0.3), in_shift=rnd((B, C), 0.3),
-            in_relu=True),
+            xs=(h0[0],), w=conv(C, C), **affine(C)),
         "dec0.conv1 2x(4,130^3,32)->32, mask": dict(
-            xs=(h0[0], h0[1]), w=rnd((3, 3, 3, 2 * C, C), std),
-            in_mul0=mask),
+            xs=(h0[0], h0[1]), w=conv(2 * C, C), in_mul0=mask(S, C)),
+        "enc1.conv1 (4,66^3,32)->64": dict(xs=(h1[0],), w=conv(C, C1)),
+        "enc1.conv2/dec1.conv2 (4,66^3,64)->64, affine+relu": dict(
+            xs=(h1[1],), w=conv(C1, C1), **affine(C1)),
+        "dec1.conv1 2x(4,66^3,64)->64, mask": dict(
+            xs=(h1[1], h1[2]), w=conv(2 * C1, C1), in_mul0=mask(S1, C1)),
+        "co=128 (4,66^3,128)->128, affine+relu": dict(
+            xs=(halo(B, S1, 2 * C1),), w=conv(2 * C1, 2 * C1),
+            **affine(2 * C1)),
+        "K6 data grad of enc0.conv2 (2,130^3,32)->32": (dy, conv(C, C),
+                                                         (C,)),
     }
 
 
@@ -130,6 +163,7 @@ def compare_k7(libs, use, rounds: int) -> dict:
     """K7 at its forms in every build: checked against the plain
     version, then timed in alternated rounds beside F.conv3d."""
     import numpy as np
+    import torch
     from .ops import conv3d as K7
 
     result = {}
@@ -137,13 +171,18 @@ def compare_k7(libs, use, rounds: int) -> dict:
     for name, (kern, plain, lib_fn, bound, reps) in k7_forms().items():
         ref = plain().float()
         tol = 2 ** -7 * ref.abs().max().item()
+        outs = {}
         for label in libs:
             use(label)
-            err = (kern().float() - ref).abs().max().item()
+            outs[label] = kern()
+            err = (outs[label].float() - ref).abs().max().item()
             if not err <= tol:
                 raise SystemExit(f"compare_builds: {label} differs from the "
                                  f"plain version at {name}: {err} > {tol}")
-        del ref
+        print(f"{name}: bit-identical to this build: " + ", ".join(
+            f"{k} {torch.equal(v, outs['this'])}" for k, v in outs.items()
+            if k != "this"))
+        del ref, outs
         use("this")
         if name[0].isdigit():
             ci, co = (int(v) for v in name.split(" ")[0].split("->"))
@@ -172,39 +211,107 @@ def compare_k7(libs, use, rounds: int) -> dict:
             "total_sampled_ms": total}
 
 
+def _legacy_k1(lib, xs, w, in_scale=None, in_shift=None, in_relu=False,
+               in_mul0=None):
+    """K1 with statistics through a build from before per-block sums (no
+    ``ps2d_conv3d_plan``; PR 9's and earlier): its statistics buffer is
+    (B, 2, co), zeroed by the caller, summed with atomics."""
+    import torch
+    from .ops import ps2d as T
+
+    B, Dp, Hp, Wp, _ = xs[0].shape
+    cis, co = [x.shape[-1] for x in xs], w.shape[-1]
+    sc = sh = None
+    if in_scale is not None or in_shift is not None:
+        sc, sh = T._affine_pair(in_scale, in_shift, B, sum(cis), xs[0].device)
+    y = torch.empty((B, Dp, Hp, Wp, co), dtype=torch.bfloat16,
+                    device=xs[0].device)
+    stats = torch.zeros((B, 2, co), dtype=torch.float32, device=xs[0].device)
+    lib.check("conv3d_halo", lib.ps2d_conv3d(
+        xs[0].data_ptr(), T._ptr(xs[1]) if len(xs) > 1 else None, cis[0],
+        cis[1] if len(xs) > 1 else 0, w.data_ptr(), T._ptr(sc), T._ptr(sh),
+        int(in_relu), T._ptr(in_mul0), y.data_ptr(), stats.data_ptr(),
+        B, Dp - 2, Hp - 2, Wp - 2, co, T._stream()))
+    return y, (stats[:, 0], stats[:, 1])
+
+
 def compare_k1(libs, use, rounds: int, reps: int) -> dict:
-    """K1 at the level-0 call forms: bit-equal outputs, then timed."""
+    """K1 at its forms in every build: checked against the plain version,
+    then timed in alternated rounds beside F.conv3d."""
     import numpy as np
     import torch
+    import torch.nn.functional as F
     from .ops import ps2d as T
 
     order = list(libs) + list(libs)[::-1]
     result = {}
-    for name, kw in level0_forms().items():
-        outs = {}
+    for name, form in k1_forms().items():
+        if isinstance(form, dict):      # a forward, with statistics
+            xs, w = form["xs"], form["w"]
+            cis = [x.shape[-1] for x in xs]
+            xn = torch.cat([T.halo_to_normal(x) for x in xs], -1)
+            ref, sums = T.conv3d_halo_plain(emit_stats=True, **form)
+
+            def kern(label, form=form):
+                if hasattr(libs[label]._dll, "ps2d_conv3d_plan"):
+                    return T.conv3d_halo(emit_stats=True, **form)
+                return _legacy_k1(libs[label], **form)
+        else:                           # K6's data gradient, no statistics
+            dy, w0, cis = form
+            xs, sums = (dy,), None
+            w = w0.flip(0, 1, 2).transpose(3, 4)
+            xn = T.halo_to_normal(dy)
+            ref = T.conv3d_halo_plain((dy * T.halo_mask(dy),), w)
+
+            def kern(label, dy=dy, w0=w0, cis=cis):
+                return T.conv3d_halo_dgrad(dy, w0, 0, cis)
+        ci, co = sum(cis), w.shape[-1]
+        tol = 2 ** -7 * ref.float().abs().max().item()
         for label in libs:
             use(label)
-            outs[label] = T.conv3d_halo(emit_stats=True, **kw)
-        y0, sums0 = outs["this"]
-        for label, (y, sums) in outs.items():
-            if not torch.equal(y, y0) or any(
-                    (s - r).abs().max() > 1e-5 * r.abs().max()
-                    for s, r in zip(sums, sums0)):
-                raise SystemExit(f"compare_builds: {label} differs from "
-                                 f"this build at {name}")
-        del outs
-        times = {label: [] for label in libs}
+            out = kern(label)
+            y, got = (out[0], out[1]) if sums is not None else (out, None)
+            err = (y.float() - ref.float()).abs().max().item()
+            serr = 0.0 if got is None else max(
+                ((s - r).abs().max() / r.abs().max()).item()
+                for s, r in zip(got, sums))
+            if not (err <= tol and serr <= 1e-3):
+                raise SystemExit(f"compare_builds: {label} differs from the "
+                                 f"plain version at {name}: {err} (> {tol}?),"
+                                 f" stats {serr} (> 1e-3?)")
+            print(f"{name}: {label} max_abs_err {err} (tolerance {tol}); "
+                  f"stats rel err {serr} (tolerance 1e-3)")
+        del ref, out, y
+        B, Dp, Hp, Wp = xs[0].shape[:4]
+        use("this")
+        print(f"{name}: this build's launch " + str(T.conv3d_halo_plan(
+            B, Dp - 2, Hp - 2, Wp - 2, cis[0], sum(cis[1:]), co)))
+        n = B * T.interior_count(xs[0])
+        nbytes = sum(t.numel() * t.element_size() for t in
+                     (*xs, w, form.get("in_mul0"), form.get("in_scale"),
+                      form.get("in_shift")) if t is not None) \
+            if isinstance(form, dict) else (dy.numel() + w.numel()) * 2
+        nbytes += B * Dp * Hp * Wp * co * 2                   # y
+        bound = max(2.0 * 27 * ci * co * n / PEAK_BF16_FLOPS,
+                    nbytes / PEAK_HBM_BYTES) * 1e3
+        xl = xn.permute(0, 4, 1, 2, 3)                 # channels-last NCDHW
+        wl = w.permute(4, 3, 0, 1, 2).contiguous()
+        times = {label: [] for label in [*libs, "F.conv3d"]}
         for _ in range(rounds):
             for label in order:
                 use(label)
-                times[label].append(event_ms(
-                    lambda: T.conv3d_halo(emit_stats=True, **kw), reps))
+                times[label].append(event_ms(lambda: kern(label), reps))
+            times["F.conv3d"].append(event_ms(
+                lambda: F.conv3d(xl, wl, padding=1), reps))
         med = {k: float(np.median(v)) for k, v in times.items()}
-        result[name] = med
-        print(f"{name}: " + ", ".join(
-            f"{k} {v:.4f} ms ({' '.join(f'{t:.4f}' for t in times[k])})"
+        result[name] = {"median_ms": med, "bound_ms": bound,
+                        "bound_share": {k: bound / v for k, v in med.items()}}
+        print(f"{name}: bound {bound:.4f} ms; " + ", ".join(
+            f"{k} {v:.4f} ms ({bound / v:.1%} of bound; "
+            f"{' '.join(f'{t:.4f}' for t in times[k])})"
             for k, v in med.items()))
-    return {"forms": result}
+    return {"forms": {k: v["median_ms"] for k, v in result.items()},
+            "bound_ms": {k: v["bound_ms"] for k, v in result.items()}}
 
 
 def main(argv=None) -> int:

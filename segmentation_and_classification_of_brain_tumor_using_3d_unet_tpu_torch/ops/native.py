@@ -6,8 +6,8 @@ with a plain C interface, loaded with ``ctypes``. No
 source includes PyTorch's headers, so the build takes seconds, not the
 minutes of ``torch.utils.cpp_extension``. The library is built at first
 use into ``build/torch_kernels/`` beside the package (a directory git
-ignores), named by a hash of the sources and flags so a changed source
-is rebuilt and an unchanged one is reused.
+ignores), named by a hash of the sources, headers and flags so a changed
+source or header is rebuilt and an unchanged build is reused.
 """
 
 from __future__ import annotations
@@ -58,15 +58,23 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def source_digest(csrc_dir: Path = CSRC_DIR) -> str:
+    """The build's name: a hash of the flags and of every source and
+    header (``*.cu``, ``*.cuh``) in ``csrc_dir``, by name and content, so
+    an edited header is rebuilt too."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted([*Path(csrc_dir).glob("*.cu"),
+                       *Path(csrc_dir).glob("*.cuh")]):
+        digest.update(src.name.encode() + src.read_bytes())
+    return digest.hexdigest()[:16]
+
+
 def build(csrc_dir: Path = CSRC_DIR) -> Build:
     """Compile ``csrc_dir/*.cu`` (the package's sources by default), one
     nvcc process per source, all at once, and link them, unless this
     exact build exists. Raises with nvcc's output if a step fails."""
     sources = sorted(Path(csrc_dir).glob("*.cu"))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        digest.update(src.name.encode() + src.read_bytes())
-    target = BUILD_DIR / f"libps2d_{digest.hexdigest()[:16]}.so"
+    target = BUILD_DIR / f"libps2d_{source_digest(csrc_dir)}.so"
     if target.exists():
         return Build(target, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -311,21 +311,50 @@ def conv3d_halo(xs, w, in_scale=None, in_shift=None, in_relu=False,
     if in_mul0 is not None:
         _check("conv3d_halo in_mul0", in_mul0, xs[0].shape)
     y = torch.empty((B, Dp, Hp, Wp, co), dtype=BF16, device=xs[0].device)
-    stats = (torch.zeros((B, 2, co), dtype=torch.float32,
-                         device=xs[0].device) if emit_stats else None)
+    ci1 = cis[1] if len(xs) > 1 else 0
+    # the kernel writes each block's sums; they are added here over the
+    # blocks, in a fixed order (two runs give the same bits)
+    parts = None
+    if emit_stats:
+        n_sp = conv3d_halo_plan(B, Dp - 2, Hp - 2, Wp - 2, cis[0], ci1,
+                                co)["blocks_per_item"]
+        parts = torch.empty((B, n_sp, 2, co), dtype=torch.float32,
+                            device=xs[0].device)
     lib = _lib()
     lib.check("conv3d_halo", lib.ps2d_conv3d(
         xs[0].data_ptr(), _ptr(xs[1]) if len(xs) > 1 else None, cis[0],
-        cis[1] if len(xs) > 1 else 0, wb.data_ptr(), _ptr(sc), _ptr(sh),
-        int(in_relu), _ptr(in_mul0), y.data_ptr(), _ptr(stats),
+        ci1, wb.data_ptr(), _ptr(sc), _ptr(sh),
+        int(in_relu), _ptr(in_mul0), y.data_ptr(), _ptr(parts),
         B, Dp - 2, Hp - 2, Wp - 2, co, _stream()))
     conv3d_halo.launches += 1
     if not emit_stats:
         return y
+    stats = parts.sum(1)
     return y, (stats[:, 0], stats[:, 1])
 
 
 conv3d_halo.launches = 0
+
+
+def conv3d_halo_plan(B: int, D: int, H: int, W: int, ci0: int, ci1: int,
+                     co: int) -> dict:
+    """The launch geometry K1 picks for inputs of ci0 (and ci1; 0 for one
+    input) channels over a (B, D, H, W) interior -> co: output channels N
+    and input channels KC per step, M output voxels (GEMM rows) a block,
+    the TD x TH x TW output patch they cover, the block count, the
+    dynamic shared memory in bytes, and the blocks a batch item and
+    channel tile (the statistics buffer's block axis)."""
+    import ctypes
+    lib = _lib()
+    fn = lib._dll.ps2d_conv3d_plan
+    fn.argtypes = (ctypes.c_int,) * 7 + (ctypes.c_void_p,)
+    fn.restype = ctypes.c_int
+    keys = ("N", "KC", "M", "TD", "TH", "TW", "blocks", "smem",
+            "blocks_per_item")
+    out = (ctypes.c_int * len(keys))()
+    lib.check("ps2d_conv3d_plan", fn(B, D, H, W, ci0, ci1, co,
+                                     ctypes.addressof(out)))
+    return dict(zip(keys, out))
 
 # ----------------------------------------------------------------------
 # K4: pool_into_halo

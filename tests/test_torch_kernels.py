@@ -8,9 +8,10 @@ PyTorch and the CUDA toolkit:
 
 (``tests/conftest.py`` imports JAX, hence ``--noconftest``.) Tolerances
 as in test_torch_ps2d.py: pack and pool bit-exact; the transposed conv
-within 1 bf16 ulp of max|ref|; the conv within 2^-7 * max|ref| and its
-sums within 1e-3 of the largest sum (f32 sums in another order,
-atomics). The differentiable conv (K6) against autograd through the
+within 1 bf16 ulp of max|ref|; the conv (K1) within 2^-7 * max|ref| and
+its sums within 1e-3 of the largest sum (f32 sums in another order), and
+bit-identical across two runs (per-block sums added in a fixed order, no
+float atomics). The differentiable conv (K6) against autograd through the
 plain conv: its gradients within 2^-5 * max|ref| (JAX's rule for its
 own kernel's VJP, tests/test_ps2d.py:446-451). The fused GroupNorm (K5)
 within 1 bf16 ulp of max|ref| in bf16 and 1e-5 of max|ref| in f32, and
@@ -36,26 +37,72 @@ def _ulp(m):
     return 2.0 ** (np.floor(np.log2(max(m, 1e-30))) - 7)
 
 
-# (cis, co, affine, relu, mul0, stats): the level-0 region's three call
-# forms, the level-1 region's three (enc1.conv1 32->64, enc1/dec1.conv2
-# 64->64 with affine + ReLU, dec1.conv1 64+64->64 with the mask) and
-# the remaining combinations
+# (cis, co, affine, relu, mul0, stats, (B, D, H, W)): the level-0
+# region's three call forms, the level-1 region's three (enc1.conv1
+# 32->64, enc1/dec1.conv2 64->64 with affine + ReLU, dec1.conv1 64+64->64
+# with the mask) and the remaining combinations, over a 3x19x37 interior
+# (ragged against every patch); then D = 1, a volume smaller than one
+# patch (2x3x5), volumes large enough for M = 256 plans, co = 16 at each
+# (KC, M), inputs of mixed widths (KC = 32 forced by one of them), and
+# between them every kernel instantiation (N 16/32/64/128 x (M 128 with
+# KC 32 or 64, M 256 with KC 32) x one or several channel tiles;
+# test_k1_cases_cover_every_instantiation checks that)
+_S = (2, 3, 19, 37)
 K1_CASES = [
-    ((32,), 32, None, False, False, False),
-    ((32,), 32, "both", True, False, True),
-    ((32, 32), 32, None, False, True, True),
-    ((32, 32), 16, "both", False, True, True),
-    ((64,), 64, "scale", True, False, False),
-    ((32, 32), 32, "shift", True, False, True),
-    ((32,), 64, None, False, False, True),
-    ((64,), 64, "both", True, False, True),
-    ((64, 64), 64, None, False, True, True),
+    ((32,), 32, None, False, False, False, _S),
+    ((32,), 32, "both", True, False, True, _S),
+    ((32, 32), 32, None, False, True, True, _S),
+    ((32, 32), 16, "both", False, True, True, _S),
+    ((64,), 64, "scale", True, False, False, _S),
+    ((32, 32), 32, "shift", True, False, True, _S),
+    ((32,), 64, None, False, False, True, _S),
+    ((64,), 64, "both", True, False, True, _S),
+    ((64, 64), 64, None, False, True, True, _S),
     # any 32-multiple co: channel tiles of 32 (96) and of 64 (128)
-    ((32,), 96, "both", True, False, True),
-    ((64, 32), 96, None, False, True, True),
-    ((32,), 128, "both", True, False, True),
-    ((64, 64), 128, None, False, True, True),
+    ((32,), 96, "both", True, False, True, _S),
+    ((64, 32), 96, None, False, True, True, _S),
+    ((32,), 128, "both", True, False, True, _S),
+    ((64, 64), 128, None, False, True, True, _S),
+    ((32,), 32, "both", True, False, True, (2, 1, 9, 20)),
+    ((32, 32), 64, None, False, True, True, (2, 2, 3, 5)),
+    ((64,), 128, None, False, False, False, (1, 5, 9, 11)),
+    ((32,), 32, "both", True, False, True, (2, 16, 32, 40)),
+    ((32, 32), 32, None, False, True, True, (2, 16, 32, 40)),
+    ((64,), 64, "both", True, False, True, (2, 16, 32, 40)),
+    ((32,), 96, None, False, False, True, (2, 16, 32, 40)),
+    ((64,), 128, "both", True, False, True, (2, 16, 32, 40)),
+    ((32,), 192, "both", True, False, True, (2, 16, 32, 40)),
+    ((32,), 256, "shift", False, False, True, (2, 8, 30, 40)),
+    ((32,), 16, "both", True, False, True, (2, 16, 32, 40)),
+    ((64,), 16, None, False, False, True, _S),
+    ((64,), 32, "scale", False, False, True, _S),
+    ((64,), 96, "both", True, False, True, _S),
+    ((32,), 192, None, False, False, True, _S),
+    ((64,), 192, "both", True, False, True, _S),
+    ((32,), 256, None, False, False, True, _S),
+    ((32, 64), 64, "both", True, True, True, _S),
+    ((64, 64), 256, "both", True, True, True, _S),
 ]
+
+
+def _k1_inputs(device, cis, co, affine, mul0, shape, seed=1):
+    """Halo inputs, weights and on-load transform arguments of a K1 case."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    B, D, H, W = shape
+
+    def rnd(shape, s=1.0):
+        return (torch.randn(shape, device=device, generator=g) * s).to(BF16)
+
+    xs = [T.pack_halo(rnd((B, D, H, W, c))) for c in cis]
+    w = rnd((3, 3, 3, sum(cis), co), 0.1)
+    kw = {}
+    if affine in ("scale", "both"):
+        kw["in_scale"] = rnd((B, sum(cis)), 0.3) + 1
+    if affine in ("shift", "both"):
+        kw["in_shift"] = rnd((B, sum(cis)), 0.3)
+    if mul0:
+        kw["in_mul0"] = T.pack_halo(rnd((B, D, H, W, cis[0]), 0.5))
+    return xs, w, kw
 
 
 @pytest.fixture
@@ -101,24 +148,10 @@ def test_up_k2s2_into_halo_kernel_matches_plain(cuda, ci, co):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("cis,co,affine,relu,mul0,stats", K1_CASES)
+@pytest.mark.parametrize("cis,co,affine,relu,mul0,stats,shape", K1_CASES)
 def test_conv3d_halo_kernel_matches_plain(cuda, cis, co, affine, relu,
-                                          mul0, stats):
-    g = torch.Generator(device=cuda).manual_seed(1)
-    B, D, H, W = 2, 3, 19, 37     # ragged against the 8x32 output tiles
-
-    def rnd(shape, s=1.0):
-        return (torch.randn(shape, device=cuda, generator=g) * s).to(BF16)
-
-    xs = [T.pack_halo(rnd((B, D, H, W, c))) for c in cis]
-    w = rnd((3, 3, 3, sum(cis), co), 0.1)
-    kw = {}
-    if affine in ("scale", "both"):
-        kw["in_scale"] = rnd((B, sum(cis)), 0.3) + 1
-    if affine in ("shift", "both"):
-        kw["in_shift"] = rnd((B, sum(cis)), 0.3)
-    if mul0:
-        kw["in_mul0"] = T.pack_halo(rnd((B, D, H, W, cis[0]), 0.5))
+                                          mul0, stats, shape):
+    xs, w, kw = _k1_inputs(cuda, cis, co, affine, mul0, shape)
     before = T.conv3d_halo.launches
     got = T.conv3d_halo(xs, w, in_relu=relu, emit_stats=stats, **kw)
     ref = T.conv3d_halo_plain(xs, w, in_relu=relu, emit_stats=stats, **kw)
@@ -132,6 +165,43 @@ def test_conv3d_halo_kernel_matches_plain(cuda, cis, co, affine, relu,
         for s, sr in zip(got[1], ref[1]):
             torch.testing.assert_close(
                 s, sr, rtol=0, atol=1e-3 * sr.abs().max().item())
+
+
+@pytest.mark.gpu
+def test_k1_cases_cover_every_instantiation(cuda):
+    """The cases above reach each (N, KC, M, one channel tile or
+    several) the launch can pick (co = 16 is one tile of N = 16)."""
+    seen = set()
+    for cis, co, _, _, _, _, (B, D, H, W) in K1_CASES:
+        p = T.conv3d_halo_plan(B, D, H, W, cis[0], sum(cis[1:]), co)
+        assert p["TD"] * p["TH"] * p["TW"] <= p["M"] and p["blocks"] >= 1
+        seen.add((p["N"], p["KC"], p["M"], p["N"] == co))
+    shapes = ((32, 128), (64, 128), (32, 256))
+    assert seen == ({(n, kc, m, one) for n in (32, 64, 128)
+                     for kc, m in shapes for one in (True, False)}
+                    | {(16, kc, m, True) for kc, m in shapes}), sorted(seen)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cis,co,affine,relu,mul0,shape", [
+    ((32,), 32, "both", True, False, (2, 16, 32, 40)),
+    ((32, 32), 32, None, False, True, (2, 16, 32, 40)),
+    ((64, 64), 64, None, False, True, (2, 3, 19, 37)),
+    ((32,), 96, "both", True, False, (2, 3, 19, 37)),
+    ((128,), 128, "both", True, False, (4, 64, 64, 64)),
+])
+def test_conv3d_halo_two_runs_bit_identical(cuda, cis, co, affine, relu,
+                                            mul0, shape):
+    """No float atomics: two launches on the same inputs give the same
+    output and statistics bits (the last case: co = 128 at the server's
+    batch of 4 level-1 windows, 64^3)."""
+    xs, w, kw = _k1_inputs(cuda, cis, co, affine, mul0, shape, seed=8)
+    y1, (a1, b1) = T.conv3d_halo(xs, w, in_relu=relu, emit_stats=True, **kw)
+    y2, (a2, b2) = T.conv3d_halo(xs, w, in_relu=relu, emit_stats=True, **kw)
+    assert torch.equal(y1, y2) and torch.equal(a1, a2) and torch.equal(b1, b2)
+    yr = T.conv3d_halo_plain(xs, w, in_relu=relu, **kw)
+    d = (y1.float() - yr.float()).abs().max().item()
+    assert d <= 2 ** -7 * yr.float().abs().max().item(), d
 
 
 @pytest.mark.gpu
@@ -196,6 +266,31 @@ def test_conv3d_halo_train_kernel_matches_plain(cuda, cis, co):
         close(a, b, 2 ** -5)
         assert (a.float() * (1 - T.halo_mask(a).float())).abs().max() == 0
     close(dw, dw_r, 2 ** -5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cis,co", [((32,), 32), ((32, 32), 32),
+                                    ((64,), 96), ((32, 64), 128)])
+def test_conv3d_halo_dgrad_ignores_cotangent_halo(cuda, cis, co):
+    """K6's data gradient on K1 with garbage on the cotangent's halo: the
+    kernel never loads a halo position, so the result is bit for bit the
+    one of the cotangent with a zero halo, and its plain version's."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    B, D, H, W = 2, 3, 19, 37
+    dy = torch.randn((B, D + 2, H + 2, W + 2, co), device=cuda, generator=g)
+    clean = (dy * T.halo_mask(dy)).to(BF16)
+    dirty = (dy + 100 * dy * (1 - T.halo_mask(dy))).to(BF16)
+    assert (dirty != clean).any()
+    w = torch.randn((3, 3, 3, sum(cis), co), device=cuda, generator=g) * 0.1
+    for i in range(len(cis)):
+        got = T.conv3d_halo_dgrad(dirty, w, i, cis)
+        assert torch.equal(got, T.conv3d_halo_dgrad(clean, w, i, cis))
+        off = sum(cis[:i])
+        w_t = w[:, :, :, off:off + cis[i]].flip(0, 1, 2).transpose(3, 4)
+        ref = T.conv3d_halo_plain((clean,), w_t)
+        d = (got.float() - ref.float()).abs().max().item()
+        assert d <= 2 ** -7 * ref.float().abs().max().item(), d
+        assert (got.float() * (1 - T.halo_mask(got).float())).abs().max() == 0
 
 
 # (shape, groups): a ragged voxel count, C = 24 (3 vectors a row), C = 12
