@@ -224,7 +224,8 @@ def profile_request(pred, vol, cropping) -> None:
 
 def device_profile(fn, label: str, top: int = 15) -> None:
     """``fn`` once under ``torch.profiler``: its wall time, the device's
-    busy time and idle share, and the ``top`` kernels by device time."""
+    busy time and idle share, the ``top`` kernels by device time and the
+    port's own kernels below them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -244,8 +245,14 @@ def device_profile(fn, label: str, top: int = 15) -> None:
     busy = sum(dev_us(e) for e in kern) / 1e3
     print(f"  profiled {label}: {wall:.2f} ms wall, device busy "
           f"{busy:.2f} ms, idle share {1 - busy / wall:.4f}")
-    for e in sorted(kern, key=dev_us, reverse=True)[:top]:
+    ranked = sorted(kern, key=dev_us, reverse=True)
+    for e in ranked[:top]:
         print(f"    {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    # the port's own kernels (anonymous namespaces) below the top ones
+    for e in ranked[top:]:
+        if "(anonymous namespace)::" in e.key:
+            print(f"    {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} "
+                  f"{e.key[:90]} (below the top {top})")
 
 
 def main() -> int:
@@ -336,15 +343,27 @@ def main() -> int:
                                   "level 1": (S // 4, 4 * C, C1)}.items():
             x2, w2 = rnd((B, d2, d2, d2, ci)), rnd((2, 2, 2, ci, co), 0.1)
             b2 = rnd((co,), 0.1, torch.float32)
+            # NaNs in the allocator's next block of the output's size, so
+            # that a halo voxel the kernel leaves unwritten shows
+            torch.full((B, *(2 * d2 + 2,) * 3, co), float("nan"),
+                       dtype=bf16, device=dev)
             got = T.up_k2s2_into_halo(x2, w2, b2)
+            same = torch.equal(got, T.up_k2s2_into_halo(x2, w2, b2))
             ref = T.up_k2s2_into_halo_plain(x2, w2, b2)
             err = (got.float() - ref.float()).abs().max().item()
             m = ref.float().abs().max().item()
+            zero = (got.float() * (1 - T.halo_mask(got).float())).abs(
+                ).max().item() == 0
             shape = (f"(4,{d2}^3,{ci})->(4,{2 * d2 + 2}^3,{co})")
             print(f"up_k2s2_into_halo {lvl} {shape}: max_abs_err {err} "
-                  f"(tolerance {ulp(m)}: 1 bf16 ulp of max|ref| {m})")
+                  f"(tolerance {ulp(m)}: 1 bf16 ulp of max|ref| {m}); halo "
+                  f"exactly zero: {zero}; two runs bit-identical: {same}; "
+                  f"launch {T.up_k2s2_plan(B, d2, d2, d2, ci, co)}")
             check(err <= ulp(m),
                   f"up_k2s2_into_halo {lvl} differs from its plain version")
+            check(zero, f"up_k2s2_into_halo {lvl}: the halo is not zero")
+            check(same, f"up_k2s2_into_halo {lvl}: two runs differ")
+            del got, ref
             worst = max(worst, err)
             k2[lvl] = (x2, w2, b2, shape)
         report["up_k2s2_into_halo"] = {"max_abs_err": worst}
@@ -1148,6 +1167,8 @@ def main() -> int:
             for shape, kern, plain, lib, (bms, by), reps, *more in fs:
                 pieces, extra = (*more, {}, {})[:2]
                 ms = event_ms(kern, reps)
+                if name == "up_k2s2_into_halo":
+                    extra = {"bound_share": bms / ms}
                 pms = event_ms(plain, max(reps // 2, 3))
                 lms = event_ms(lib, reps) if lib else None
                 ms2 = event_ms(kern, reps)   # kernel again: spread in a call

@@ -26,6 +26,15 @@ launches between CUDA events; the script prints the median per build.
     within 2^-7 * max|ref| of the plain version; whether it equals this
     build's bit for bit is printed. Prints each shape's launch geometry
     in this build and each build's share of the shape's bound.
+  * ``--kernel k2``: K2 (``ops/ps2d.py::up_k2s2_into_halo``) at its two
+    request forms (``chip_smoke.py``'s: the server's batch of 4 windows of
+    128^3, level 0 (4, 64^3, 64) -> (4, 130^3, 32) and level 1
+    (4, 32^3, 128) -> (4, 66^3, 64), with bias); ``F.conv_transpose3d``
+    on the same inputs is timed in the same rounds. Every build's output
+    must lie within 1 bf16 ulp of max|ref| of the plain version, its halo
+    exactly zero; whether it equals this build's bit for bit is printed.
+    Prints each form's launch geometry in this build and each build's
+    share of the form's bound.
 
     python -m segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.compare_builds \\
         --kernel k1 --against parent=/path/to/parent/csrc
@@ -120,8 +129,9 @@ PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
 
 def k7_forms(seed: int = 0):
     """K7's timed forms: name -> (kernel call, plain call, F.conv3d call,
-    bound ms, reps). The nine benchmark shapes (weights * 0.05 as
-    there), then the VJP's data gradient at the first."""
+    bound ms, reps, launch geometry or None). The nine benchmark shapes
+    (weights * 0.05 as there), then the VJP's data gradient at the
+    first."""
     import torch
     import torch.nn.functional as F
     from .ops import conv3d as K7
@@ -132,7 +142,7 @@ def k7_forms(seed: int = 0):
         return (torch.randn(shape, device="cuda", generator=g)
                 * scale).to(torch.bfloat16)
 
-    def form(x, w, kern, plain, reps):
+    def form(x, w, kern, plain, reps, geo):
         ci, co = w.shape[3], w.shape[4]
         vox = x.numel() // ci
         xn = x.permute(0, 4, 1, 2, 3)             # channels-last NCDHW
@@ -141,7 +151,7 @@ def k7_forms(seed: int = 0):
         nb = (x.numel() + w.numel() + vox * co) * 2
         bound = max(flops / PEAK_BF16_FLOPS, nb / PEAK_HBM_BYTES) * 1e3
         return (kern, plain, lambda: F.conv3d(xn, wn, padding=1), bound,
-                reps)
+                reps, geo)
 
     out = {}
     for ci, co, D, H, W in K7_SHAPES:
@@ -149,52 +159,99 @@ def k7_forms(seed: int = 0):
         reps = 5 if x.numel() > 2e8 else 20
         out[f"{ci}->{co} @({D},{H},{W})"] = form(
             x, w, lambda x=x, w=w: K7.conv3d_same(x, w),
-            lambda x=x, w=w: K7.wtile_conv3d_plain(x, w), reps)
+            lambda x=x, w=w: K7.wtile_conv3d_plain(x, w), reps,
+            lambda ci=ci, co=co, D=D, H=H, W=W: K7.conv3d_same_plan(
+                1, D, H, W, ci, co))
     ci, co, D, H, W = K7_SHAPES[0]
     dy, w = rnd((1, D, H, W, co)), rnd((3, 3, 3, ci, co), 0.05)
     wt = w.flip(0, 1, 2).transpose(3, 4)
     out[f"data grad {co}->{ci} @({D},{H},{W})"] = form(
         dy, wt, lambda: K7.conv3d_same_dgrad(dy, w),
-        lambda: K7.wtile_conv3d_plain(dy, wt), 5)
+        lambda: K7.wtile_conv3d_plain(dy, wt), 5, None)
     return out
 
 
-def compare_k7(libs, use, rounds: int) -> dict:
-    """K7 at its forms in every build: checked against the plain
-    version, then timed in alternated rounds beside F.conv3d."""
+def k2_forms(seed: int = 0):
+    """K2's timed forms, ``chip_smoke.py``'s: name -> (kernel call, plain
+    call, F.conv_transpose3d call, bound ms, reps, launch geometry)."""
+    import torch
+    import torch.nn.functional as F
+    from .ops import ps2d as T
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, device="cuda", generator=g)
+                * scale).to(dtype)
+
+    out = {}
+    for lvl, (d2, ci, co) in {"level 0": (64, 64, 32),
+                              "level 1": (32, 128, 64)}.items():
+        x, w = rnd((4, d2, d2, d2, ci)), rnd((2, 2, 2, ci, co), 0.1)
+        b = rnd((co,), 0.1, torch.float32)
+        xn = x.permute(0, 4, 1, 2, 3)             # channels-last NCDHW
+        wn = w.flip(0, 1, 2).permute(3, 4, 0, 1, 2).contiguous()
+        nb = (x.numel() + w.numel() + 4 * (2 * d2 + 2) ** 3 * co) * 2 \
+            + b.numel() * 4
+        flops = 2.0 * x.numel() * 8 * co
+        out[f"{lvl} (4,{d2}^3,{ci})->(4,{2 * d2 + 2}^3,{co})"] = (
+            lambda x=x, w=w, b=b: T.up_k2s2_into_halo(x, w, b),
+            lambda x=x, w=w, b=b: T.up_k2s2_into_halo_plain(x, w, b),
+            lambda xn=xn, wn=wn, b=b: F.conv_transpose3d(
+                xn, wn, b.to(torch.bfloat16), stride=2),
+            max(flops / PEAK_BF16_FLOPS, nb / PEAK_HBM_BYTES) * 1e3, 20,
+            lambda d2=d2, ci=ci, co=co: T.up_k2s2_plan(4, d2, d2, d2, ci,
+                                                       co))
+    return out
+
+
+def _ulp(m: float) -> float:
+    """One bf16 ulp at magnitude m."""
+    import math
+    return 2.0 ** (math.floor(math.log2(m)) - 7)
+
+
+def compare_forms(forms: dict, libs, use, rounds: int, library: str,
+                  tol_of, halo: bool = False) -> dict:
+    """A kernel at its forms in every build: checked against the plain
+    version (within ``tol_of(max|ref|)``; with ``halo``, the halo
+    exactly zero too), then timed in alternated rounds beside the
+    library call."""
     import numpy as np
     import torch
-    from .ops import conv3d as K7
+    from .ops import ps2d as T
 
     result = {}
     order = list(libs) + list(libs)[::-1]
-    for name, (kern, plain, lib_fn, bound, reps) in k7_forms().items():
+    for name, (kern, plain, lib_fn, bound, reps, geo) in forms.items():
         ref = plain().float()
-        tol = 2 ** -7 * ref.abs().max().item()
+        tol = tol_of(ref.abs().max().item())
         outs = {}
         for label in libs:
             use(label)
             outs[label] = kern()
             err = (outs[label].float() - ref).abs().max().item()
-            if not err <= tol:
+            zero = not halo or (outs[label].float() * (
+                1 - T.halo_mask(outs[label]).float())).abs().max() == 0
+            if not (err <= tol and zero):
                 raise SystemExit(f"compare_builds: {label} differs from the "
-                                 f"plain version at {name}: {err} > {tol}")
+                                 f"plain version at {name}: {err} (> {tol}?)"
+                                 f", halo zero {zero}")
+            print(f"{name}: {label} max_abs_err {err} (tolerance {tol})"
+                  + (", halo zero" if halo else ""))
         print(f"{name}: bit-identical to this build: " + ", ".join(
             f"{k} {torch.equal(v, outs['this'])}" for k, v in outs.items()
             if k != "this"))
         del ref, outs
         use("this")
-        if name[0].isdigit():
-            ci, co = (int(v) for v in name.split(" ")[0].split("->"))
-            D, H, W = (int(v) for v in name.split("(")[1][:-1].split(","))
-            print(f"{name}: this build's launch "
-                  f"{K7.conv3d_same_plan(1, D, H, W, ci, co)}")
-        times = {label: [] for label in [*libs, "F.conv3d"]}
+        if geo is not None:
+            print(f"{name}: this build's launch {geo()}")
+        times = {label: [] for label in [*libs, library]}
         for _ in range(rounds):
             for label in order:
                 use(label)
                 times[label].append(event_ms(kern, reps))
-            times["F.conv3d"].append(event_ms(lib_fn, reps))
+            times[library].append(event_ms(lib_fn, reps))
         med = {k: float(np.median(v)) for k, v in times.items()}
         result[name] = {"median_ms": med, "bound_ms": bound,
                         "bound_share": {k: bound / v for k, v in med.items()}}
@@ -202,13 +259,21 @@ def compare_k7(libs, use, rounds: int) -> dict:
             f"{k} {v:.4f} ms ({bound / v:.1%} of bound; "
             f"{' '.join(f'{t:.4f}' for t in times[k])})"
             for k, v in med.items()))
-    fwd = [v["median_ms"] for k, v in result.items() if k[0].isdigit()]
+    return {"forms": {k: v["median_ms"] for k, v in result.items()},
+            "bound_ms": {k: v["bound_ms"] for k, v in result.items()},
+            "bound_share": {k: v["bound_share"] for k, v in result.items()}}
+
+
+def compare_k7(libs, use, rounds: int) -> dict:
+    """K7 at its forms in every build, within 2^-7 max|ref| of the plain
+    version, timed beside F.conv3d; the nine forwards' total."""
+    out = compare_forms(k7_forms(), libs, use, rounds, "F.conv3d",
+                        lambda m: 2 ** -7 * m)
+    fwd = [v for k, v in out["forms"].items() if k[0].isdigit()]
     total = {k: sum(m[k] for m in fwd) for k in fwd[0]}
     print("TOTAL sampled (nine forwards): " + ", ".join(
         f"{k} {v:.3f} ms" for k, v in total.items()))
-    return {"forms": {k: v["median_ms"] for k, v in result.items()},
-            "bound_ms": {k: v["bound_ms"] for k, v in result.items()},
-            "total_sampled_ms": total}
+    return {**out, "total_sampled_ms": total}
 
 
 def _legacy_k1(lib, xs, w, in_scale=None, in_shift=None, in_relu=False,
@@ -318,10 +383,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", action="append", default=[],
                     metavar="LABEL=DIR", help="a csrc directory to compare")
-    ap.add_argument("--kernel", choices=("k1", "k7"), default="k1")
+    ap.add_argument("--kernel", choices=("k1", "k2", "k7"), default="k1")
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--reps", type=int, default=10,
-                    help="launches per timing (k1; k7 takes 5-20 by size)")
+                    help="launches per timing (k1; k2 takes 20, k7 5-20 by size)")
     args = ap.parse_args(argv)
 
     import torch
@@ -332,7 +397,7 @@ def main(argv=None) -> int:
     trees = {"this": native.CSRC_DIR}
     for spec in args.against:
         label, _, path = spec.partition("=")
-        if not path or label in trees or label == "F.conv3d":
+        if not path or label in trees or label.startswith("F."):
             raise SystemExit(f"compare_builds: bad --against {spec!r}")
         trees[label] = Path(path)
     libs = {}
@@ -341,11 +406,12 @@ def main(argv=None) -> int:
         libs[label] = native.Library(built)
         print(f"build {label} ({src}): {built.seconds:.2f} s -> "
               f"{built.path.name}")
-        # ptxas -v: each conv entry's registers and spills (the lines
-        # follow it)
+        # ptxas -v: each entry's registers and spills (the lines follow
+        # it), K2's or the convs'
         log = built.log.splitlines()
+        entry = "up_kernel" if args.kernel == "k2" else "conv_kernel"
         for i, line in enumerate(log):
-            if "entry function" in line and "conv_kernel" in line:
+            if "entry function" in line and entry in line:
                 info = [x.strip() for x in log[i + 1:i + 5]
                         if "Used" in x or "spill" in x]
                 print(f"  {line.split(chr(39))[1]}: {'; '.join(info)}")
@@ -355,6 +421,9 @@ def main(argv=None) -> int:
 
     if args.kernel == "k7":
         out = compare_k7(libs, use, args.rounds)
+    elif args.kernel == "k2":
+        out = compare_forms(k2_forms(), libs, use, args.rounds,
+                            "F.conv_transpose3d", _ulp, halo=True)
     else:
         out = compare_k1(libs, use, args.rounds, args.reps)
     native._library = None

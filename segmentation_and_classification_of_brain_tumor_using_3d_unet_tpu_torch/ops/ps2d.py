@@ -210,6 +210,27 @@ def up_k2s2_into_halo(x: torch.Tensor, w: torch.Tensor,
 up_k2s2_into_halo.launches = 0
 
 
+def up_k2s2_plan(B: int, D2: int, H2: int, W2: int, ci: int,
+                 co: int) -> dict:
+    """The launch geometry K2 picks for x (B, D2, H2, W2, ci) -> co: R
+    input rows a tile of 64 GEMM rows (W2 <= 64) or tpr tiles a row, KC
+    input channels a K chunk and nK chunks, P of the four (a, p)
+    output-row pairs and CW channels a weight slab (NS = 2 P CW GEMM
+    columns), the slabs, S input-tile buffers, the tiles and halo rows,
+    the dynamic shared memory in bytes and the block count."""
+    import ctypes
+    lib = _lib()
+    fn = lib._dll.up_k2s2_plan
+    fn.argtypes = (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
+    fn.restype = ctypes.c_int
+    keys = ("R", "tpr", "KC", "nK", "P", "CW", "NS", "slabs", "S", "tiles",
+            "halo_rows", "smem", "blocks")
+    out = (ctypes.c_int * len(keys))()
+    lib.check("up_k2s2_plan", fn(B, D2, H2, W2, ci, co,
+                                 ctypes.addressof(out)))
+    return dict(zip(keys, out))
+
+
 # ----------------------------------------------------------------------
 # K1: conv3d_halo
 # ----------------------------------------------------------------------

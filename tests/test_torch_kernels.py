@@ -8,7 +8,8 @@ PyTorch and the CUDA toolkit:
 
 (``tests/conftest.py`` imports JAX, hence ``--noconftest``.) Tolerances
 as in test_torch_ps2d.py: pack and pool bit-exact; the transposed conv
-within 1 bf16 ulp of max|ref|; the conv (K1) within 2^-7 * max|ref| and
+(K2) within 1 bf16 ulp of max|ref|, its halo exactly zero and two runs
+bit-identical; the conv (K1) within 2^-7 * max|ref| and
 its sums within 1e-3 of the largest sum (f32 sums in another order), and
 bit-identical across two runs (per-block sums added in a fixed order, no
 float atomics). The differentiable conv (K6) against autograd through the
@@ -132,19 +133,100 @@ def test_pool_into_halo_kernel_matches_plain(cuda, shape):
     assert (y.float() * (1 - T.halo_mask(y).float())).abs().max() == 0
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("ci,co", [(64, 32), (128, 64)])
-def test_up_k2s2_into_halo_kernel_matches_plain(cuda, ci, co):
-    g = torch.Generator(device=cuda).manual_seed(0)
-    x = torch.randn((2, 3, 5, 6, ci), device=cuda, generator=g).to(BF16)
-    w = (torch.randn((2, 2, 2, ci, co), device=cuda, generator=g)
+# ((B, D2, H2, W2), ci, co, bias): the UNet's two call forms at the
+# server's batch of 4 windows of 128^3 (level 0, level 1); tails (W2 = 6,
+# 37 and 70 = 64 + 6 against tiles of 64 GEMM rows: ten whole rows, one
+# part-filled row, two tiles a row; D2 = H2 = 1); narrow channels (ci = co
+# = 8: K zero-padded to 16; ci = 32, co = 16; 24 channels, three slabs of
+# 8); slabs of two pairs (co = 64 at ci = 64), one pair and part of co (co
+# = 128, 256), and K in chunks (ci = 512, 1024; ci = 2056: the last chunk
+# part zeros). Between them every launch shape
+# (test_k2_cases_cover_every_plan checks that).
+K2_CASES = [
+    ((4, 64, 64, 64), 64, 32, True),
+    ((4, 32, 32, 32), 128, 64, True),
+    ((2, 3, 5, 6), 64, 32, True),
+    ((2, 3, 5, 6), 64, 64, False),
+    ((1, 2, 3, 37), 64, 32, False),
+    ((1, 1, 2, 70), 64, 32, True),
+    ((2, 1, 1, 9), 64, 32, True),
+    ((1, 2, 3, 5), 8, 8, True),
+    ((1, 2, 3, 5), 8, 8, False),
+    ((1, 2, 3, 20), 32, 16, True),
+    ((1, 2, 3, 20), 32, 16, False),
+    ((1, 2, 2, 40), 24, 24, True),
+    ((1, 2, 2, 4), 256, 128, True),
+    ((1, 2, 3, 5), 512, 256, False),
+    ((1, 2, 2, 3), 1024, 64, True),
+    ((1, 2, 2, 3), 2056, 64, False),
+]
+
+
+def _k2_inputs(device, shape, ci, co, with_bias, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((*shape, ci), device=device, generator=g).to(BF16)
+    w = (torch.randn((2, 2, 2, ci, co), device=device, generator=g)
          * 0.1).to(BF16)
-    b = torch.randn((co,), device=cuda, generator=g) * 0.1
+    b = (torch.randn((co,), device=device, generator=g) * 0.1
+         if with_bias else None)
+    return x, w, b
+
+
+def _dirty(shape):
+    """Leave NaNs in the allocator's next block of this size, so that a
+    halo the kernel fails to write shows."""
+    torch.full(shape, float("nan"), dtype=BF16, device="cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,ci,co,with_bias", K2_CASES)
+def test_up_k2s2_into_halo_kernel_matches_plain(cuda, shape, ci, co,
+                                                with_bias):
+    x, w, b = _k2_inputs(cuda, shape, ci, co, with_bias)
+    B, D2, H2, W2 = shape
+    _dirty((B, 2 * D2 + 2, 2 * H2 + 2, 2 * W2 + 2, co))
     before = T.up_k2s2_into_halo.launches
-    got, ref = T.up_k2s2_into_halo(x, w, b), T.up_k2s2_into_halo_plain(x, w, b)
+    got = T.up_k2s2_into_halo(x, w, b)
+    torch.cuda.synchronize()
     assert T.up_k2s2_into_halo.launches == before + 1
+    ref = T.up_k2s2_into_halo_plain(x, w, b)
+    assert got.shape == ref.shape
     d = (got.float() - ref.float()).abs().max().item()
     assert d <= _ulp(ref.float().abs().max().item()), d
+    assert (got.float() * (1 - T.halo_mask(got).float())).abs().max() == 0
+
+
+@pytest.mark.gpu
+def test_k2_cases_cover_every_plan(cuda):
+    """The cases above reach each kernel instantiation (slabs of 64, 128
+    and 256 columns), K whole and in chunks, tiles of several rows, of a
+    row and of part of a row, slabs of 4, 2 and 1 pairs and of part of
+    co."""
+    plans = [T.up_k2s2_plan(*shape, ci, co)
+             for shape, ci, co, _ in K2_CASES]
+    assert {p["NS"] for p in plans} == {64, 128, 256}
+    assert {p["nK"] > 1 for p in plans} == {False, True}
+    assert {p["P"] for p in plans} == {1, 2, 4}
+    assert {(p["R"] > 1, p["tpr"] > 1) for p in plans} == {
+        (True, False), (False, False), (False, True)}
+    assert any(p["CW"] < co for p, (_, _, co, _) in zip(plans, K2_CASES))
+    # the main path's two forms: two blocks an SM, weights loaded once;
+    # all 8 phases a slab at level 0, one (a, p) pair of two input rows a
+    # tile at level 1
+    for p in plans[:2]:
+        assert p["nK"] == 1 and p["smem"] <= 113 * 1024, p
+    assert (plans[0]["P"], plans[0]["R"]) == (4, 1), plans[0]
+    assert (plans[1]["P"], plans[1]["R"]) == (1, 2), plans[1]
+
+
+@pytest.mark.gpu
+def test_up_k2s2_into_halo_two_runs_bit_identical(cuda):
+    """No float atomics: two launches at the level-1 form (the server's
+    batch of 4 windows, (4, 32^3, 128) -> (4, 66^3, 64)) give the same
+    bits."""
+    x, w, b = _k2_inputs(cuda, (4, 32, 32, 32), 128, 64, True, seed=3)
+    assert torch.equal(T.up_k2s2_into_halo(x, w, b),
+                       T.up_k2s2_into_halo(x, w, b))
 
 
 @pytest.mark.gpu

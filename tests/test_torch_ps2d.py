@@ -71,7 +71,8 @@ def test_pack_halo_plain_matches_pack_flat_fast():
 
 
 @pytest.mark.parametrize("B,D2,H2,W2,ci,co,with_bias", [
-    (1, 3, 4, 8, 64, 32, True), (2, 2, 4, 6, 32, 32, False)])
+    (1, 3, 4, 8, 64, 32, True), (2, 2, 4, 6, 32, 32, False),
+    (1, 2, 2, 4, 128, 64, True)])
 def test_up_k2s2_into_halo_plain_matches_up_k2s2_into_flat(
         B, D2, H2, W2, ci, co, with_bias):
     rng = np.random.default_rng(1)
