@@ -27,7 +27,21 @@ the CUDA toolkit. Imports no JAX. Phases, each printing its seconds:
      mirror-TTA request and one "whole_volume" request, each with its
      launch counts asserted; then the level-2 kernel path against the
      normal path;
-  5. train — the train step at full width (UNet3D(ps2d_train=True), remat,
+  5. app — the web server itself (``serve/app.py``, full width,
+     ps2d_levels=2, upload_mode "cropped", seeded weights): started on a
+     local port in a thread, warmed up (``/health`` must say so), then
+     three 240x240x155x4 .nii.gz uploads (the volumes above, written by
+     the port's NIfTI codec) POSTed with return_mask=1 through
+     http.client. Each answer must be HTTP 200, not degraded, its mask a
+     native-grid 240x240x155 label map equal to the predictor's labels
+     on the same preprocessed volume; the clip bounds on the card equal
+     the CPU's bit for bit and the z-score is within 1e-5 max|x| of the
+     CPU's; the launches per upload are the server phase's. It prints
+     each upload's host ms by phase (decode, preprocess, segment,
+     classify, metrics+report, mask encode, visualizations) and its
+     wall time. Without matplotlib the uploads run the app's
+     ``_report`` (everything before the pictures), and it says so;
+  6. train — the train step at full width (UNet3D(ps2d_train=True), remat,
      Config() defaults: deep-supervision combined loss, AdamW 1e-4 with
      SGDR) on a batch 2 of 4x128^3: five steps with dropout, the losses
      finite and falling, K1 launched 7 times a step (3 forwards, 4 data
@@ -36,19 +50,19 @@ the CUDA toolkit. Imports no JAX. Phases, each printing its seconds:
      forms, a cotangent with garbage on the halo; the kernel path's
      loss and gradients against the normal path's; one grad_accum=2
      step against the full batch; one joint step and one eval step;
-  6. groupnorm — K5 through its entry point ``fused_group_norm`` at
+  7. groupnorm — K5 through its entry point ``fused_group_norm`` at
      the DoubleConv tail's forms (4x128^3x32 GN8 with ReLU, the same
      with the residual, 240x240x160x32 with both, in bf16; one f32
      form), 3 launches a call; each against its plain version, and two
      runs bit-identical;
-  7. wtile — K7 through its entry point ``wtile_conv3d`` at
+  8. wtile — K7 through its entry point ``wtile_conv3d`` at
      benchmarks/bench_wtile.py's nine shapes (batch 1, bf16), and its
      VJP at the first shape (forward and data gradient on K7, 11
      launches in all); each shape's launch geometry (blocks, shared
      memory) and the kernels' registers and spills; the kernel against
      its plain version and two runs bit-identical at all nine shapes,
      the VJP against autograd through the plain version;
-  8. timings — CUDA-event times of each kernel (and of each of its
+  9. timings — CUDA-event times of each kernel (and of each of its
      call forms), its plain version and one library call computing the
      same function, beside its bound; K6's and K7's forward, data
      gradient and weight gradient apart, and the train step's time and
@@ -281,6 +295,8 @@ def main() -> int:
         models = import_module(PKG + ".models")
         cropping = import_module(PKG + ".inference.cropping")
         sw = import_module(PKG + ".inference.sliding_window")
+        for m in (".serve.app", ".data.nifti", ".ops.stats"):
+            import_module(PKG + m)     # the app phase's, in the JAX check
     except ImportError as e:
         print(f"chip_smoke: run from the root of a checkout ({e})",
               file=sys.stderr)
@@ -635,6 +651,179 @@ def main() -> int:
     del pred
 
     # ---------------------------------------------------------------- 5
+    def app():
+        """The server itself: three 240x240x155x4 .nii.gz uploads POSTed
+        over HTTP to the port's app (full width, ps2d_levels=2), each
+        answer held to the predictor, the card's preprocessing to the
+        CPU's, and the launches per upload to the server phase's."""
+        import base64
+        import gzip
+        import http.client
+        import importlib.util
+        import logging
+        import re
+        import tempfile
+        import threading
+        A = import_module(PKG + ".serve.app")
+        nifti = import_module(PKG + ".data.nifti")
+        stats = import_module(PKG + ".ops.stats")
+        preprocess_image = import_module(
+            PKG + ".inference.predictor").preprocess_image
+        conf = cfg.Config(
+            model=cfg.ModelConfig(ps2d_eval=True, ps2d_levels=2),
+            inference=cfg.InferenceConfig(upload_mode="cropped",
+                                          checkpoint="none"))
+        check(conf.model.features == (32, 64, 128, 256, 512),
+              "not the full-width model")
+        per_fwd = launches_of(conv3d_halo=7, up_k2s2_into_halo=2,
+                              pack_halo=2, pool_into_halo=1)
+        want = {k: 2 * v for k, v in per_fwd.items()}   # 8 windows, 2 fwd
+        pictures = importlib.util.find_spec("matplotlib") is not None
+        App = A.BrainTumorApp
+        if not pictures:
+            class App(A.BrainTumorApp):
+                """/upload without its pictures: the app's own
+                ``_report``, which ``_analyze`` runs before them."""
+
+                def _analyze(self, filepath, demo, return_mask=False):
+                    return self._report(filepath, demo, return_mask)[0]
+            print("app: matplotlib is not importable here, so /upload runs "
+                  "BrainTumorApp._report (decode .. mask encode) without "
+                  "the visualisations")
+
+        phases = []
+
+        class Phases(logging.Handler):
+            """The app's per-phase log lines; its warnings to stderr."""
+
+            def emit(self, record):
+                msg = record.getMessage()
+                m = re.fullmatch(r"upload (.+): ([0-9.]+) ms", msg)
+                if m:
+                    phases.append((m.group(1), float(m.group(2))))
+                elif record.levelno >= logging.WARNING:
+                    print(self.format(record), file=sys.stderr)
+        log = logging.getLogger(A.__name__)
+        handler = Phases()
+        log.addHandler(handler)
+        log.setLevel(logging.INFO)
+
+        def multipart(payload, boundary="chipsmokeB"):
+            head = (f"--{boundary}\r\nContent-Disposition: form-data; "
+                    'name="return_mask"\r\n\r\n1\r\n'
+                    f"--{boundary}\r\nContent-Disposition: form-data; "
+                    'name="file"; filename="scan.nii.gz"\r\n\r\n')
+            return (head.encode() + payload
+                    + f"\r\n--{boundary}--\r\n".encode(),
+                    f"multipart/form-data; boundary={boundary}")
+
+        total = dict.fromkeys(want, 0)
+        rows = []
+        with tempfile.TemporaryDirectory() as upload_dir:
+            served = App(conf, upload_dir=upload_dir)
+            server = A.create_server("127.0.0.1", 0, app=served)
+            port = server.server_address[1]
+            thread = threading.Thread(target=server.serve_forever,
+                                      daemon=True)
+            thread.start()
+            try:
+                t = time.perf_counter()
+                A.warmup_app(served)
+                conn = http.client.HTTPConnection("127.0.0.1", port,
+                                                  timeout=120)
+                conn.request("GET", "/health")
+                health = json.loads(conn.getresponse().read())
+                conn.close()
+                print(f"app: warmup {time.perf_counter() - t:.2f} s, "
+                      f"/health {health}")
+                check(health["warmup"] == "done"
+                      and health["models_loaded"], f"warmup: {health}")
+                pred = served._get_predictor()
+                for s, vol in enumerate(vols):
+                    payload = gzip.compress(nifti.encode(vol),
+                                            compresslevel=1)
+                    body, ctype = multipart(payload)
+                    phases.clear()
+                    conn = http.client.HTTPConnection("127.0.0.1", port,
+                                                      timeout=600)
+
+                    def post():
+                        conn.request("POST", "/upload", body=body,
+                                     headers={"Content-Type": ctype})
+                        resp = conn.getresponse()
+                        return resp.status, json.loads(resp.read())
+                    t = time.perf_counter()
+                    (status, ans), counts = request_counts(post)
+                    wall = time.perf_counter() - t
+                    conn.close()
+                    check(status == 200 and ans.get("success"),
+                          f"upload {s}: HTTP {status}, {str(ans)[:300]}")
+                    check(ans["degraded_mode"] is False,
+                          f"upload {s} answered degraded_mode: true")
+                    check(counts == want,
+                          f"upload {s}: launches {counts} != {want}")
+                    check(("visualizations" in ans) == pictures,
+                          f"upload {s}: pictures {pictures} but keys "
+                          f"{sorted(ans)}")
+                    raw = gzip.decompress(base64.b64decode(
+                        ans["mask_nifti_base64"]))
+                    with tempfile.NamedTemporaryFile(suffix=".nii") as f:
+                        f.write(raw)
+                        f.flush()
+                        mask = nifti.load(f.name).data
+                    check(ans["mask_grid"] == "native"
+                          and mask.shape == VOLUME_SHAPE,
+                          f"upload {s}: mask {mask.shape} on the "
+                          f"{ans['mask_grid']} grid")
+                    # the answer against the predictor, and the card's
+                    # preprocessing against the CPU's, on the same volume
+                    pv = preprocess_image(vol, None)
+                    lab, _ = pred.segment_with_confidence(pv, mode="cropped")
+                    check(np.array_equal(mask, lab.astype(np.uint8)),
+                          f"upload {s}: mask differs from the predictor's "
+                          f"labels at {int((mask != lab).sum())} voxels")
+                    bounds = [stats.percentile_bisect(
+                        torch.from_numpy(vol).to(d), (1.0, 99.0)).cpu()
+                        .numpy() for d in ("cuda", "cpu")]
+                    check(np.array_equal(bounds[0].view(np.int32),
+                                         bounds[1].view(np.int32)),
+                          f"upload {s}: clip bounds {bounds[0]} on the "
+                          f"card, {bounds[1]} on the CPU")
+                    pc = preprocess_image(vol, None, device="cpu")
+                    zerr = float(np.abs(pv - pc).max())
+                    check(zerr <= 1e-5 * float(np.abs(pc).max()),
+                          f"upload {s}: z-score card vs CPU {zerr}")
+                    total = {k: total[k] + counts[k] for k in total}
+                    ph = dict(phases)
+                    rows.append({"wall_s": wall, "phases_ms": ph,
+                                 "payload_bytes": len(payload)})
+                    hist = np.bincount(mask.reshape(-1), minlength=4)
+                    print(f"app upload {s}{' (first)' if s == 0 else ''}: "
+                          f"{len(payload) / 1e6:.2f} MB .nii.gz, HTTP "
+                          f"{status} in {wall * 1e3:.2f} ms wall; "
+                          + ", ".join(f"{k} {v:.2f} ms"
+                                      for k, v in ph.items())
+                          + f"; labels {hist.tolist()}, clip bounds "
+                          f"{bounds[0].tolist()} (card == CPU), z-score "
+                          f"card vs CPU {zerr:.3g}; "
+                          f"{ans['classification']['primary_diagnosis']};"
+                          f" launches {counts}")
+            finally:
+                server.shutdown()
+                server.server_close()
+                thread.join(timeout=60)
+                log.removeHandler(handler)
+        steady = rows[1:]
+        print("app uploads 2-3, mean host ms by phase: " + ", ".join(
+            f"{k} {np.mean([r['phases_ms'][k] for r in steady]):.2f}"
+            for k in steady[0]["phases_ms"]) + f"; wall "
+            f"{np.mean([r['wall_s'] for r in steady]) * 1e3:.2f} ms "
+            f"(first upload {rows[0]['wall_s'] * 1e3:.2f} ms)")
+        report["app"] = {"uploads": rows, "launches": total,
+                         "pictures": pictures}
+    run.phase("app", app)
+
+    # ---------------------------------------------------------------- 6
     def train():
         conf = cfg.Config()
         mc = conf.model
@@ -838,7 +1027,7 @@ def main() -> int:
         return forms6
     forms6 = run.phase("train", train)
 
-    # ---------------------------------------------------------------- 6
+    # ---------------------------------------------------------------- 7
     def groupnorm():
         """K5's path: its entry point at the DoubleConv tail's forms."""
         def gn_form(shape, dtype, relu, residual=None):
@@ -895,7 +1084,7 @@ def main() -> int:
         return gforms
     gforms = run.phase("groupnorm", groupnorm)
 
-    # ---------------------------------------------------------------- 7
+    # ---------------------------------------------------------------- 8
     def wtile():
         """K7's path: its entry point at bench_wtile.py's nine shapes
         (batch 1, bf16, weights * 0.05 as there), and its VJP at the
@@ -972,7 +1161,7 @@ def main() -> int:
         return ins
     k7_in = run.phase("wtile", wtile)
 
-    # ---------------------------------------------------------------- 8
+    # ---------------------------------------------------------------- 9
     def timings():
         import torch.nn.functional as F
 
@@ -1148,6 +1337,7 @@ def main() -> int:
         # train steps' (K1, forwards and K6's data gradients), the
         # entry points' of K5 and K7
         paths = {"server": report["launches"],
+                 "app": report["app"]["launches"],
                  "train": report["train"]["launches"],
                  "groupnorm": report["groupnorm"]["launches"],
                  "wtile": report["wtile"]["launches"]}

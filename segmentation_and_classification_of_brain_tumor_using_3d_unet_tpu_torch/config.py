@@ -1,10 +1,10 @@
 """Configuration of the PyTorch port.
 
 The model, data, inference, loss and optimizer settings of the JAX
-package's ``config.py``, with the same field names and defaults, so the
-two packages are configured alike. Only the sections the port runs are
-here; the augmentation and mesh sections come with the slices that use
-them.
+package's ``config.py``, its data and model directories and its BraTS
+constants, with the same field names and defaults, so the two packages
+are configured alike. Only the sections the port runs are here; the
+augmentation and mesh sections come with the slices that use them.
 """
 
 from __future__ import annotations
@@ -97,8 +97,13 @@ class InferenceConfig:
     window_parallel: bool = False
     crop_bucket_ladder: Tuple[int, ...] = (96, 128, 160, 192, 224, 256)
     warmup: str = "full"
+    # trained weights for serving; the port has no checkpoint format
+    # yet, so only "" and "none" (seeded weights) are served
     checkpoint: str = ""
 
+
+# BraTS modality order of a stacked volume (JAX ``BRATS_MODALITIES``)
+BRATS_MODALITIES: Tuple[str, ...] = ("t1c", "t1n", "t2f", "t2w")
 
 # classifier output names (JAX ``config.py`` ``CLASS_NAMES``)
 CLASS_NAMES: Tuple[str, ...] = (
@@ -110,6 +115,14 @@ BRATS_REGIONS: Dict[str, Tuple[int, ...]] = {
     "WT": (1, 2, 3),   # whole tumour
     "TC": (1, 3),      # tumour core
     "ET": (3,),        # enhancing tumour
+}
+
+# display colours per class (JAX ``BRATS_COLORS``)
+BRATS_COLORS: Dict[int, str] = {
+    0: "#000000",
+    1: "#e74c3c",
+    2: "#f1c40f",
+    3: "#3498db",
 }
 
 
@@ -133,6 +146,11 @@ class Config:
     # update; 0 = off
     ema_decay: float = 0.0
     seed: int = 42
+
+    # directories (JAX ``Config``): the synthetic-data route writes
+    # under ``data_dir``; trained checkpoints belong under ``models_dir``
+    data_dir: str = "data"
+    models_dir: str = "results/models"
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)

@@ -1,7 +1,8 @@
 """Segmentation and tumour classification (counterpart of the JAX
 package's ``inference/predictor.py``): what the server asks of one
 upload — ``segment_with_confidence``, ``classify_tumor`` and
-``classify_grade`` — and ``segment_tumor``.
+``classify_grade`` — and ``segment_tumor``; and ``preprocess_image``,
+the upload's decode and intensity chain in front of them.
 
 Segmentation modes:
   * ``cropped``: the foreground bounding box, rounded up to a bucket of
@@ -279,3 +280,21 @@ class Predictor:
                                "batch_stats": batch_stats or {}},
               optional={"head_bn.mean", "head_bn.var"}
               if batch_stats is None else ())
+
+
+def preprocess_image(path_or_array, target_size=(128, 128, 128),
+                     device="cuda") -> np.ndarray:
+    """File (.nii / .nii.gz / .npy / 2D image) or array -> the clipped,
+    z-scored (and, with ``target_size``, resized) float32 volume on the
+    host (JAX ``preprocess_image``). ``target_size=None`` keeps the
+    native resolution for the sliding window. The decode runs on the
+    host, the chain on ``device``."""
+    from ..data.dataset import load_any_volume
+    from ..data.preprocess import preprocess_image as chain
+    dev = resolve_device(device)
+    vol = (load_any_volume(path_or_array)
+           if isinstance(path_or_array, str) else
+           np.asarray(path_or_array, np.float32))
+    out = chain(torch.from_numpy(np.ascontiguousarray(vol)).to(dev),
+                None if target_size is None else tuple(target_size))
+    return out.cpu().numpy().astype(np.float32, copy=False)
