@@ -66,7 +66,41 @@ the CUDA toolkit. Imports no JAX. Phases, each printing its seconds:
      call forms), its plain version and one library call computing the
      same function, beside its bound; K6's and K7's forward, data
      gradient and weight gradient apart, and the train step's time and
-     peak memory.
+     peak memory; the card's clocks, temperature and power before and
+     after them.
+
+Phases 10-12, the trainer's slice, run after the timings, so that the
+kernels' readings are taken as in the runs before them:
+
+  10. f32 — compute_dtype "float32" on the normal path (the region off):
+     one cropped request on the first volume, no kernel launched, the
+     TF32 settings as they were; its labels agree with the bf16 serving
+     request's wherever the top-2 margin exceeds twice the largest logit
+     drift; one window batch (4 x 128^3) of it against float64 on the
+     card within 1e-4 max(scale, 1) (the same batch with TF32 let in is
+     printed beside it);
+  11. trainer — ModernBrainTumorTrainer at full width: a synthetic
+     cohort of six 240x240x155x4 .nii.gz cases (4 train, 2 val) written
+     to a temporary directory (its seconds printed apart), the port's
+     loader (patch mode, 2 x 128^3 train batches, whole-volume 128^3
+     validation), two epochs of UNet3D(ps2d_train, ps2d_eval,
+     ps2d_levels=2, remat) at Config() defaults: every loss finite, K1 7
+     launches per train step and K2-K4 none, each validation forward the
+     level-2 forward's K1 7 / K2 2 / K3 2 / K4 1; the best_ checkpoint
+     reloaded bit for bit (params, batch_stats, opt_state, step) and
+     adopted by a Predictor (ps2d_levels=2) whose labels on a volume
+     equal those of one handed the trainer's weights; the first
+     validation batch (2 x 128^3) through the evaluated weights' kernel
+     path against their normal path under the JAX ps2d bounds; it prints
+     the CUDA-event ms and the host enqueue ms per train step, the loader
+     wait per step, the validation epochs,
+     the checkpoint's save and load ms and size, and the peak memory;
+  12. webtrain — the app's training routes over HTTP: a real session on
+     the card (2 epochs, 4 synthetic samples, 64^3) polled through
+     /training_progress to completed, its best_web_ checkpoint on disk,
+     no kernel launched (the web sessions train without the region, as
+     JAX's); a second session stopped by /stop_training; /health lists
+     both;
 
 It prints the per-kernel JSON line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Any failure, or a run past
@@ -75,6 +109,7 @@ its own time budget, exits non-zero without that last line.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -179,6 +214,24 @@ class Run:
         check(now - self.t0 <= BUDGET_S,
               f"past the {BUDGET_S:.0f} s budget after phase {name}")
         return out
+
+
+def card_state() -> str:
+    """The card's SM and memory clocks, temperature, power draw and
+    active clock-event reasons, as ``nvidia-smi`` reads them."""
+    out = []
+    # the reasons' field has two names, the newer drivers' first
+    for fields in ("clocks.sm,clocks.max.sm,clocks.mem,temperature.gpu,"
+                   "power.draw", "clocks_event_reasons.active",
+                   "clocks_throttle_reasons.active"):
+        q = subprocess.run(["nvidia-smi", f"--query-gpu={fields}",
+                            "--format=csv,noheader"], capture_output=True,
+                           text=True, timeout=60)
+        if q.returncode == 0:
+            out.append(f"{fields}: {q.stdout.strip()}")
+            if "reasons" in fields:
+                break
+    return "; ".join(out)
 
 
 def event_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -295,8 +348,10 @@ def main() -> int:
         models = import_module(PKG + ".models")
         cropping = import_module(PKG + ".inference.cropping")
         sw = import_module(PKG + ".inference.sliding_window")
-        for m in (".serve.app", ".data.nifti", ".ops.stats"):
-            import_module(PKG + m)     # the app phase's, in the JAX check
+        for m in (".serve.app", ".data.nifti", ".ops.stats",
+                  ".train.trainer", ".train.checkpoints", ".data.pipeline",
+                  ".serve.jobs"):
+            import_module(PKG + m)     # the later phases', in the JAX check
     except ImportError as e:
         print(f"chip_smoke: run from the root of a checkout ({e})",
               file=sys.stderr)
@@ -499,13 +554,18 @@ def main() -> int:
         normal.eval()
         ref = normal(x).float()
         del normal
+        compare_to_normal(out, ref, label, tuple(x.shape))
+
+    def compare_to_normal(out, ref, label, shape):
+        """Kernel-path logits against the normal path's on the same
+        input and weights, under the JAX ps2d bounds."""
         d = (out - ref).abs()
         scale = max(ref.abs().max().item(), 1.0)
         top2 = ref.topk(2, dim=-1).values
         margin = top2[..., 0] - top2[..., 1]
         dis = out.argmax(-1) != ref.argmax(-1)
         wide = (dis & (margin > 2 * d.max())).sum().item()
-        print(f"{label} kernel path vs normal path, {tuple(x.shape)}: max "
+        print(f"{label} kernel path vs normal path, {shape}: max "
               f"|d logit| {d.max().item():.5f} (bound {2 ** -5 * scale:.5f}),"
               f" mean {d.mean().item():.6f} (bound {2 ** -9 * scale:.6f}), "
               f"labels agree {1 - dis.float().mean().item():.5f}, flips at "
@@ -649,6 +709,87 @@ def main() -> int:
                       f"{np.median(v):.4f} s")
         run.phase("profile", profile_phase)
     del pred
+
+    # ---------------------------------------------------------------- f32
+    def f32():
+        """compute_dtype float32 on the normal path (the region off): one
+        full-width cropped request, its labels held to the bf16 serving
+        request's under the margin contract, then one window batch of it
+        against float64 on the card (TF32 would show there)."""
+        import copy
+        conv_mod = import_module(PKG + ".ops.conv")
+        p32 = Predictor(cfg.Config(model=cfg.ModelConfig(
+            compute_dtype="float32")), seed=0)
+        p16 = Predictor(cfg.Config(model=cfg.ModelConfig(
+            ps2d_eval=True, ps2d_levels=2)), seed=0)
+        check(p32.seg_model.compute_dtype == torch.float32
+              and not p32.config.model.ps2d_eval, "not the f32 normal path")
+        flags = (torch.backends.cudnn.allow_tf32,
+                 torch.get_float32_matmul_precision())
+        vol = vols[0]
+        t = time.perf_counter()
+        (lab32, cf32), counts = request_counts(
+            lambda: p32.segment_with_confidence(vol, mode="cropped"))
+        secs = time.perf_counter() - t
+        check(not any(counts.values()), f"f32 request launched {counts}")
+        check((torch.backends.cudnn.allow_tf32,
+               torch.get_float32_matmul_precision()) == flags,
+              "the f32 request left the TF32 settings changed")
+        lab16, _ = p16.segment_with_confidence(vol, mode="cropped")
+        inside, bucket, offs = check_labels(lab32, vol, p32.config, "(f32)")
+        canon = p32._canon(vol)
+        l32 = p32._segment_logits(canon, "cropped")[0]
+        l16 = p16._segment_logits(canon, "cropped")[0].float()
+        check(bool(torch.isfinite(l32).all()), "non-finite f32 logits")
+        drift = (l32 - l16).abs().max().item()
+        top2 = l32.topk(2, dim=-1).values
+        margin = cropping.paste_full((top2[..., 0] - top2[..., 1]).cpu()
+                                     .numpy(), offs, VOLUME_SHAPE,
+                                     fill=np.inf)
+        flips = lab32 != lab16
+        wide = int((flips & (margin > 2 * drift)).sum())
+        print(f"f32 request (cropped, region off): {secs:.3f} s; launches "
+              f"{counts}; vs the bf16 serving request: max |d logit| "
+              f"{drift:.5f}, labels agree {1 - flips.mean():.6f}, flips at "
+              f"margin > 2x max drift: {wide}")
+        check(wide == 0, "f32 labels differ from bf16 beyond the margin")
+
+        # one window batch (4 x 128^3) of the crop against float64
+        crop = torch.from_numpy(cropping.extract_crop(canon, offs, bucket)
+                                ).to(dev)
+        starts = [sw.compute_patch_starts(d, S, 0.5) for d in bucket]
+        wins = [(a, b, c) for a in starts[0] for b in starts[1]
+                for c in starts[2]][:4]
+        x = torch.stack([crop[a:a + S, b:b + S, c:c + S]
+                         for a, b, c in wins])
+        y32 = p32.seg_model(x)
+        m64 = copy.deepcopy(p32.seg_model)
+        for m in m64.modules():      # convs and matmuls in float64
+            if hasattr(m, "compute_dtype"):
+                m.compute_dtype = torch.float64
+        y64 = m64(x.double())
+        scale = max(y64.abs().max().item(), 1.0)
+        d64 = (y32 - y64).abs().max().item()
+        # the same batch with TF32 let in, to show the bound would see it
+        keep = conv_mod.full_f32
+        conv_mod.full_f32 = contextlib.nullcontext
+        torch.backends.cudnn.allow_tf32 = True
+        torch.set_float32_matmul_precision("high")
+        try:
+            dtf = (p32.seg_model(x) - y64).abs().max().item()
+        finally:
+            conv_mod.full_f32 = keep
+            torch.backends.cudnn.allow_tf32 = flags[0]
+            torch.set_float32_matmul_precision(flags[1])
+        del m64
+        print(f"f32 window batch {tuple(x.shape)} vs float64 on the card: "
+              f"max |d logit| {d64:.3e} (bound {1e-4 * scale:.3e} = 1e-4 "
+              f"max(scale, 1)); with TF32 let in: {dtf:.3e}")
+        check(d64 <= 1e-4 * scale, "f32 logits drift from float64 (TF32?)")
+        report["f32"] = {"launches": counts, "request_s": secs,
+                         "drift_vs_bf16": drift, "drift_vs_f64": d64,
+                         "drift_tf32_vs_f64": dtf}
+        del p32, p16
 
     # ---------------------------------------------------------------- 5
     def app():
@@ -1027,6 +1168,301 @@ def main() -> int:
         return forms6
     forms6 = run.phase("train", train)
 
+    # ---------------------------------------------------------------- trainer
+    def trainer():
+        """The trainer at full width: a synthetic 240x240x155x4 cohort on
+        disk (4 train + 2 val cases, .nii.gz), patch-mode train batches of
+        2 x 128^3 and whole-volume validation at 128^3 through the port's
+        loader, two epochs of ModernBrainTumorTrainer on UNet3D(ps2d_train,
+        ps2d_eval, ps2d_levels=2, remat), its best_* checkpoint reloaded
+        bit for bit and adopted by a Predictor."""
+        import os
+        import shutil
+        import tempfile
+        from concurrent.futures import ThreadPoolExecutor
+        synth = import_module(PKG + ".data.synthetic")
+        pipe = import_module(PKG + ".data.pipeline")
+        TR = import_module(PKG + ".train.trainer")
+        CK = import_module(PKG + ".train.checkpoints")
+        loop = import_module(PKG + ".train.loop")
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+        try:
+            root = os.path.join(tmp, "cohort")
+            t = time.perf_counter()
+            # one case a call, six at once (gzip releases the GIL); then
+            # two of them to val/
+            with ThreadPoolExecutor(6) as pool:
+                list(pool.map(lambda i: synth.create_enhanced_synthetic_data(
+                    1, root, shape=VOLUME_SHAPE, seed=100 + i,
+                    start_index=i, skull_stripped=True), range(6)))
+            for i in (4, 5):
+                pid = f"BraTS-Synth-{i:04d}"
+                os.rename(os.path.join(root, "train", pid),
+                          os.path.join(root, "val", pid))
+            write_s = time.perf_counter() - t
+            nbytes_disk = sum(os.path.getsize(os.path.join(d, f))
+                              for d, _, fs in os.walk(root) for f in fs)
+            print(f"trainer cohort: 6 cases of {VOLUME_SHAPE}x4 .nii.gz "
+                  f"written in {write_s:.2f} s ({nbytes_disk / 1e6:.1f} MB)")
+            conf = cfg.Config(results_dir=os.path.join(tmp, "results"),
+                              models_dir=os.path.join(tmp, "models"),
+                              use_tensorboard=False)
+            mc = conf.model
+            check(mc.features == (32, 64, 128, 256, 512) and mc.remat
+                  and conf.batch_size == 2 and conf.data.image_size ==
+                  (S, S, S), "not the full-width train setting")
+            train_l, val_l = pipe.create_brats_data_loaders(
+                root, batch_size=conf.batch_size, num_workers=4,
+                image_size=conf.data.image_size, seed=conf.seed,
+                aug_cfg=conf.augment, patch_size=(S, S, S))
+            check(len(train_l) == 2 and len(val_l) == 1,
+                  f"{len(train_l)} train and {len(val_l)} val batches")
+            model = models.UNet3D(features=mc.features, ps2d_train=True,
+                                  ps2d_eval=True, ps2d_levels=2,
+                                  remat=mc.remat, seed=conf.seed)
+            check(model.halo_levels((S, S, S)) == 2, "no level-2 region")
+
+            # the launches of each train step and each validation forward
+            steps, vals, saved = [], [], {}
+
+            # each train step's CUDA-event ms; the first validation
+            # batch, held against the normal path after the run
+            step_events, val_batch = [], []
+
+            def counting(make, sink, events=None, keep=None):
+                def factory(*a, **k):
+                    fn = make(*a, **k)
+
+                    def step(*args):
+                        before = {k.__name__: k.launches for k in counted}
+                        if keep is not None and not keep:
+                            keep.append(args[1]["image"].clone())
+                        if events is not None:
+                            ev = [torch.cuda.Event(enable_timing=True)
+                                  for _ in range(2)]
+                            ev[0].record()
+                        out = fn(*args)
+                        if events is not None:
+                            ev[1].record()
+                            events.append(ev)
+                        sink.append({k.__name__: k.launches
+                                     - before[k.__name__] for k in counted})
+                        return out
+                    return step
+                return factory
+
+            class Trainer(TR.ModernBrainTumorTrainer):
+                """Times each save and keeps the state it saved."""
+
+                def save_model(self, epoch=0, path=None):
+                    t0 = time.perf_counter()
+                    out = super().save_model(epoch, path)
+                    saved[out] = (time.perf_counter() - t0,
+                                  CK.state_tree(self.state))
+                    return out
+
+            TR.make_train_step = counting(loop.make_train_step, steps,
+                                          events=step_events)
+            TR.make_eval_step = counting(loop.make_eval_step, vals,
+                                         keep=val_batch)
+            try:
+                tr = Trainer(model, config=conf, experiment_name="smoke")
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t = time.perf_counter()
+                hist, counts = request_counts(
+                    lambda: tr.train(train_l, val_l, num_epochs=2))
+                wall = time.perf_counter() - t
+            finally:
+                TR.make_train_step = loop.make_train_step
+                TR.make_eval_step = loop.make_eval_step
+            peak = torch.cuda.max_memory_allocated()
+            print(f"trainer: 2 epochs in {wall:.2f} s; history "
+                  + "; ".join(f"{k} {[round(v, 5) for v in vs]}"
+                              for k, vs in hist.items())
+                  + f"; launches {counts}")
+            for k in ("train_loss", "val_loss"):
+                check(all(np.isfinite(hist[k])), f"non-finite {k}: "
+                      f"{hist[k]}")
+            want = launches_of(conv3d_halo=7)
+            per_fwd = launches_of(conv3d_halo=7, up_k2s2_into_halo=2,
+                                  pack_halo=2, pool_into_halo=1)
+            check(len(steps) == 4 and all(c == want for c in steps),
+                  f"train-step launches {steps} != {want}")
+            check(len(vals) == 2 and all(c == per_fwd for c in vals),
+                  f"validation-forward launches {vals} != {per_fwd}")
+            step_ms = [1e3 * v for v in tr.timing["step_s"]]
+            event_step_ms = [a.elapsed_time(b) for a, b in step_events]
+            wait_ms = [1e3 * v for v in tr.timing["loader_wait_s"]]
+            val_ms = [1e3 * v for v in tr.timing["val_epoch_s"]]
+            print(f"trainer: host enqueue ms per train step "
+                  f"{[round(v, 2) for v in step_ms]} (median of steps 2-4 "
+                  f"{np.median(step_ms[1:]):.2f}); CUDA-event ms per train "
+                  f"step {[round(v, 2) for v in event_step_ms]} (median of "
+                  f"steps 2-4 {np.median(event_step_ms[1:]):.2f}); "
+                  f"loader wait ms per step {[round(v, 2) for v in wait_ms]}"
+                  f"; validation epochs {[round(v, 2) for v in val_ms]} ms; "
+                  f"last epoch's host->device copies {train_l.h2d_ms():.3f} "
+                  f"ms (train), {val_l.h2d_ms():.3f} ms (val); peak memory "
+                  f"{peak / 2 ** 30:.2f} GiB")
+
+            # the first validation batch (2 x 128^3, K1's level-1 forms
+            # and K2-K4 at batch 2) through the evaluated weights' kernel
+            # path against their normal path; outside the counted run
+            ev_model = train_mod.ema_eval_state(tr.state).model
+            out = ev_model(val_batch[0]).float()
+            ev_model.ps2d_eval = False
+            try:
+                ref = ev_model(val_batch[0]).float()
+            finally:
+                ev_model.ps2d_eval = True
+            compare_to_normal(out, ref, "trainer validation batch",
+                              tuple(val_batch[0].shape))
+            del ev_model, out, ref, val_batch[:]
+
+            # the best checkpoint: reloaded bit for bit, then adopted
+            best = os.path.join(conf.models_dir, "best_smoke")
+            check(best in saved, f"no best_ checkpoint in {sorted(saved)}")
+            save_s, tree = saved[best]
+            size = os.path.getsize(os.path.join(best, "state", "state.pt"))
+            fresh = train_mod.create_train_state(
+                models.UNet3D(features=mc.features, seed=99), conf,
+                steps_per_epoch=2)
+            t = time.perf_counter()
+            CK.restore_checkpoint(best, fresh)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t
+            back = CK.state_tree(fresh)
+
+            def same(a, b):
+                if isinstance(a, dict):
+                    return set(a) == set(b) and all(same(a[k], b[k])
+                                                    for k in a)
+                return a.dtype == b.dtype and np.array_equal(a, b)
+            for k in ("params", "batch_stats", "opt_state", "step"):
+                check(same(back[k], tree[k]), f"checkpoint {k} differs "
+                      "after the reload")
+            n_params = sum(p.numel() for p in model.parameters())
+            print(f"trainer checkpoint {os.path.basename(best)}: "
+                  f"{size / 2 ** 20:.2f} MiB ({size / (4 * n_params):.3f}x "
+                  f"the f32 parameter bytes, {n_params} parameters); save "
+                  f"{save_s * 1e3:.2f} ms, load {load_s * 1e3:.2f} ms; "
+                  f"params, batch_stats, opt_state and step bit-identical "
+                  f"after the reload")
+            del fresh, back
+            sconf = cfg.Config(model=cfg.ModelConfig(ps2d_eval=True,
+                                                     ps2d_levels=2),
+                               models_dir=conf.models_dir)
+            adopt = Predictor(sconf, seed=5)
+            check(CK.adopt_trained_weights(adopt, "", conf.models_dir)
+                  == best, "the predictor did not adopt best_smoke")
+            mem = Predictor(sconf, seed=6, seg_variables={
+                "params": tree["params"], "batch_stats": tree["batch_stats"]})
+            la = adopt.segment_tumor(vols[0], mode="cropped")
+            lm = mem.segment_tumor(vols[0], mode="cropped")
+            check(np.array_equal(la, lm), "the adopted checkpoint's labels "
+                  "differ from the trainer's weights'")
+            print(f"trainer: a Predictor (ps2d_levels=2) adopting "
+                  f"{os.path.basename(best)} gives labels equal to one "
+                  f"handed the trainer's weights on a {VOLUME_SHAPE} volume "
+                  f"({np.bincount(la.reshape(-1), minlength=4).tolist()})")
+            step_launches = {k: sum(c[k] for c in steps) for k in counts}
+            report["trainer"] = {
+                "launches": counts, "step_launches": step_launches,
+                "history": hist, "step_ms": step_ms,
+                "event_step_ms": event_step_ms, "loader_wait_ms": wait_ms,
+                "val_epoch_ms": val_ms, "cohort_write_s": write_s,
+                "checkpoint_bytes": size, "save_ms": save_s * 1e3,
+                "load_ms": load_s * 1e3, "peak_bytes": peak, "wall_s": wall}
+            del tr, model, adopt, mem, saved, tree
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    # ---------------------------------------------------------------- webtrain
+    def webtrain():
+        """The app's training routes over HTTP: a real session on the card
+        (2 epochs, 4 synthetic samples, 64^3, the web's compact model)
+        polled to completed and its best_web_* checkpoint; a second
+        session stopped by /stop_training."""
+        import http.client
+        import os
+        import shutil
+        import tempfile
+        import threading
+        A = import_module(PKG + ".serve.app")
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_webtrain_")
+        conf = cfg.Config(models_dir=os.path.join(tmp, "models"),
+                          data_dir=os.path.join(tmp, "data"),
+                          inference=cfg.InferenceConfig(checkpoint="none"))
+        served = A.BrainTumorApp(conf, upload_dir=os.path.join(tmp, "u"))
+        server = A.create_server("127.0.0.1", 0, app=served)
+        port = server.server_address[1]
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+
+        def call(method, path, body=None):
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+            conn.request(method, path,
+                         body=None if body is None else json.dumps(body),
+                         headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            out = resp.status, json.loads(resp.read())
+            conn.close()
+            check(out[0] == 200, f"{method} {path}: HTTP {out[0]} {out[1]}")
+            return out[1]
+
+        def wait(sid, statuses, limit=240):
+            end = time.perf_counter() + limit
+            while time.perf_counter() < end:
+                prog = call("GET", f"/training_progress?session_id={sid}")
+                if prog["status"] in statuses:
+                    return prog
+                time.sleep(0.25)
+            raise Failed(f"session {sid} never reached {statuses}: {prog}")
+
+        try:
+            def first():
+                t = time.perf_counter()
+                sid = call("POST", "/start_training", {
+                    "epochs": 2, "num_samples": 4,
+                    "image_size": [64, 64, 64]})["session_id"]
+                return sid, wait(sid, ("completed", "error")), \
+                    time.perf_counter() - t
+            (sid, prog, secs), counts = request_counts(first)
+            print(f"webtrain session {sid}: {prog['status']} in {secs:.2f} s"
+                  f"; epoch {prog['current_epoch']}, train loss "
+                  f"{prog['train_loss']}, val loss {prog['val_loss']}, "
+                  f"dice {prog['dice_score']}; launches {counts}")
+            check(prog["status"] == "completed", f"session failed: {prog}")
+            # the web sessions train without the ps2d region, as JAX's
+            check(not any(counts.values()), f"web training launched {counts}")
+            ck = prog.get("checkpoint", "")
+            check(os.path.basename(ck) == f"best_web_{sid}" and os.path.isfile(
+                os.path.join(ck, "state", "state.pt")),
+                f"no best_web_ checkpoint: {ck!r}")
+            second = call("POST", "/start_training", {
+                "epochs": 1000, "num_samples": 2,
+                "image_size": [64, 64, 64]})["session_id"]
+            wait(second, ("running", "error"))
+            ans = call("POST", "/stop_training", {"session_id": second})
+            prog2 = wait(second, ("stopped", "error"))
+            check(ans["stopped"] and prog2["status"] == "stopped",
+                  f"second session: {ans}, {prog2['status']}")
+            health = call("GET", "/health")
+            check(health["sessions"] == [sid, second],
+                  f"/health sessions {health['sessions']}")
+            print(f"webtrain: checkpoint {os.path.basename(ck)}; second "
+                  f"session {second} stopped at epoch "
+                  f"{prog2['current_epoch']}; /health sessions "
+                  f"{health['sessions']}")
+            report["webtrain"] = {"launches": counts, "session_s": secs}
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=60)
+            served.jobs.join(timeout=120)
+            shutil.rmtree(tmp, ignore_errors=True)
+
     # ---------------------------------------------------------------- 7
     def groupnorm():
         """K5's path: its entry point at the DoubleConv tail's forms."""
@@ -1164,6 +1600,7 @@ def main() -> int:
     # ---------------------------------------------------------------- 9
     def timings():
         import torch.nn.functional as F
+        print(f"card before the timings: {card_state()}")
 
         def conv_row(name):
             kw = forms[name]
@@ -1333,24 +1770,6 @@ def main() -> int:
         ]
         # the main form of each kernel: dec0.conv1 for K1
         main_form = {"conv3d_halo": 1}
-        # launches per path: the server requests' (K1-K4), the five
-        # train steps' (K1, forwards and K6's data gradients), the
-        # entry points' of K5 and K7
-        paths = {"server": report["launches"],
-                 "app": report["app"]["launches"],
-                 "train": report["train"]["launches"],
-                 "groupnorm": report["groupnorm"]["launches"],
-                 "wtile": report["wtile"]["launches"]}
-        main_path = {"conv3d_halo_train": "train",
-                     "fused_group_norm": "groupnorm",
-                     "conv3d_same": "wtile"}
-
-        def launches(name, path):
-            """K6 has no kernel of its own: its launches are K1's on
-            the train path, and none on the others."""
-            if name == "conv3d_halo_train":
-                return paths[path]["conv3d_halo"] if path == "train" else 0
-            return paths[path][name]
         out = []
         for name, src, line, fs in rows:
             timed = []
@@ -1384,8 +1803,7 @@ def main() -> int:
                 "name": name, "route": "cuda",
                 "source": f"{PKG}/csrc/{src}",
                 "replaces": f"{REF}/ops/pallas/{line}",
-                "launches": launches(name, main_path.get(name, "server")),
-                "launches_by_path": {p: launches(name, p) for p in paths},
+                "launches": None, "launches_by_path": None,   # below
                 "max_abs_err": report[name]["max_abs_err"],
                 "ms": m["ms"], "plain_ms": m["plain_ms"],
                 "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
@@ -1393,6 +1811,45 @@ def main() -> int:
                 "forms": timed})
         return out
     kernels_json = run.phase("timings", timings)
+    print(f"card after the timings: {card_state()}")
+
+    # the later slices' paths run after the timings, so that they leave
+    # the kernels' readings as the earlier runs took them; first the
+    # tensors of the kernel phases go
+    del forms, k3_in, k2_in, k4_in, forms6, gforms, k7_in
+    torch.cuda.empty_cache()
+    run.phase("f32", f32)
+    run.phase("trainer", trainer)
+    run.phase("webtrain", webtrain)
+
+    # launches per path: the server requests' (K1-K4), the five
+    # train steps' (K1, forwards and K6's data gradients), the
+    # entry points' of K5 and K7
+    paths = {"server": report["launches"],
+             "app": report["app"]["launches"],
+             "f32": report["f32"]["launches"],
+             "train": report["train"]["launches"],
+             "trainer": report["trainer"]["launches"],
+             "trainer_steps": report["trainer"]["step_launches"],
+             "webtrain": report["webtrain"]["launches"],
+             "groupnorm": report["groupnorm"]["launches"],
+             "wtile": report["wtile"]["launches"]}
+    main_path = {"conv3d_halo_train": "train",
+                 "fused_group_norm": "groupnorm",
+                 "conv3d_same": "wtile"}
+
+    def launches(name, path):
+        """K6 has no kernel of its own: its launches are K1's on
+        the train path, and none on the others."""
+        if name == "conv3d_halo_train":
+            return (paths[path]["conv3d_halo"]
+                    if path in ("train", "trainer_steps") else 0)
+        return paths[path][name]
+    for row in kernels_json:
+        row["launches"] = launches(row["name"],
+                                   main_path.get(row["name"], "server"))
+        row["launches_by_path"] = {p: launches(row["name"], p)
+                                   for p in paths}
 
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -1403,6 +1860,16 @@ def main() -> int:
     print(f"train step (full width, batch 2 of 4x128^3, ps2d_train): "
           f"{tr['step_ms_median_2_5']:.1f} ms steady, peak memory "
           f"{tr['peak_bytes'] / 2 ** 30:.2f} GiB, losses {tr['losses']}")
+    tt = report["trainer"]
+    print(f"trainer (full width, 2 epochs, patch batches of 2 x 128^3): "
+          f"{np.median(tt['event_step_ms'][1:]):.2f} ms a train step "
+          f"(CUDA events; host enqueue {np.median(tt['step_ms'][1:]):.2f} ms"
+          f"; median of steps 2-4), loader wait {np.mean(tt['loader_wait_ms']):.2f} "
+          f"ms a step, validation epochs {tt['val_epoch_ms']} ms, "
+          f"checkpoint {tt['checkpoint_bytes'] / 2 ** 20:.2f} MiB saved in "
+          f"{tt['save_ms']:.2f} ms and loaded in {tt['load_ms']:.2f} ms, "
+          f"peak {tt['peak_bytes'] / 2 ** 30:.2f} GiB, cohort written in "
+          f"{tt['cohort_write_s']:.2f} s")
     print(f"total {time.perf_counter() - run.t0:.2f} s")
     print(json.dumps({"kernels": kernels_json}))
     print(smi)

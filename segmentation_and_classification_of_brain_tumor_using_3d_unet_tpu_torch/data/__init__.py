@@ -1,2 +1,2 @@
-"""Data: the NIfTI codec, the upload decoder, the deterministic
-preprocessing chain on the device and the synthetic generators."""
+"""Data: the NIfTI codec, the datasets, the preprocessing chain and its
+augmentation on the device, the loader and the synthetic generators."""

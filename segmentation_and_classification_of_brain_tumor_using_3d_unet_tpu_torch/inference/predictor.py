@@ -15,7 +15,7 @@ Segmentation modes:
 
 Work on the volume runs on the predictor's device; the crop plan and
 the paste of a cropped result into the full map run on the host, as in
-JAX.
+JAX. The models compute in ``ModelConfig.compute_dtype`` (bf16 or f32).
 """
 
 from __future__ import annotations
@@ -68,18 +68,18 @@ class Predictor:
         self.config = config or Config()
         self.device = resolve_device(device)
         mc = self.config.model
-        if mc.compute_dtype != "bfloat16":
-            raise NotImplementedError("the port computes in bfloat16 only")
         self.seg_model = UNet3D(
             in_channels=mc.in_channels, out_channels=mc.out_channels,
             features=mc.features, ps2d_eval=mc.ps2d_eval,
-            ps2d_levels=mc.ps2d_levels, seed=seed, device=self.device)
+            ps2d_levels=mc.ps2d_levels, seed=seed, device=self.device,
+            compute_dtype=mc.compute_dtype)
         self.seg_model.eval()
         if seg_variables is not None:
             self.load_seg_params(seg_variables["params"],
                                  seg_variables.get("batch_stats"))
         self.cls_model = BrainTumorClassifier(
-            in_channels=4, num_classes=4, seed=seed + 1, device=self.device)
+            in_channels=4, num_classes=4, seed=seed + 1, device=self.device,
+            compute_dtype=mc.compute_dtype)
         self.cls_model.eval()
         if cls_variables is not None:
             _load(self.cls_model, cls_variables)
@@ -252,7 +252,7 @@ class Predictor:
         model = UNet3DWithClassifier(
             in_channels=mc.in_channels, out_channels=mc.out_channels,
             num_grades=num_grades, features=mc.features,
-            device=self.device)
+            device=self.device, compute_dtype=mc.compute_dtype)
         model.eval()
         _load(model, {"params": joint_params,
                       "batch_stats": joint_batch_stats})

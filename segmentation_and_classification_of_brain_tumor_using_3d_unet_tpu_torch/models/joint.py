@@ -4,7 +4,8 @@ on the global-average-pooled bottleneck and the log of the trunk's own
 predicted tumour burden; ``joint_loss`` and ``grade_from_volume``.
 
 The trunk runs the normal path, as the JAX joint model's does (it sets
-no ps2d flag).
+no ps2d flag); ``compute_dtype`` is the trunk's and the head's (JAX's
+``dtype``).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 import torch.nn as nn
 
 from ..device import resolve_device
+from ..ops.conv import BF16, set_compute_dtype
 from ..ops.dropout import dropout
 from ..ops.pool import global_avg_pool
 from .classifier import Dense
@@ -33,17 +35,18 @@ class UNet3DWithClassifier(nn.Module):
                  num_grades: int = 4,
                  features: Sequence[int] = (32, 64, 128, 256, 512),
                  seed: int = 0, device="cuda", dropout_rate: float = 0.2,
-                 remat: bool = False):
+                 remat: bool = False, compute_dtype=BF16):
         super().__init__()
         dev = resolve_device(device)
         self.unet = UNet3D(in_channels, out_channels, features, seed=seed,
                            device=dev, dropout_rate=dropout_rate,
-                           remat=remat)
+                           remat=remat, compute_dtype=compute_dtype)
         gen = torch.Generator().manual_seed(seed + 1)
         # GAP'd bottleneck (2 * features[-1]) + log burden of each
         # tumour class (out - 1) + log foreground fraction (1)
         self.grade_fc1 = Dense(2 * features[-1] + out_channels, 256, gen)
         self.grade_out = Dense(256, num_grades, gen)
+        self.compute_dtype = set_compute_dtype(self, compute_dtype)
         self.to(dev)
 
     @torch.no_grad()

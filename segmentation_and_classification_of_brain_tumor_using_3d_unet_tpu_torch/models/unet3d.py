@@ -1,9 +1,11 @@
-"""Attention-gated residual 3-D U-Net in bf16: the eval and train forwards.
+"""Attention-gated residual 3-D U-Net: the eval and train forwards.
 
 Counterpart of the JAX package's ``models/unet3d.py`` (``fast=True``):
-NDHWC tensors, bf16 compute with f32 accumulation and f32 norm
-statistics, the head BatchNorm applied in bf16 at eval. Module and
-parameter names follow the flax tree (``down0.conv1.kernel``,
+NDHWC tensors, computed in ``compute_dtype`` (bf16 by default, or f32;
+JAX's ``dtype``) with f32 accumulation and f32 norm statistics, the
+parameters f32 and cast at use, the head BatchNorm applied in the
+compute dtype at eval and in f32 at train, the logits returned in f32.
+Module and parameter names follow the flax tree (``down0.conv1.kernel``,
 ``head_bn.mean``, ...), so ``models.weights.load_flax_params`` moves
 a JAX checkpoint in without a key map.
 
@@ -24,7 +26,8 @@ DoubleConv blocks under ``remat``. With ``ps2d_train`` its level-0
 region runs in the halo layout on the differentiable conv K6
 (``ops/ps2d.py::conv3d_halo_train``, K1 forwards and backwards): enc0's
 conv2 and the dec0 stage's two convs; the glue between them stays plain
-differentiable ops (no eval-only folds), as in JAX.
+differentiable ops (no eval-only folds), as in JAX. The kernels take
+bf16 only: an f32 model refuses the region (``halo_levels``).
 """
 
 from __future__ import annotations
@@ -36,10 +39,11 @@ import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
-from ..ops.conv import BF16, Conv1x1, FastConv3D, FastConvTranspose3D
+from ..ops.conv import (BF16, Conv1x1, FastConv3D, FastConvTranspose3D,
+                        set_compute_dtype)
 from ..ops.dropout import dropout
 from ..ops.norm import (batch_norm_infer, batch_norm_train, group_norm,
-                        group_norm_bf16)
+                        group_norm_s2d)
 from ..ops.pool import global_avg_pool, max_pool3d
 from ..ops.ps2d import (conv1x1_halo, conv3d_halo, conv3d_halo_train,
                         global_avg_pool_halo, group_norm_halo,
@@ -62,10 +66,10 @@ class GroupNorm(nn.Module):
         """The normal path (JAX ``group_norm``)."""
         return group_norm(x, self.scale, self.bias, self.num_groups, self.eps)
 
-    def bf16(self, x):
+    def s2d(self, x):
         """The arithmetic of the JAX ``group_norm_s2d``."""
-        return group_norm_bf16(x, self.scale, self.bias, self.num_groups,
-                               self.eps)
+        return group_norm_s2d(x, self.scale, self.bias, self.num_groups,
+                              self.eps)
 
     def halo(self, x, sums=None):
         """On a halo tensor (JAX ``group_norm_flat``)."""
@@ -140,7 +144,7 @@ class DoubleConv3D(nn.Module):
         out, st2 = conv3d_halo((out1,), self.conv2.kernel, in_scale=sc1,
                                in_shift=sh1, in_relu=True, emit_stats=True)
         out = torch.relu(self.gn2.halo(out, sums=st2))
-        return out + pack_halo(self.gn_proj.bf16(self.proj(x)))
+        return out + pack_halo(self.gn_proj.s2d(self.proj(x)))
 
     def forward_entry_train(self, x):
         """The entry block at train (JAX ``_ps2d_entry(trainable=True)``):
@@ -155,7 +159,7 @@ class DoubleConv3D(nn.Module):
         out = torch.relu(self.gn1.halo(pack_halo_plain(self.conv1(x))))
         out = conv3d_halo_train((out,), self.conv2.kernel)
         out = torch.relu(self.gn2.halo(out))
-        return out + pack_halo_plain(self.gn_proj.bf16(self.proj(x)))
+        return out + pack_halo_plain(self.gn_proj.s2d(self.proj(x)))
 
     def forward_halo_train(self, xs):
         """The dec0 block on halo tensors at train (JAX ``_ps2d(trainable=
@@ -177,7 +181,7 @@ class DoubleConv3D(nn.Module):
         psi = se = mask0 = None
         if gate is not None:
             psi, se = gate
-            mask0 = psi * se.to(BF16)[:, None, None, None, :]
+            mask0 = psi * se.to(psi.dtype)[:, None, None, None, :]
         out, st1 = conv3d_halo(xs, self.conv1.kernel, in_mul0=mask0,
                                emit_stats=True)
         sc1, sh1 = self.gn1.halo_affine(out, sums=st1)
@@ -254,14 +258,15 @@ class UNet3D(nn.Module):
     ``torch.Generator`` (kaiming fan-out normal convs, as flax's
     initialisers; the values differ from JAX's) on ``device``.
     ``ps2d_levels`` >= 2 turns the level-1 region on at eval, as in
-    JAX; ``ps2d_train`` the level-0 region at train."""
+    JAX; ``ps2d_train`` the level-0 region at train. ``compute_dtype``
+    (a torch dtype, or "bfloat16" / "float32") is JAX's ``dtype``."""
 
     def __init__(self, in_channels: int = 4, out_channels: int = 4,
                  features: Sequence[int] = (32, 64, 128, 256, 512),
                  ps2d_eval: bool = False, ps2d_levels: int = 1,
                  seed: int = 0, device="cuda", dropout_rate: float = 0.2,
                  remat: bool = False, ps2d_train: bool = False,
-                 deep_sup_full_res: bool = False):
+                 deep_sup_full_res: bool = False, compute_dtype=BF16):
         super().__init__()
         feats = tuple(features)
         self.features, self.ps2d_eval = feats, ps2d_eval
@@ -291,6 +296,7 @@ class UNet3D(nn.Module):
                                     generator=gen)
         self.head_bn = BatchNorm(feats[0] // 2)
         self.head_out = Conv1x1(feats[0] // 2, out_channels, generator=gen)
+        self.compute_dtype = set_compute_dtype(self, compute_dtype)
         self.to(resolve_device(device))
 
     def halo_levels(self, shape) -> int:
@@ -301,10 +307,21 @@ class UNet3D(nn.Module):
         back exactly; level 1 also needs ``ps2d_levels`` >= 2, a
         32-multiple level-1 width, D % 4 == 0 and H, W % 8 == 0. (JAX
         also drops a level whose TPU kernel plan does not fit its
-        on-chip memory budget; that limit has no counterpart here.)"""
+        on-chip memory budget; that limit has no counterpart here.) An
+        f32 model with the region on raises ``NotImplementedError``: the
+        kernels' f32 forms are not ported, and the forward never falls
+        back to the normal path unasked."""
         return self._halo_levels(shape, self.ps2d_eval, self.ps2d_levels)
 
     def _halo_levels(self, shape, on: bool, levels: int) -> int:
+        if on and self.compute_dtype != BF16:
+            raise NotImplementedError(
+                f"compute_dtype {self.compute_dtype} with the ps2d region "
+                "(ps2d_eval / ps2d_train): the region's CUDA kernels take "
+                "bfloat16 only; their float32 forms (K1 ps2d_conv3d_flat_"
+                "multi, K2 up_k2s2_into_flat, K3 pack_flat_fast, K4 "
+                "pool_into_flat, K6 ps2d_conv3d_flat_train) are not ported "
+                "yet. Run float32 with ps2d_eval=False and ps2d_train=False")
         feats, (D, H, W) = self.features, tuple(shape)
         if not (on and feats[0] % 32 == 0
                 and D % 2 == 0 and H % 2 == 0 and W % 2 == 0):
@@ -321,16 +338,18 @@ class UNet3D(nn.Module):
 
     @torch.no_grad()
     def forward_with_bottleneck(self, x: torch.Tensor):
-        """(logits f32, bottleneck output bf16 (B, ..., 2 * features[-1]))."""
+        """(logits f32, bottleneck output in the compute dtype (B, ...,
+        2 * features[-1]))."""
         out = self._forward(x, train=False)
         return out["logits"], out["bottleneck"]
 
     def forward_train(self, x: torch.Tensor, generator=None,
                       batch_stats=None) -> dict:
         """The train forward, with gradients: {"logits": f32, "deep":
-        [one bf16 head per encoder level but the last, at its level's
-        scale, or full resolution with ``deep_sup_full_res``],
-        "bottleneck": bf16, "batch_stats": the head BatchNorm's new
+        [one head per encoder level but the last, in the compute dtype,
+        at its level's scale, or full resolution with
+        ``deep_sup_full_res``], "bottleneck": in the compute dtype,
+        "batch_stats": the head BatchNorm's new
         running (mean, var)}. ``generator`` (on x's device) draws the
         dropout masks; ``batch_stats`` is the running (mean, var) to
         advance, the buffers when None. Nothing of the module is
@@ -353,7 +372,7 @@ class UNet3D(nn.Module):
     def _forward(self, x, train: bool, generator=None, bn_stats=None):
         feats = self.features
         n = len(feats)
-        x = x.to(BF16)
+        x = x.to(self.compute_dtype)
         full = tuple(x.shape[1:4])
         if min(full) < 2 ** n:
             raise ValueError(f"input spatial dims {full} too small for {n} "
@@ -420,7 +439,7 @@ class UNet3D(nn.Module):
         if train:
             # f32 batch statistics (JAX: BatchNorm in f32 at train)
             h, new_stats = self.head_bn.train_stats(h, bn_stats)
-            h = torch.relu(h).to(BF16)
+            h = torch.relu(h).to(self.compute_dtype)
         else:
             h = torch.relu(self.head_bn(h))
         return {"logits": self.head_out(h).float(), "deep": deep,

@@ -2,23 +2,28 @@
 
 Counterparts of the JAX package's ``ops/conv.py``. There these are XLA
 ops, not Pallas kernels, so here they are library calls: cuDNN's conv3d
-and cuBLAS's matmul on the card. Every op takes bf16 operands,
-accumulates in f32 and rounds its result to bf16 once, as the JAX
-functions do, and carries gradients (autograd through the library
-calls; on the CPU through the widened operands). Kernels are kept in
-flax's layouts (DHWIO), so parameters move between the packages
-unchanged.
+and cuBLAS's matmul on the card. Every op computes in a compute dtype
+(``dtype``, bf16 by default; the JAX modules' ``dtype``): its operands
+are cast to it, products accumulate in f32 and the result is rounded to
+it once, as the JAX functions do. In f32 the library calls run with TF32
+off (``full_f32``), as JAX's f32 is full f32. Every op carries gradients
+(autograd through the library calls; on the CPU through the widened
+operands). Kernels are kept in flax's layouts (DHWIO), so parameters
+move between the packages unchanged.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 BF16 = torch.bfloat16
+F32 = torch.float32
 
 # convs with at most this many output channels take the ksplit
 # formulation (JAX ops/conv.py KSPLIT_MAX_CO): its per-tap bf16 rounding
@@ -36,61 +41,139 @@ def f32_accumulate(fn, *args):
     return fn(*(a.float() for a in args)).to(BF16)
 
 
-def matmul_bf16(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` in bf16 with f32 accumulation (``x`` (..., K),
+# TF32 (``torch.backends.cudnn.allow_tf32`` and the f32 matmul
+# precision) is process-wide, and the server runs requests in threads, so
+# the sections that set it are counted under one lock: the first to open
+# saves the settings, the last to close restores them, and while any
+# full-f32 section is open TF32 stays off (a section that only lets TF32
+# in, for bf16 values it holds exactly, then runs without it: slower, same
+# products).
+_TF32_LOCK = threading.Lock()
+_tf32_open = {"off": 0, "on": 0}
+_tf32_saved = (True, "highest")
+
+
+def _tf32_apply() -> None:
+    conv, mm = _tf32_saved
+    if _tf32_open["off"]:
+        conv, mm = False, "highest"
+    elif _tf32_open["on"]:
+        conv = True
+    torch.backends.cudnn.allow_tf32 = conv
+    torch.set_float32_matmul_precision(mm)
+
+
+@contextlib.contextmanager
+def _tf32_section(kind: str):
+    global _tf32_saved
+    with _TF32_LOCK:
+        if not any(_tf32_open.values()):
+            _tf32_saved = (torch.backends.cudnn.allow_tf32,
+                           torch.get_float32_matmul_precision())
+        _tf32_open[kind] += 1
+        _tf32_apply()
+    try:
+        yield
+    finally:
+        with _TF32_LOCK:
+            _tf32_open[kind] -= 1
+            _tf32_apply()
+
+
+def full_f32():
+    """cuDNN's convs and cuBLAS's f32 matmuls without TF32 until the
+    last full-f32 section of any thread has closed; then both settings
+    are restored."""
+    return _tf32_section("off")
+
+
+def tf32_for_bf16():
+    """cuDNN's convs in TF32 for f32 operands that hold bf16 values
+    (exact in TF32), unless a full-f32 section is open."""
+    return _tf32_section("on")
+
+
+def compute_dtype_of(spec) -> torch.dtype:
+    """``"bfloat16"`` / ``"float32"`` (``ModelConfig.compute_dtype``) or
+    a torch dtype -> the torch dtype; anything else raises."""
+    dt = {"bfloat16": BF16, "float32": F32}.get(spec, spec)
+    if dt not in (BF16, F32):
+        raise ValueError(f"compute dtype must be bfloat16 or float32, got "
+                         f"{spec!r}")
+    return dt
+
+
+def accumulate(fn, *args):
+    """``fn`` on operands of one compute dtype, f32 accumulation, result
+    in that dtype: bf16 as ``f32_accumulate``, f32 with TF32 off."""
+    if args[0].dtype == BF16:
+        return f32_accumulate(fn, *args)
+    with full_f32():
+        return fn(*args)
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor,
+           dtype: torch.dtype = BF16) -> torch.Tensor:
+    """``x @ w`` in ``dtype`` with f32 accumulation (``x`` (..., K),
     ``w`` (K, N) or batched (B, K, N) against ``x`` (B, ..., K))."""
-    return f32_accumulate(torch.matmul, x.to(BF16), w.to(BF16))
+    return accumulate(torch.matmul, x.to(dtype), w.to(dtype))
 
 
-def _conv3d(x: torch.Tensor, w: torch.Tensor, padding) -> torch.Tensor:
-    """NDHWC ``x`` (bf16) with a DHWIO kernel -> NDHWC bf16."""
-    xn = x.permute(0, 4, 1, 2, 3)                 # channels-last NCDHW view
-    wn = w.to(BF16).permute(4, 3, 0, 1, 2).contiguous()
-    y = f32_accumulate(lambda a, b: F.conv3d(a, b, padding=padding), xn, wn)
+def _conv3d(x: torch.Tensor, w: torch.Tensor, padding,
+            dtype: torch.dtype) -> torch.Tensor:
+    """NDHWC ``x`` with a DHWIO kernel, both cast to ``dtype`` -> NDHWC
+    in ``dtype``."""
+    xn = x.to(dtype).permute(0, 4, 1, 2, 3)       # channels-last NCDHW view
+    wn = w.to(dtype).permute(4, 3, 0, 1, 2).contiguous()
+    y = accumulate(lambda a, b: F.conv3d(a, b, padding=padding), xn, wn)
     return y.permute(0, 2, 3, 4, 1)
 
 
 def conv3d_zcat(x: torch.Tensor, w: torch.Tensor,
-                bias: torch.Tensor = None) -> torch.Tensor:
-    """3x3x3 SAME conv (JAX ``conv3d_zcat``): x (B, D, H, W, Cin) bf16,
-    w (3, 3, 3, Cin, Cout); bf16 out, bias added in bf16."""
+                bias: torch.Tensor = None,
+                dtype: torch.dtype = BF16) -> torch.Tensor:
+    """3x3x3 SAME conv (JAX ``conv3d_zcat``): x (B, D, H, W, Cin),
+    w (3, 3, 3, Cin, Cout); out in ``dtype``, bias added in ``dtype``."""
     if tuple(w.shape[:3]) != (3, 3, 3):
         raise ValueError(f"conv3d_zcat expects 3x3x3 kernels, got "
                          f"{tuple(w.shape)}")
-    y = _conv3d(x, w, padding=1)
+    y = _conv3d(x, w, 1, dtype)
     if bias is not None:
-        y = y + bias.to(BF16)
+        y = y + bias.to(dtype)
     return y.contiguous()
 
 
 def conv3d_ksplit(x: torch.Tensor, w: torch.Tensor,
-                  bias: torch.Tensor = None) -> torch.Tensor:
+                  bias: torch.Tensor = None,
+                  dtype: torch.dtype = BF16) -> torch.Tensor:
     """3x3x3 SAME conv as the JAX ``conv3d_ksplit``: one 2-D conv per
-    depth tap, each rounded to bf16, then a shifted three-slice sum in
-    bf16."""
+    depth tap, each rounded to ``dtype``, then a shifted three-slice sum
+    in ``dtype``."""
     B, D, H, W, _ = x.shape
     co = w.shape[-1]
     # (1, 3, 3, ci, 3*co): output block kz holds depth tap kz's 2-D kernel
     w2 = w.permute(1, 2, 3, 0, 4).reshape(1, 3, 3, w.shape[3], 3 * co)
-    y = _conv3d(x, w2, padding=(0, 1, 1))         # (B, D, H, W, 3co)
+    y = _conv3d(x, w2, (0, 1, 1), dtype)          # (B, D, H, W, 3co)
     yp = F.pad(y, (0, 0, 0, 0, 0, 0, 1, 1))
     out = (yp[:, 0:D, ..., 0:co] + yp[:, 1:1 + D, ..., co:2 * co]
            + yp[:, 2:2 + D, ..., 2 * co:3 * co])
     if bias is not None:
-        out = out + bias.to(BF16)
+        out = out + bias.to(dtype)
     return out.contiguous()
 
 
 def conv3d_3x3x3(x: torch.Tensor, w: torch.Tensor,
-                 bias: torch.Tensor = None) -> torch.Tensor:
+                 bias: torch.Tensor = None,
+                 dtype: torch.dtype = BF16) -> torch.Tensor:
     """The formulation the JAX ``conv3d_3x3x3`` picks for this shape."""
     if w.shape[-1] <= KSPLIT_MAX_CO:
-        return conv3d_ksplit(x, w, bias)
-    return conv3d_zcat(x, w, bias)
+        return conv3d_ksplit(x, w, bias, dtype)
+    return conv3d_zcat(x, w, bias, dtype)
 
 
 def conv_transpose3d_k2s2(x: torch.Tensor, w: torch.Tensor,
-                          bias: torch.Tensor = None) -> torch.Tensor:
+                          bias: torch.Tensor = None,
+                          dtype: torch.dtype = BF16) -> torch.Tensor:
     """ConvTranspose(kernel 2^3, stride 2^3) as a matmul and a
     depth-to-space (JAX ``conv_transpose3d_k2s2``). x (B, D, H, W, Cin),
     w (2, 2, 2, Cin, Cout) in flax's convention, which applies the
@@ -99,21 +182,22 @@ def conv_transpose3d_k2s2(x: torch.Tensor, w: torch.Tensor,
     B, D, H, W, _ = x.shape
     ci, co = w.shape[3], w.shape[4]
     wf = w.flip(0, 1, 2).reshape(8, ci, co).permute(1, 0, 2)
-    y = matmul_bf16(x, wf.reshape(ci, 8 * co))    # (B, D, H, W, 8co)
+    y = matmul(x, wf.reshape(ci, 8 * co), dtype)  # (B, D, H, W, 8co)
     y = y.reshape(B, D, H, W, 2, 2, 2, co).permute(0, 1, 4, 2, 5, 3, 6, 7)
     y = y.reshape(B, 2 * D, 2 * H, 2 * W, co)
     if bias is not None:
-        y = y + bias.to(BF16)
+        y = y + bias.to(dtype)
     return y.contiguous()
 
 
 def conv1x1(x: torch.Tensor, w: torch.Tensor,
-            bias: torch.Tensor = None) -> torch.Tensor:
+            bias: torch.Tensor = None,
+            dtype: torch.dtype = BF16) -> torch.Tensor:
     """Pointwise conv as a channel matmul (JAX ``conv1x1``); w is
     (1, 1, 1, Cin, Cout) or (Cin, Cout)."""
-    y = matmul_bf16(x, w.reshape(w.shape[-2], w.shape[-1]))
+    y = matmul(x, w.reshape(w.shape[-2], w.shape[-1]), dtype)
     if bias is not None:
-        y = y + bias.to(BF16)
+        y = y + bias.to(dtype)
     return y
 
 
@@ -124,8 +208,21 @@ def _kaiming_fan_out(shape, generator) -> torch.Tensor:
     return torch.randn(shape, generator=generator) * math.sqrt(2.0 / fan_out)
 
 
+def set_compute_dtype(model: nn.Module, dtype) -> torch.dtype:
+    """Set the compute dtype of every layer of ``model`` that has one
+    (the JAX modules' ``dtype`` field); returns it as a torch dtype."""
+    dtype = compute_dtype_of(dtype)
+    for m in model.modules():
+        if hasattr(m, "compute_dtype"):
+            m.compute_dtype = dtype
+    return dtype
+
+
 class _ConvParams(nn.Module):
-    """``kernel`` (flax layout, f32) and optional ``bias`` parameters."""
+    """``kernel`` (flax layout, f32) and optional ``bias`` parameters;
+    the layer computes in ``compute_dtype``."""
+
+    compute_dtype = BF16
 
     def __init__(self, kernel_shape, use_bias: bool, generator=None,
                  init="kaiming"):
@@ -148,7 +245,7 @@ def conv_transpose3d_k2s2_halo(x: torch.Tensor, w: torch.Tensor,
     (Cin, Cout, 2, 2, 2)), the bias added in bf16, padded into the halo
     layout (B, 2D+2, 2H+2, 2W+2, Cout) with ``F.pad``. Same function as
     K2, with a backward (JAX: the s2d-out up and the XLA pad,
-    ``models/unet3d.py:772-792``)."""
+    ``models/unet3d.py:772-792``). bf16 only, as the region is."""
     wt = w.to(BF16).flip(0, 1, 2).permute(3, 4, 0, 1, 2)
     y = f32_accumulate(lambda a, b: F.conv_transpose3d(a, b, stride=2),
                        x.to(BF16).permute(0, 4, 1, 2, 3), wt)
@@ -166,7 +263,7 @@ class Conv1x1(_ConvParams):
         super().__init__((1, 1, 1, cin, features), use_bias, generator)
 
     def forward(self, x):
-        return conv1x1(x, self.kernel, self.bias)
+        return conv1x1(x, self.kernel, self.bias, self.compute_dtype)
 
 
 class FastConv3D(_ConvParams):
@@ -177,7 +274,7 @@ class FastConv3D(_ConvParams):
         super().__init__((3, 3, 3, cin, features), use_bias, generator)
 
     def forward(self, x):
-        return conv3d_3x3x3(x, self.kernel, self.bias)
+        return conv3d_3x3x3(x, self.kernel, self.bias, self.compute_dtype)
 
 
 class FastConvTranspose3D(_ConvParams):
@@ -189,7 +286,8 @@ class FastConvTranspose3D(_ConvParams):
                          init="lecun")
 
     def forward(self, x):
-        return conv_transpose3d_k2s2(x, self.kernel, self.bias)
+        return conv_transpose3d_k2s2(x, self.kernel, self.bias,
+                                     self.compute_dtype)
 
     def halo_train(self, x):
         """Into the halo layout, differentiable (the train path)."""

@@ -21,13 +21,11 @@ block-Toeplitz lane geometry; the kernel here needs none of them.
 
 from __future__ import annotations
 
-import contextlib
-
 import torch
 import torch.nn.functional as F
 from torch.nn.grad import conv3d_weight
 
-from .conv import BF16, f32_accumulate
+from .conv import BF16, f32_accumulate, full_f32, tf32_for_bf16
 from .ps2d import _aligned, _check, _lib, _on_cpu, _stream
 
 
@@ -41,17 +39,12 @@ def _check_widths(x: torch.Tensor, w: torch.Tensor) -> None:
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
 
 
-@contextlib.contextmanager
 def _tf32(allowed: bool):
-    """cuDNN's f32 convs in TF32 or not, for the duration. TF32 holds a
-    bf16 value exactly, so products of bf16 operands widened to f32 stay
-    exact either way; true f32 operands need it off."""
-    before = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = allowed
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = before
+    """cuDNN's f32 convs in TF32 or not, for the duration (the counted
+    sections of ``ops/conv.py``). TF32 holds a bf16 value exactly, so
+    products of bf16 operands widened to f32 stay exact either way; true
+    f32 operands need it off."""
+    return tf32_for_bf16() if allowed else full_f32()
 
 
 def wtile_conv3d_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

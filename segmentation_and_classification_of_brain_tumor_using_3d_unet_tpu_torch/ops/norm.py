@@ -3,7 +3,7 @@
 ``ops/pallas/ps2d.py``.
 
 All GroupNorms take one-pass f32 moments (mean of x and of x^2) with the
-variance clamped at 0. That is not ``torch.nn.GroupNorm``'s two-pass
+variance clamped at 0, whatever the compute dtype of ``x``. That is not ``torch.nn.GroupNorm``'s two-pass
 form: near-constant groups come out differently, and the port follows
 the reference. Every op here is differentiable (plain tensor ops), so
 the train forward runs the same functions as the eval forward.
@@ -12,8 +12,6 @@ the train forward runs the same functions as the eval forward.
 from __future__ import annotations
 
 import torch
-
-BF16 = torch.bfloat16
 
 
 def group_affine(s1: torch.Tensor, s2: torch.Tensor, gamma: torch.Tensor,
@@ -48,34 +46,34 @@ def group_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 
 
 def bf16_moments(x: torch.Tensor, count: int):
-    """Per-channel means of a bf16 (N, ..., C) tensor and of its square
-    over ``count`` voxels: f32 accumulation of the bf16 values, and of
-    the squares rounded to bf16 (the JAX ``group_norm_s2d`` and
-    ``group_norm_flat`` statistics). ``count`` is the true voxel count,
+    """Per-channel means of an (N, ..., C) tensor and of its square over
+    ``count`` voxels: f32 accumulation of the values, and of the squares
+    rounded to ``x.dtype`` (the JAX ``group_norm_s2d`` and
+    ``group_norm_flat`` statistics, bf16 there). ``count`` is the true voxel count,
     so zero padding in ``x`` does not change the result."""
     axes = tuple(range(1, x.ndim - 1))
     return (x.sum(axes, dtype=torch.float32) / count,
             x.square().sum(axes, dtype=torch.float32) / count)
 
 
-def apply_affine_bf16(x: torch.Tensor, scale: torch.Tensor,
-                      shift: torch.Tensor) -> torch.Tensor:
-    """``x * scale + shift`` in bf16 with per-(N, C) factors, as the
-    JAX package's s2d and flat GroupNorms apply it."""
+def apply_affine(x: torch.Tensor, scale: torch.Tensor,
+                 shift: torch.Tensor) -> torch.Tensor:
+    """``x * scale + shift`` in ``x.dtype`` with per-(N, C) factors, as
+    the JAX package's s2d and flat GroupNorms apply it."""
     shape = (x.shape[0],) + (1,) * (x.ndim - 2) + (x.shape[-1],)
-    return (x * scale.to(BF16).reshape(shape)
-            + shift.to(BF16).reshape(shape))
+    return (x * scale.to(x.dtype).reshape(shape)
+            + shift.to(x.dtype).reshape(shape))
 
 
-def group_norm_bf16(x: torch.Tensor, gamma: torch.Tensor,
-                    beta: torch.Tensor, num_groups: int,
-                    eps: float = 1e-5) -> torch.Tensor:
+def group_norm_s2d(x: torch.Tensor, gamma: torch.Tensor,
+                   beta: torch.Tensor, num_groups: int,
+                   eps: float = 1e-5) -> torch.Tensor:
     """GroupNorm with the arithmetic of the JAX ``group_norm_s2d``:
-    ``bf16_moments`` statistics, affine applied in bf16."""
+    ``bf16_moments`` statistics, affine applied in ``x.dtype``."""
     count = x[0, ..., 0].numel()
     scale, shift = group_affine(*bf16_moments(x, count), gamma, beta,
                                 num_groups, eps)
-    return apply_affine_bf16(x, scale, shift)
+    return apply_affine(x, scale, shift)
 
 
 def batch_norm_train(x: torch.Tensor, gamma: torch.Tensor,

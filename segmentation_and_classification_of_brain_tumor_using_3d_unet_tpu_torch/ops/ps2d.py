@@ -38,8 +38,8 @@ import torch
 import torch.nn.functional as F
 from torch.nn.grad import conv3d_weight
 
-from .conv import BF16, f32_accumulate, matmul_bf16
-from .norm import apply_affine_bf16, bf16_moments, group_affine
+from .conv import BF16, f32_accumulate, matmul
+from .norm import apply_affine, bf16_moments, group_affine
 from .pool import max_pool3d
 
 # ----------------------------------------------------------------------
@@ -528,7 +528,7 @@ def group_norm_halo(x: torch.Tensor, gamma, beta, num_groups: int,
     (JAX ``group_norm_flat``)."""
     scale, shift = group_norm_halo_affine(x, gamma, beta, num_groups, eps,
                                           sums)
-    return apply_affine_bf16(x, scale, shift) * halo_mask(x)
+    return apply_affine(x, scale, shift) * halo_mask(x)
 
 
 def conv1x1_halo(xs, w: torch.Tensor, bias=None, se0=None,
@@ -546,10 +546,10 @@ def conv1x1_halo(xs, w: torch.Tensor, bias=None, se0=None,
         off += ci
         if i == 0 and se0 is not None:
             wi = wi[None] * se0.to(BF16)[:, :, None]     # (B, ci, co)
-            t = matmul_bf16(x.reshape(x.shape[0], -1, ci), wi)
+            t = matmul(x.reshape(x.shape[0], -1, ci), wi)
             t = t.reshape(*x.shape[:-1], -1)
         else:
-            t = matmul_bf16(x, wi)
+            t = matmul(x, wi)
         if i == 0 and psi0 is not None:
             t = t * psi0
         y = t if y is None else y + t

@@ -1,13 +1,14 @@
 """Web serving tier of the port — stdlib HTTP server (counterpart of the
 JAX package's ``serve/app.py``).
 
-The same route surface and JSON contracts as the JAX app for what the
-port serves: the pages, ``/health``, ``POST /upload`` (decode ->
+The same route surface and JSON contracts as the JAX app: the pages,
+``/health`` (with the training ``sessions``), ``POST /upload`` (decode ->
 preprocess on the device -> segment with confidence -> classify ->
 metrics and clinical report -> pictures, optionally the label map as
-base64 .nii.gz) and ``/generate_synthetic_data``. The training routes
-and ``/health``'s ``sessions`` wait for the port's job manager; until
-then they answer the 404 JSON.
+base64 .nii.gz), ``/generate_synthetic_data`` and the training routes
+``/start_training``, ``/training_progress`` and ``/stop_training``
+(``serve/jobs.py``). Trained weights are adopted through
+``train.checkpoints.adopt_trained_weights``.
 
 An upload that cannot be decoded or analysed falls back to the explicit
 synthetic demo analysis (``degraded_mode: true``), as in JAX; the
@@ -37,6 +38,7 @@ import torch
 from ..config import Config
 from ..device import resolve_device
 from . import templates
+from .jobs import TrainingJobManager
 from .reports import calculate_medical_metrics, generate_clinical_report
 
 logger = logging.getLogger(__name__)
@@ -112,15 +114,17 @@ def _device_label(device: torch.device) -> str:
 # ---------------------------------------------------------------------------
 
 class BrainTumorApp:
-    """Holds the predictor on one device; route logic lives here so it
-    can be tested without sockets.
+    """Holds the predictor and the training sessions on one device; route
+    logic lives here so it can be tested without sockets.
 
-    Weights: ``InferenceConfig.checkpoint`` "" or "none" serves the
-    predictor's seeded weights (``weights: random_init`` in /health), as
-    JAX does when it finds no checkpoint; the port has no checkpoint
-    format yet, so "" finds none. Any other value raises
-    ``NotImplementedError`` here: trained weights asked for are never
-    replaced by random ones."""
+    Weights (``InferenceConfig.checkpoint``): "" adopts the newest
+    compatible ``best_*`` checkpoint under ``models_dir`` and serves the
+    seeded weights when there is none; "none" serves the seeded
+    weights; a path adopts that checkpoint. ``weights`` in /health says
+    which (the path, or ``random_init``). A path that holds no
+    checkpoint raises ``FileNotFoundError`` here, and one that does not
+    fit the model raises ``ValueError`` when the predictor is built:
+    trained weights asked for are never replaced by random ones."""
 
     weights_source: str = "random_init"
 
@@ -129,16 +133,18 @@ class BrainTumorApp:
                  predictor=None, device="cuda"):
         self.config = config or Config()
         spec = self.config.inference.checkpoint
-        if spec not in ("", "none"):
-            raise NotImplementedError(
-                f"checkpoint {spec!r}: the port has no checkpoint format "
-                "yet; serve with checkpoint='none'")
+        if spec not in ("", "none") and not any(
+                os.path.isfile(os.path.join(spec, *f)) for f in
+                (("state", "state.pt"), ("params.pt",))):
+            raise FileNotFoundError(f"checkpoint {spec!r} holds no "
+                                    "checkpoint of the port")
         self.device = resolve_device(device)
         self.upload_dir = upload_dir
         os.makedirs(upload_dir, exist_ok=True)
         self._predictor = predictor
         self._predictor_lock = threading.Lock()
         self.warmup_state = "off"
+        self.jobs = TrainingJobManager(self.config.models_dir, self.device)
 
     def _get_predictor(self):
         with self._predictor_lock:
@@ -146,8 +152,25 @@ class BrainTumorApp:
                 from ..inference.predictor import Predictor
                 logger.info("initializing models on %s",
                             _device_label(self.device))
-                self._predictor = Predictor(self.config, device=self.device)
+                pred = Predictor(self.config, device=self.device)
+                self._load_trained_weights(pred)
+                self._predictor = pred
             return self._predictor
+
+    def _load_trained_weights(self, predictor) -> None:
+        """Adopt the configured checkpoint, or the newest compatible
+        ``best_*`` under ``models_dir`` (web and CLI training feed
+        serving)."""
+        from ..train.checkpoints import adopt_trained_weights
+        spec = self.config.inference.checkpoint
+        path = adopt_trained_weights(predictor, spec,
+                                     self.config.models_dir, logger)
+        if path:
+            self.weights_source = path
+            logger.info("serving with trained weights from %s", path)
+        elif spec not in ("", "none"):
+            raise ValueError(f"checkpoint {spec!r} does not fit the "
+                             "configured model")
 
     # ------------------------- routes -------------------------
 
@@ -163,6 +186,8 @@ class BrainTumorApp:
                         self.model_info())
                 if path == "/documentation":
                     return 200, "text/html", templates.documentation_page()
+                if path == "/training_progress":
+                    return self._training_progress(query)
                 if path == "/health":
                     return self._json({
                         "status": "ok",
@@ -170,10 +195,15 @@ class BrainTumorApp:
                         "models_loaded": self._predictor is not None,
                         "warmup": self.warmup_state,
                         "weights": self.weights_source,
+                        "sessions": self.jobs.list_sessions(),
                     })
             if method == "POST":
                 if path == "/upload":
                     return self._upload(body, headers)
+                if path == "/start_training":
+                    return self._start_training(body)
+                if path == "/stop_training":
+                    return self._stop_training(body)
                 if path == "/generate_synthetic_data":
                     return self._generate_synthetic(body)
             return 404, "application/json", json.dumps(
@@ -368,6 +398,49 @@ class BrainTumorApp:
             out["mask_grid"] = "native" if native_grid else "model"
             _log_phase("mask encode", t0)
         return out, vol, seg
+
+    def _start_training(self, body: bytes) -> Tuple[int, str, str]:
+        try:
+            cfg = json.loads(body or b"{}")
+        except json.JSONDecodeError:
+            return self._json({"success": False,
+                               "error": "invalid JSON"}, 400)
+        try:
+            safe_dir = resolve_under(self.config.data_dir,
+                                     cfg.get("data_dir"))
+        except ValueError as e:
+            return self._json({"success": False, "error": str(e)}, 400)
+        if safe_dir is not None:
+            cfg["data_dir"] = safe_dir
+        else:
+            cfg.pop("data_dir", None)
+        session_id = self.jobs.start_training_session(cfg)
+        return self._json({
+            "success": True, "session_id": session_id,
+            "message": "Training started successfully",
+        })
+
+    def _stop_training(self, body: bytes) -> Tuple[int, str, str]:
+        try:
+            cfg = json.loads(body or b"{}")
+        except json.JSONDecodeError:
+            cfg = {}
+        sid = cfg.get("session_id")
+        ok = self.jobs.stop_training_session(sid) if sid else False
+        return self._json({
+            "success": True,
+            "stopped": ok,
+            "message": "Training stopped" if ok else
+                       "No such session; nothing to stop",
+        })
+
+    def _training_progress(self, query: Dict) -> Tuple[int, str, str]:
+        sid = (query.get("session_id") or ["demo"])[0]
+        progress = self.jobs.get_training_progress(sid)
+        if progress is None:
+            return self._json({"status": "not_found",
+                               "error": f"unknown session {sid}"}, 404)
+        return self._json(progress)
 
     def _generate_synthetic(self, body: bytes) -> Tuple[int, str, str]:
         from ..data.synthetic import create_enhanced_synthetic_data

@@ -3,3 +3,4 @@ from .loop import (make_eval_step, make_joint_train_step,  # noqa: F401
 from .state import (Optimizer, TrainState, build_optimizer,  # noqa: F401
                     cosine_warm_restarts, create_train_state, current_lr,
                     ema_eval_state)
+from .trainer import ModernBrainTumorTrainer  # noqa: F401

@@ -1,21 +1,25 @@
 """Train, joint-train and eval steps (counterpart of the JAX package's
 ``train/loop.py``).
 
-One step: the train forward (bf16, ``forward_train``), the
-deep-supervision combined loss, the backward, the AdamW update, the new
-BatchNorm statistics and the on-device Dice; the metrics stay tensors on
-the device, so a step never waits on the host. JAX jits the step; here
-it runs eagerly, and on a CUDA model nothing of it touches the CPU.
+One step: the train forward (``forward_train``, in the model's compute
+dtype), the deep-supervision combined loss, the backward, the AdamW
+update, the new BatchNorm statistics and the on-device Dice; the metrics
+stay tensors on the device, so a step never waits on the host. JAX jits
+the step; here it runs eagerly, and on a CUDA model nothing of it
+touches the CPU. An f32 model's steps run with TF32 off, backward
+included (``ops.conv.full_f32``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from ..config import Config
+from ..ops.conv import BF16, full_f32
 from ..losses import combined_loss, deep_supervision_loss
 from ..metrics import mean_foreground_dice, region_dice
 from .state import TrainState, global_norm
@@ -39,6 +43,17 @@ def make_loss_fn(config: Config) -> Callable:
         return base(out["logits"], targets)
 
     return loss_fn
+
+
+def precision(model: torch.nn.Module):
+    """The context a step of ``model`` runs in: ``full_f32`` for an f32
+    model, none for bf16. The ops open their own sections for the
+    forward; autograd's backward runs after those have closed, so the
+    step holds one open across it (the ops' sections nested inside only
+    count)."""
+    if getattr(model, "compute_dtype", BF16) == BF16:
+        return contextlib.nullcontext()
+    return full_f32()
 
 
 def _grads(loss: torch.Tensor, params) -> list:
@@ -85,8 +100,9 @@ def make_train_step(config: Config, num_classes: int = 4,
         bn_stats, gsum, lsum, dsum = None, None, 0.0, 0.0
         for i in range(accum):
             sl = slice(i * mb, (i + 1) * mb)
-            loss, grads, logits, bn_stats = micro_grads(
-                state, images[sl], targets[sl], generator, bn_stats)
+            with precision(state.model):
+                loss, grads, logits, bn_stats = micro_grads(
+                    state, images[sl], targets[sl], generator, bn_stats)
             gsum = grads if gsum is None else [
                 a + g for a, g in zip(gsum, grads)]
             lsum = lsum + loss
@@ -119,10 +135,11 @@ def make_joint_train_step(config: Config, num_classes: int = 4,
             grades = grade_from_volume((targets > 0).sum((1, 2, 3)),
                                        targets[0].numel())
         params = list(state.model.parameters())
-        out = state.model.forward_train(images, generator)
-        loss, parts = joint_loss(out, targets, grades, seg_loss_fn,
-                                 cls_weight)
-        grads = _grads(loss, params)
+        with precision(state.model):
+            out = state.model.forward_train(images, generator)
+            loss, parts = joint_loss(out, targets, grades, seg_loss_fn,
+                                     cls_weight)
+            grads = _grads(loss, params)
         state.apply_gradients(grads, batch_stats=out["batch_stats"])
         grade_acc = (out["grade_logits"].detach().argmax(-1) == grades
                      ).float().mean()
@@ -152,7 +169,8 @@ def make_eval_step(config: Config, num_classes: int = 4,
     def step(state: TrainState, batch: Dict[str, torch.Tensor]
              ) -> Dict[str, torch.Tensor]:
         images, targets = batch["image"], batch["mask"]
-        res = state.model(images)
+        with precision(state.model):
+            res = state.model(images)
         out = dict(res) if isinstance(res, dict) else {"logits": res}
         out["deep"] = []
         labels = out["logits"].argmax(-1)

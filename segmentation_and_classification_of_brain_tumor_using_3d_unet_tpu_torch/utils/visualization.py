@@ -1,10 +1,11 @@
 """Medical visualization (host-side, matplotlib + plotly-JSON-over-CDN
-HTML): the port's copy of the JAX package's ``utils/visualization.py``,
-as far as the web app draws — the MPR overlay, the volume dashboard and
-the 3D reconstruction. The training dashboards, heatmaps and HTML report
-come with the port's trainer. One difference: the overlay of a
-multi-modal (D, H, W, M) volume draws its first modality, where JAX's
-hands the M-channel slice to ``imshow``, which refuses it.
+HTML): the port's copy of the JAX package's ``utils/visualization.py`` —
+the web app's pictures (the MPR overlay, the volume dashboard, the 3D
+reconstruction), the trainer's dashboards (PNG and interactive HTML),
+the Dice analysis, the confusion heatmap, the HTML medical report and
+the slice comparison. One difference: the overlay of a multi-modal
+(D, H, W, M) volume draws its first modality, where JAX's hands the
+M-channel slice to ``imshow``, which refuses it.
 
 Re-implements the capability surface of the reference's
 ``ModernMedicalVisualizer`` (``utils/visualization.py:24-461``) without a
@@ -17,7 +18,8 @@ from __future__ import annotations
 import base64
 import io
 import json
-from typing import Dict
+import os
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 
@@ -55,12 +57,120 @@ def plotly_html(figure_json: Dict, title: str = "Figure") -> str:
 
 
 # ---------------------------------------------------------------------------
+# training dashboards and analysis (the trainer's report)
+# ---------------------------------------------------------------------------
+
+def create_training_dashboard(history: Dict[str, Sequence[float]],
+                              save_path: Optional[str] = None) -> str:
+    """2x2 loss/dice/LR/HD dashboard; returns base64 PNG (and saves)."""
+    epochs = range(1, len(history.get("train_loss", [])) + 1)
+    fig, axes = plt.subplots(2, 2, figsize=(12, 8))
+    ax = axes[0, 0]
+    ax.plot(epochs, history["train_loss"], label="train")
+    if history.get("val_loss"):
+        ax.plot(epochs, history["val_loss"], label="val")
+    ax.set_title("Loss"); ax.set_xlabel("epoch"); ax.legend()
+    ax = axes[0, 1]
+    ax.plot(epochs, history.get("train_dice", []), label="train")
+    if history.get("val_dice"):
+        ax.plot(epochs, history["val_dice"], label="val")
+    ax.set_title("Dice"); ax.set_xlabel("epoch"); ax.legend()
+    ax = axes[1, 0]
+    ax.plot(epochs, history.get("learning_rates", []))
+    ax.set_title("Learning rate"); ax.set_yscale("log")
+    ax = axes[1, 1]
+    hd = [h for h in history.get("val_hausdorff", [])
+          if h == h and np.isfinite(h)]
+    if hd:
+        ax.plot(range(1, len(hd) + 1), hd)
+    ax.set_title("Val HD95 (mm)")
+    fig.suptitle("Training dashboard")
+    fig.tight_layout()
+    if save_path:
+        os.makedirs(os.path.dirname(save_path) or ".", exist_ok=True)
+        fig.savefig(save_path, dpi=150, bbox_inches="tight")
+    return _fig_to_base64(fig)
+
+
+def create_training_dashboard_html(history: Dict[str, Sequence[float]],
+                                   save_path: Optional[str] = None
+                                   ) -> str:
+    """Interactive plotly 2x2 training dashboard (loss / dice / LR /
+    val HD95) as standalone HTML — the interactive counterpart of the
+    PNG dashboard, matching the reference's plotly training report
+    (``training.py:416-466``). Figure JSON is embedded directly
+    (plotly.js from CDN via ``plotly_html``); no python plotly dep."""
+    n = len(history.get("train_loss", []))
+    epochs = list(range(1, n + 1))
+
+    def trace(ys, name, axis, **kw):
+        return {"type": "scatter", "mode": "lines", "name": name,
+                "x": epochs[:len(ys)], "y": [float(v) for v in ys],
+                "xaxis": f"x{axis}", "yaxis": f"y{axis}", **kw}
+
+    data = [trace(history.get("train_loss", []), "train loss", 1),
+            trace(history.get("val_loss", []), "val loss", 1),
+            trace(history.get("train_dice", []), "train dice", 2),
+            trace(history.get("val_dice", []), "val dice", 2),
+            trace(history.get("learning_rates", []), "lr", 3)]
+    hd = [float(h) for h in history.get("val_hausdorff", [])
+          if h == h and np.isfinite(h)]
+    data.append(trace(hd, "val HD95 (mm)", 4))
+    layout = {
+        "title": {"text": "Training dashboard (interactive)"},
+        "grid": {"rows": 2, "columns": 2, "pattern": "independent"},
+        "xaxis": {"title": {"text": "epoch"}},
+        "xaxis2": {"title": {"text": "epoch"}},
+        "xaxis3": {"title": {"text": "epoch"}},
+        "xaxis4": {"title": {"text": "epoch"}},
+        "yaxis": {"title": {"text": "loss"}},
+        "yaxis2": {"title": {"text": "dice"}},
+        "yaxis3": {"title": {"text": "learning rate"},
+                   "type": "log"},
+        "yaxis4": {"title": {"text": "HD95 (mm)"}},
+    }
+    html = plotly_html({"data": data, "layout": layout},
+                       "Training dashboard")
+    if save_path:
+        os.makedirs(os.path.dirname(save_path) or ".", exist_ok=True)
+        with open(save_path, "w") as f:
+            f.write(html)
+    return html
+
+
+def create_dice_analysis(history: Dict[str, Sequence[float]],
+                         save_path: Optional[str] = None) -> str:
+    """Dice histogram / moving average / summary (reference
+    ``training.py:468-515``)."""
+    dice = list(history.get("val_dice", []))
+    fig, axes = plt.subplots(2, 2, figsize=(12, 8))
+    if dice:
+        axes[0, 0].hist(dice, bins=20, color="#3498db")
+        axes[0, 0].set_title("Val Dice distribution")
+        w = max(1, len(dice) // 10)
+        ma = np.convolve(dice, np.ones(w) / w, mode="valid")
+        axes[0, 1].plot(ma)
+        axes[0, 1].set_title(f"Moving average (w={w})")
+        axes[1, 0].plot(dice)
+        axes[1, 0].set_title("Val Dice per epoch")
+        txt = (f"best: {max(dice):.4f}\nfinal: {dice[-1]:.4f}\n"
+               f"mean: {np.mean(dice):.4f}\nepochs: {len(dice)}")
+        axes[1, 1].text(0.2, 0.4, txt, fontsize=14, family="monospace")
+    axes[1, 1].axis("off")
+    fig.tight_layout()
+    if save_path:
+        fig.savefig(save_path, dpi=150, bbox_inches="tight")
+    return _fig_to_base64(fig)
+
+
+# ---------------------------------------------------------------------------
 # volumetric visualizations (reference utils/visualization.py)
 # ---------------------------------------------------------------------------
 
 class ModernMedicalVisualizer:
-    """The pictures of one analysed upload (the reference class's
-    ``utils/visualization.py:24-461`` methods the app calls)."""
+    """The pictures of one analysed upload, the training dashboard, the
+    confusion heatmap and the HTML report (the reference class's
+    ``utils/visualization.py:24-461``)."""
 
     def create_segmentation_overlay(self, volume: np.ndarray,
                                     segmentation: np.ndarray) -> str:
@@ -147,3 +257,109 @@ class ModernMedicalVisualizer:
         axes[1, 1].set_title("Volume intensity histogram")
         fig.tight_layout()
         return _fig_to_base64(fig)
+
+    def create_training_dashboard(self, history, save_path=None) -> str:
+        return create_training_dashboard(history, save_path)
+
+    def create_performance_heatmap(self, confusion, *, class_names=None,
+                                   save_path: Optional[str] = None) -> str:
+        """Confusion-matrix heatmap(s). Accepts one matrix or a list of
+        per-class matrices rendered side-by-side with titled panels
+        (matching the reference's multi-panel seaborn layout,
+        ``utils/visualization.py:366-380``); seaborn's annotated
+        styling when available, plain matplotlib otherwise."""
+        if isinstance(confusion, (list, tuple)):
+            cms = [np.asarray(c, np.float64) for c in confusion]
+        else:
+            cms = [np.asarray(confusion, np.float64)]
+        if class_names is None:
+            class_names = [None] * len(cms)
+        fig, axes = plt.subplots(1, len(cms),
+                                 figsize=(5.5 * len(cms), 4.5))
+        if len(cms) == 1:
+            axes = [axes]
+        for ax, cm, name in zip(axes, cms, class_names):
+            try:
+                import seaborn as sns
+                sns.heatmap(cm, annot=True, fmt=".0f", cmap="Blues",
+                            cbar=True, square=True, ax=ax)
+            except ImportError:
+                im = ax.imshow(cm, cmap="Blues")
+                for i in range(cm.shape[0]):
+                    for j in range(cm.shape[1]):
+                        ax.text(j, i, f"{cm[i, j]:.0f}",
+                                ha="center", va="center")
+                ax.set_xticks(range(cm.shape[1]))
+                ax.set_yticks(range(cm.shape[0]))
+                fig.colorbar(im, ax=ax)
+            if name:
+                ax.set_title(f"{name} Confusion Matrix")
+            ax.set_xlabel("Predicted"); ax.set_ylabel("Actual")
+        fig.tight_layout()
+        if save_path:
+            fig.savefig(save_path, dpi=130, bbox_inches="tight")
+        return _fig_to_base64(fig)
+
+    def save_visualization(self, content: str, path: str) -> str:
+        """html/png dispatch (reference ``utils/visualization.py:382-395``)."""
+        if content.startswith("data:image/png;base64,"):
+            with open(path, "wb") as f:
+                f.write(base64.b64decode(content.split(",", 1)[1]))
+        else:
+            with open(path, "w") as f:
+                f.write(content)
+        return path
+
+    def generate_medical_report(self, analysis: Dict,
+                                save_path: Optional[str] = None) -> str:
+        """Self-contained HTML report (reference
+        ``utils/visualization.py:397-461``)."""
+        rows = "".join(
+            f"<tr><td>{k}</td><td>{v}</td></tr>"
+            for k, v in analysis.get("measurements", {}).items())
+        imgs = "".join(
+            f'<img src="{src}" style="max-width:100%;margin:8px 0;">'
+            for src in analysis.get("images", []))
+        html = f"""<!DOCTYPE html><html><head><meta charset="utf-8">
+<title>Medical Analysis Report</title>
+<style>body{{font-family:sans-serif;max-width:900px;margin:2em auto}}
+table{{border-collapse:collapse}}td{{border:1px solid #ccc;padding:6px}}
+h1{{color:#2c3e50}}</style></head><body>
+<h1>Brain Tumor Analysis Report</h1>
+<p><b>Classification:</b> {analysis.get('classification', 'n/a')}</p>
+<p><b>Risk level:</b> {analysis.get('risk_level', 'n/a')}</p>
+<table>{rows}</table>
+{imgs}
+<p style="color:#888">Generated by the brain tumor framework.
+Research use only — not for clinical diagnosis.</p>
+</body></html>"""
+        if save_path:
+            with open(save_path, "w") as f:
+                f.write(html)
+        return html
+
+
+def create_modern_colormap():
+    """(reference ``utils/visualization.py:464-468``)"""
+    from matplotlib.colors import ListedColormap
+    return ListedColormap(["#000000", "#e74c3c", "#f1c40f", "#3498db"])
+
+
+def plot_slice_comparison(vol_a: np.ndarray, vol_b: np.ndarray,
+                          axis: int = 0, index: Optional[int] = None,
+                          save_path: Optional[str] = None) -> str:
+    """(reference ``utils/visualization.py:470-490``)"""
+    a, b = np.asarray(vol_a), np.asarray(vol_b)
+    index = index if index is not None else a.shape[axis] // 2
+    sa = np.take(a, index, axis=axis)
+    sb = np.take(b, index, axis=axis)
+    fig, axes = plt.subplots(1, 2, figsize=(9, 4))
+    axes[0].imshow(sa.T, cmap="gray", origin="lower")
+    axes[0].set_title("A")
+    axes[1].imshow(sb.T, cmap="gray", origin="lower")
+    axes[1].set_title("B")
+    for ax in axes:
+        ax.axis("off")
+    if save_path:
+        fig.savefig(save_path, dpi=130, bbox_inches="tight")
+    return _fig_to_base64(fig)

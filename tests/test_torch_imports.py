@@ -1,6 +1,7 @@
 """The port imports no JAX: every module of the port package is
 imported in a fresh interpreter, which then must hold neither ``jax``,
-``jaxlib``, ``flax`` nor any module of the JAX package."""
+``jaxlib``, ``flax``, ``optax``, ``orbax`` nor any module of the JAX
+package; the trainer's modules are among those imported."""
 
 import subprocess
 import sys
@@ -16,8 +17,10 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "{REF}"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                    "{REF}"))
 print(len(names), bad)
+print(" ".join(names))
 sys.exit(1 if bad else 0)
 """
 
@@ -29,3 +32,21 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
     assert n_modules >= 15, proc.stdout      # every module was reached
+
+
+# the modules of the trainer's slice, each named as its JAX counterpart
+TRAINER_MODULES = ("config", "data.dataset", "data.pipeline",
+                   "data.preprocess", "train.checkpoints", "train.trainer",
+                   "train.cli", "train.menu", "serve.jobs", "serve.app",
+                   "utils.visualization")
+
+
+def test_trainer_modules_import_without_jax():
+    root = Path(__file__).resolve().parent.parent
+    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=root,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    names = set(proc.stdout.splitlines()[1].split())
+    for m in TRAINER_MODULES:
+        assert f"{PORT}.{m}" in names, m
+        assert (root / REF / (m.replace(".", "/") + ".py")).is_file(), m

@@ -200,13 +200,16 @@ def test_pages_health_and_404(port_app):
     status, _, payload = port_app.route("GET", "/health", {}, b"", {})
     h = json.loads(payload)
     assert status == 200 and h["status"] == "ok" and h["device"] == "cpu"
-    assert h["weights"] == "random_init" and "sessions" not in h
-    # the training routes wait for the port's job manager
-    for method, path in (("GET", "/nope"), ("GET", "/training_progress"),
-                         ("POST", "/start_training"),
-                         ("POST", "/stop_training")):
-        status, _, payload = port_app.route(method, path, {}, b"{}", {})
-        assert status == 404 and not json.loads(payload)["success"]
+    assert h["weights"] == "random_init" and h["sessions"] == []
+    status, _, payload = port_app.route("GET", "/nope", {}, b"{}", {})
+    assert status == 404 and not json.loads(payload)["success"]
+    # the training routes (sessions: tests/test_torch_trainer.py)
+    status, _, payload = port_app.route("GET", "/training_progress", {},
+                                        b"", {})
+    assert status == 404 and json.loads(payload)["status"] == "not_found"
+    status, _, payload = port_app.route("POST", "/stop_training", {},
+                                        b"{}", {})
+    assert status == 200 and json.loads(payload)["stopped"] is False
     # the page keeps the JAX page's fetch protocol
     page = port_app.route("GET", "/", {}, b"", {})[2]
     for needle in ("/upload", "/generate_synthetic_data", "return_mask"):
@@ -219,9 +222,11 @@ def test_entry_points_refuse_what_they_cannot_serve(tmp_path):
         # the entry points default to the card and never fall back
         with pytest.raises(RuntimeError):
             tapp.BrainTumorApp(tc, upload_dir=str(tmp_path / "u"))
+    # an explicit checkpoint that is not there is refused, never
+    # replaced by the seeded weights
     explicit = tc.replace(inference=dataclasses.replace(
         tc.inference, checkpoint=str(tmp_path / "best_model")))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(FileNotFoundError):
         tapp.BrainTumorApp(explicit, upload_dir=str(tmp_path / "u"),
                            device="cpu")
     auto = tc.replace(inference=dataclasses.replace(tc.inference,
