@@ -69,7 +69,7 @@ the CUDA toolkit. Imports no JAX. Phases, each printing its seconds:
      peak memory; the card's clocks, temperature and power before and
      after them.
 
-Phases 10-12, the trainer's slice, run after the timings, so that the
+Phases 10-13, the later slices', run after the timings, so that the
 kernels' readings are taken as in the runs before them:
 
   10. f32 — compute_dtype "float32" on the normal path (the region off):
@@ -101,6 +101,19 @@ kernels' readings are taken as in the runs before them:
      no kernel launched (the web sessions train without the region, as
      JAX's); a second session stopped by /stop_training; /health lists
      both;
+  13. f32region — the f32 forms of K1-K4, K6 and K7: each against its
+     plain version at the serving shapes (K3, K4 bit-exact; K1's six
+     forms, K2's two levels, K6's three forms and K7's nine shapes plus
+     its VJP within 1e-5 max|ref|; K1's output and statistics, K2 and K7
+     bit-identical over two runs); the server's request on a full-width
+     Predictor(compute_dtype="float32", ps2d_eval, ps2d_levels=2) with K1
+     14 / K2 4 / K3 4 / K4 2 launches, one window batch of it within
+     1e-4 max(scale, 1) of the f32 normal path (TF32 off) given K1's
+     weights rounded to bf16, the same function; five f32 train steps at
+     ps2d_train (K1 7 launches a step, losses finite), the loss and every
+     gradient against that normal path (cosine >= 0.9999); the f32
+     request and train step timed beside the normal path's, and the f32
+     forms' rows of the kernels line;
 
 It prints the per-kernel JSON line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Any failure, or a run past
@@ -122,6 +135,12 @@ BUDGET_S = 540.0          # the whole run, build included
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
 VOLUME_SHAPE = (240, 240, 155)
+# K7's entry point at benchmarks/bench_wtile.py's nine (ci, co, D, H, W)
+K7_SHAPES = [(32, 32, 240, 240, 160), (64, 32, 240, 240, 160),
+             (32, 64, 120, 120, 80), (64, 64, 120, 120, 80),
+             (128, 64, 120, 120, 80), (64, 128, 60, 60, 40),
+             (128, 128, 60, 60, 40), (256, 256, 30, 30, 20),
+             (512, 512, 15, 15, 10)]
 PKG = "segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch"
 REF = "segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu"
 
@@ -159,11 +178,22 @@ def make_volume(rng: np.random.Generator) -> np.ndarray:
     return vol
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, peak: float = PEAK_BF16_FLOPS):
     """Least time for the work: the larger of the bytes over the HBM
-    rate and the bf16 operations over the tensor-core peak."""
-    tb, tf = nbytes / PEAK_HBM_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+    rate and the operations over their peak (bf16 on the tensor cores by
+    default; ``f32_peak()`` for the f32 forms)."""
+    tb, tf = nbytes / PEAK_HBM_BYTES * 1e3, flops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def f32_peak() -> float:
+    """The card's f32 FMA peak without tensor cores: 132 SMs x 128 lanes x
+    2 FLOPs x the SM clock ``nvidia-smi`` reports as its maximum (1980
+    MHz, 66.9 TFLOP/s, on an H100 SXM)."""
+    q = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                        "--format=csv,noheader,nounits"], capture_output=True,
+                       text=True, timeout=60)
+    return 132 * 128 * 2 * float(q.stdout.split()[0]) * 1e6
 
 
 def nbytes(*ts) -> int:
@@ -359,6 +389,7 @@ def main() -> int:
     pulled = {m.split(".")[0] for m in set(sys.modules) - before}
     check(not pulled & {"jax", "jaxlib", "flax", REF},
           f"the port imported JAX or the JAX package: {sorted(pulled)}")
+    import torch.nn.functional as F
     # plain references in full f32 where they compute in f32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -389,6 +420,49 @@ def main() -> int:
 
     B, S, C = 4, 128, 32    # one sw batch of 128^3 windows, level-0 width
     S1, C1 = S // 2, 2 * C  # level 1: 64^3 interior, width 64
+    # K2's two request forms: level -> (input side, ci, co)
+    k2_levels = {"level 0": (S // 2, 2 * C, C), "level 1": (S // 4, 4 * C, C1)}
+
+    def k1_forms(dtype):
+        """K1's call forms at the serving shapes, inputs in ``dtype``:
+        name -> keyword arguments, the level-0 ones first."""
+        def mask(s, c):
+            return T.pack_halo_plain(torch.rand(
+                (B, s, s, s, c), device=dev, generator=g).to(dtype))
+
+        def r(shape, s=1.0):
+            return rnd(shape, s, dtype)
+
+        h0 = [T.pack_halo_plain(r((B, S, S, S, C))) for _ in range(2)]
+        h1 = [T.pack_halo_plain(r((B, S1, S1, S1, c)))
+              for c in (C, C1, C1)]
+        return {
+            "enc0.conv2/dec0.conv2 (1 input 32, affine+relu, stats)": dict(
+                xs=(h0[0],), w=r((3, 3, 3, C, C), (2 / (27 * C)) ** 0.5),
+                in_scale=1 + r((B, C), 0.3), in_shift=r((B, C), 0.3),
+                in_relu=True),
+            "dec0.conv1 (2 inputs 32+32, mask, stats)": dict(
+                xs=(h0[0], h0[1]),
+                w=r((3, 3, 3, 2 * C, C), (2 / (27 * C)) ** 0.5),
+                in_mul0=mask(S, C)),
+            "enc1.conv1 (1 input 32 -> 64, stats)": dict(
+                xs=(h1[0],), w=r((3, 3, 3, C, C1), (2 / (27 * C1)) ** 0.5)),
+            "enc1.conv2/dec1.conv2 (1 input 64, affine+relu, stats)": dict(
+                xs=(h1[1],), w=r((3, 3, 3, C1, C1), (2 / (27 * C1)) ** 0.5),
+                in_scale=1 + r((B, C1), 0.3), in_shift=r((B, C1), 0.3),
+                in_relu=True),
+            "dec1.conv1 (2 inputs 64+64, mask, stats)": dict(
+                xs=(h1[1], h1[2]),
+                w=r((3, 3, 3, 2 * C1, C1), (2 / (27 * C1)) ** 0.5),
+                in_mul0=mask(S1, C1)),
+            # any 32-multiple co (two channel tiles of 64): the level-1
+            # width of HighQualityConfig, features (64, 128, ...)
+            "co=128 (1 input 128 -> 128 at 64^3, affine+relu, stats)": dict(
+                xs=(T.pack_halo_plain(r((B, S1, S1, S1, 2 * C1))),),
+                w=r((3, 3, 3, 2 * C1, 2 * C1), (2 / (27 * 2 * C1)) ** 0.5),
+                in_scale=1 + r((B, 2 * C1), 0.3),
+                in_shift=r((B, 2 * C1), 0.3), in_relu=True),
+        }
 
     # ---------------------------------------------------------------- 2
     def kernels():
@@ -410,8 +484,7 @@ def main() -> int:
 
         k2 = {}
         worst = 0.0
-        for lvl, (d2, ci, co) in {"level 0": (S // 2, 2 * C, C),
-                                  "level 1": (S // 4, 4 * C, C1)}.items():
+        for lvl, (d2, ci, co) in k2_levels.items():
             x2, w2 = rnd((B, d2, d2, d2, ci)), rnd((2, 2, 2, ci, co), 0.1)
             b2 = rnd((co,), 0.1, torch.float32)
             # NaNs in the allocator's next block of the output's size, so
@@ -439,41 +512,7 @@ def main() -> int:
             k2[lvl] = (x2, w2, b2, shape)
         report["up_k2s2_into_halo"] = {"max_abs_err": worst}
 
-        def mask(s, c):
-            return T.pack_halo_plain(torch.rand(
-                (B, s, s, s, c), device=dev, generator=g).to(bf16))
-
-        h0 = [T.pack_halo_plain(rnd((B, S, S, S, C))) for _ in range(2)]
-        h1 = [T.pack_halo_plain(rnd((B, S1, S1, S1, c)))
-              for c in (C, C1, C1)]
-        # name -> call form; the level-0 ones first
-        forms = {
-            "enc0.conv2/dec0.conv2 (1 input 32, affine+relu, stats)": dict(
-                xs=(h0[0],), w=rnd((3, 3, 3, C, C), (2 / (27 * C)) ** 0.5),
-                in_scale=1 + rnd((B, C), 0.3), in_shift=rnd((B, C), 0.3),
-                in_relu=True),
-            "dec0.conv1 (2 inputs 32+32, mask, stats)": dict(
-                xs=(h0[0], h0[1]), w=rnd((3, 3, 3, 2 * C, C),
-                                         (2 / (27 * C)) ** 0.5),
-                in_mul0=mask(S, C)),
-            "enc1.conv1 (1 input 32 -> 64, stats)": dict(
-                xs=(h1[0],), w=rnd((3, 3, 3, C, C1), (2 / (27 * C1)) ** 0.5)),
-            "enc1.conv2/dec1.conv2 (1 input 64, affine+relu, stats)": dict(
-                xs=(h1[1],), w=rnd((3, 3, 3, C1, C1), (2 / (27 * C1)) ** 0.5),
-                in_scale=1 + rnd((B, C1), 0.3), in_shift=rnd((B, C1), 0.3),
-                in_relu=True),
-            "dec1.conv1 (2 inputs 64+64, mask, stats)": dict(
-                xs=(h1[1], h1[2]), w=rnd((3, 3, 3, 2 * C1, C1),
-                                         (2 / (27 * C1)) ** 0.5),
-                in_mul0=mask(S1, C1)),
-            # any 32-multiple co (two channel tiles of 64): the level-1
-            # width of HighQualityConfig, features (64, 128, ...)
-            "co=128 (1 input 128 -> 128 at 64^3, affine+relu, stats)": dict(
-                xs=(T.pack_halo_plain(rnd((B, S1, S1, S1, 2 * C1))),),
-                w=rnd((3, 3, 3, 2 * C1, 2 * C1), (2 / (27 * 2 * C1)) ** 0.5),
-                in_scale=1 + rnd((B, 2 * C1), 0.3),
-                in_shift=rnd((B, 2 * C1), 0.3), in_relu=True),
-        }
+        forms = k1_forms(bf16)
         worst = 0.0
         for name, kw in forms.items():
             y, (s1, s2) = T.conv3d_halo(emit_stats=True, **kw)
@@ -1525,14 +1564,9 @@ def main() -> int:
         """K7's path: its entry point at bench_wtile.py's nine shapes
         (batch 1, bf16, weights * 0.05 as there), and its VJP at the
         first with the JAX test's loss sum(y^2)."""
-        shapes = [(32, 32, 240, 240, 160), (64, 32, 240, 240, 160),
-                  (32, 64, 120, 120, 80), (64, 64, 120, 120, 80),
-                  (128, 64, 120, 120, 80), (64, 128, 60, 60, 40),
-                  (128, 128, 60, 60, 40), (256, 256, 30, 30, 20),
-                  (512, 512, 15, 15, 10)]
         ins = {f"{ci}->{co} @({D},{H},{W})": (rnd((1, D, H, W, ci)),
                                               rnd((3, 3, 3, ci, co), 0.05))
-               for ci, co, D, H, W in shapes}
+               for ci, co, D, H, W in K7_SHAPES}
         first = next(iter(ins))
 
         def path():
@@ -1598,74 +1632,179 @@ def main() -> int:
     k7_in = run.phase("wtile", wtile)
 
     # ---------------------------------------------------------------- 9
+    def time_forms(name, fs):
+        """CUDA-event ms of each form of kernel ``name``: (shape, kernel,
+        plain version, library call or None, (bound ms, bound by), reps,
+        [pieces timed apart, [extra keys]]) -> one row each."""
+        timed = []
+        for shape, kern, plain, lib, (bms, by), reps, *more in fs:
+            pieces, extra = (*more, {}, {})[:2]
+            ms = event_ms(kern, reps)
+            if name.startswith("up_k2s2_into_halo"):
+                extra = {"bound_share": bms / ms}
+            pms = event_ms(plain, max(reps // 2, 3))
+            lms = event_ms(lib, reps) if lib else None
+            ms2 = event_ms(kern, reps)   # kernel again: spread in a call
+            row = {"shape": shape, "ms": ms, "ms_again": ms2,
+                   "plain_ms": pms, "library_ms": lms,
+                   "bound_ms": bms, "bound_by": by, **extra}
+            for piece, fn in pieces.items():
+                row[f"{piece}_ms"] = event_ms(fn, reps)
+            print(f"{name} {shape}: kernel {ms:.4f} / {ms2:.4f} ms, "
+                  f"plain {pms:.4f} ms, library "
+                  + ("none" if lms is None else f"{lms:.4f} ms")
+                  + f", bound {bms:.4f} ms ({by})" + "".join(
+                      f", {k} {row[k]:.4f}" for k in
+                      [*extra, *(f"{p}_ms" for p in pieces)]))
+            timed.append(row)
+        return timed
+
+    def total_sampled(fwd, label="conv3d_same"):
+        """K7's forwards at the nine benchmark shapes, summed."""
+        tk, tl = (sum(r[k] for r in fwd) for k in ("ms", "library_ms"))
+        print(f"TOTAL sampled: F.conv3d {tl:.3f} ms  {label} "
+              f"{tk:.3f} ms  ({tl / tk:.2f}x)")
+
+    def kernel_entry(name, src, line, timed, main=0):
+        """The kernels line's entry of kernel ``name`` (its launches are
+        filled in at the end), its main form's numbers on top."""
+        m = timed[main]
+        return {
+            "name": name, "route": "cuda",
+            "source": f"{PKG}/csrc/{src}",
+            "replaces": f"{REF}/ops/pallas/{line}",
+            "launches": None, "launches_by_path": None,   # below
+            "max_abs_err": report[name]["max_abs_err"],
+            "ms": m["ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "library_ms": m["library_ms"], "shape": m["shape"],
+            "forms": timed}
+
+    # the timing rows of each kernel form: (shape, kernel, plain version,
+    # library call, (bound ms, bound by), reps[, pieces timed apart]); the
+    # bound's operations at ``peak`` (bf16 tensor cores by default)
+    def conv_row(name, kw, reps, peak=PEAK_BF16_FLOPS):
+        """K1 at one call form."""
+        xs, w = kw["xs"], kw["w"]
+        y = T.conv3d_halo(emit_stats=True, **kw)[0]
+        xcat = torch.cat([T.halo_to_normal(t) for t in xs], -1).permute(
+            0, 4, 1, 2, 3)
+        wn = w.permute(4, 3, 0, 1, 2).contiguous()
+        n = xs[0].shape[0] * T.interior_count(xs[0])
+        flops = 2.0 * 27 * w.shape[3] * w.shape[4] * n
+        return (name, lambda: T.conv3d_halo(emit_stats=True, **kw),
+                lambda: T.conv3d_halo_plain(emit_stats=True, **kw),
+                lambda: F.conv3d(xcat, wn, padding=1),
+                bound_ms(nbytes(*xs, w, kw.get("in_mul0"),
+                                kw.get("in_scale"), kw.get("in_shift"), y),
+                         flops, peak), reps)
+
+    def up_row(label, x2, w2, b2, reps, peak=PEAK_BF16_FLOPS):
+        """K2 at one level."""
+        y2 = T.up_k2s2_into_halo_plain(x2, w2, b2)
+        x2n = x2.permute(0, 4, 1, 2, 3)          # channels-last NCDHW
+        w2n = w2.flip(0, 1, 2).permute(3, 4, 0, 1, 2).contiguous()
+        return (label, lambda: T.up_k2s2_into_halo(x2, w2, b2),
+                lambda: T.up_k2s2_into_halo_plain(x2, w2, b2),
+                lambda: F.conv_transpose3d(x2n, w2n, b2.to(x2.dtype),
+                                           stride=2),
+                bound_ms(nbytes(x2, w2, b2, y2),
+                         2.0 * x2.numel() * 8 * w2.shape[-1], peak), reps)
+
+    def pack_row(x3, reps):
+        """K3 at the level-0 window batch."""
+        y3 = T.pack_halo_plain(x3)
+        return ("(4,128^3,32) -> (4,130^3,32)", lambda: T.pack_halo(x3),
+                lambda: T.pack_halo_plain(x3),
+                lambda: F.pad(x3, (0, 0, 1, 1, 1, 1, 1, 1)),
+                bound_ms(nbytes(x3, y3), 0.0), reps)
+
+    def pool_row(x4, reps):
+        """K4 from the level-0 skip; the function reads the interior."""
+        y4 = T.pool_into_halo_plain(x4)
+        x4n = T.halo_to_normal(x4).permute(0, 4, 1, 2, 3)
+        return ("(4,130^3,32) -> (4,66^3,32)", lambda: T.pool_into_halo(x4),
+                lambda: T.pool_into_halo_plain(x4),
+                lambda: F.pad(F.max_pool3d(x4n, 2), (1, 1, 1, 1, 1, 1)),
+                bound_ms(nbytes(x4n, y4), 0.0), reps)
+
+    def train_row(name, xs, w, dy, reps, peak=PEAK_BF16_FLOPS):
+        """K6 at one call form: forward + both gradients (the function),
+        and the three pieces apart."""
+        cis = [x.shape[-1] for x in xs]
+        xr = [x.clone().requires_grad_() for x in xs]
+        wr = w.clone().requires_grad_()
+
+        def fwd_bwd(fn):
+            return lambda: torch.autograd.grad(fn(xr, wr), [wr, *xr], dy)
+
+        xn = torch.cat([T.halo_to_normal(x) for x in xs], -1).permute(
+            0, 4, 1, 2, 3)
+        wn = w.permute(4, 3, 0, 1, 2).contiguous()
+        dyn = T.halo_to_normal(dy).permute(0, 4, 1, 2, 3)
+
+        def library():
+            F.conv3d(xn, wn, padding=1)
+            torch.ops.aten.convolution_backward(
+                dyn, xn, wn, None, [1, 1, 1], [1, 1, 1], [1, 1, 1],
+                False, [0, 0, 0], 1, [True, True, False])
+
+        n = xs[0].shape[0] * T.interior_count(xs[0])
+        flops = 3 * 2.0 * 27 * sum(cis) * w.shape[-1] * n
+        # reads xs, w, dy; writes y, the dxs (as large as the xs), dw
+        nb = 2 * nbytes(*xs, w) + 2 * nbytes(dy)
+        pieces = {
+            "forward": lambda: T.conv3d_halo(xs, w),
+            "data_grad": lambda: [T.conv3d_halo_dgrad(dy, w, i, cis)
+                                  for i in range(len(xs))],
+            "weight_grad": lambda: T.conv3d_halo_wgrad(xs, dy),
+        }
+        return (name, fwd_bwd(T.conv3d_halo_train),
+                fwd_bwd(T.conv3d_halo_train_plain), library,
+                bound_ms(nb, flops, peak), reps, pieces)
+
+    def wtile_row(name, x, w, reps, peak=PEAK_BF16_FLOPS):
+        """K7 forward at one benchmark shape."""
+        xn = x.permute(0, 4, 1, 2, 3)             # channels-last NCDHW
+        wn = w.permute(4, 3, 0, 1, 2).contiguous()
+        ci, co = w.shape[3], w.shape[4]
+        vox = x.numel() // ci
+        return (name, lambda: K7.conv3d_same(x, w),
+                lambda: K7.wtile_conv3d_plain(x, w),
+                lambda: F.conv3d(xn, wn, padding=1),
+                bound_ms(nbytes(x, w) + x.element_size() * vox * co,   # + y
+                         2.0 * 27 * ci * co * vox, peak), reps)
+
+    def wtile_vjp_row(name, x, w, dy, reps, peak=PEAK_BF16_FLOPS):
+        """K7's op: forward + both gradients for a cotangent dy, and the
+        three pieces apart."""
+        xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+        xn, dyn = x.permute(0, 4, 1, 2, 3), dy.permute(0, 4, 1, 2, 3)
+        wn = w.permute(4, 3, 0, 1, 2).contiguous()
+
+        def fwd_bwd(fn):
+            return lambda: torch.autograd.grad(fn(xr, wr), [xr, wr], dy)
+
+        def library():
+            F.conv3d(xn, wn, padding=1)
+            torch.ops.aten.convolution_backward(
+                dyn, xn, wn, None, [1, 1, 1], [1, 1, 1], [1, 1, 1],
+                False, [0, 0, 0], 1, [True, True, False])
+
+        flops = 3 * 2.0 * 27 * w.shape[3] * dy.numel()
+        # reads x, w, dy; writes y, dx, dw
+        nb = 2 * nbytes(x, w) + 2 * nbytes(dy)
+        pieces = {
+            "forward": lambda: K7.conv3d_same(x, w),
+            "data_grad": lambda: K7.conv3d_same_dgrad(dy, w),
+            "weight_grad": lambda: K7.conv3d_same_wgrad(x, dy, w.dtype),
+        }
+        return (f"VJP {name}: forward + data grad + weight grad",
+                fwd_bwd(K7.wtile_conv3d), fwd_bwd(K7.wtile_conv3d_plain),
+                library, bound_ms(nb, flops, peak), reps, pieces)
+
     def timings():
-        import torch.nn.functional as F
         print(f"card before the timings: {card_state()}")
-
-        def conv_row(name):
-            kw = forms[name]
-            xs, w = kw["xs"], kw["w"]
-            y = T.conv3d_halo(emit_stats=True, **kw)[0]
-            xcat = torch.cat([T.halo_to_normal(t) for t in xs], -1).permute(
-                0, 4, 1, 2, 3)
-            wn = w.permute(4, 3, 0, 1, 2).contiguous()
-            n = xs[0].shape[0] * T.interior_count(xs[0])
-            flops = 2.0 * 27 * w.shape[3] * w.shape[4] * n
-            return (name, lambda: T.conv3d_halo(emit_stats=True, **kw),
-                    lambda: T.conv3d_halo_plain(emit_stats=True, **kw),
-                    lambda: F.conv3d(xcat, wn, padding=1),
-                    bound_ms(nbytes(*xs, w, kw.get("in_mul0"),
-                                    kw.get("in_scale"), kw.get("in_shift"),
-                                    y), flops), 10)
-
-        def up_row(lvl):
-            x2, w2, b2, shape = k2_in[lvl]
-            y2 = T.up_k2s2_into_halo_plain(x2, w2, b2)
-            x2n = x2.permute(0, 4, 1, 2, 3)          # channels-last NCDHW
-            w2n = w2.flip(0, 1, 2).permute(3, 4, 0, 1, 2).contiguous()
-            return (f"{lvl} {shape}",
-                    lambda: T.up_k2s2_into_halo(x2, w2, b2),
-                    lambda: T.up_k2s2_into_halo_plain(x2, w2, b2),
-                    lambda: F.conv_transpose3d(x2n, w2n, b2.to(bf16),
-                                               stride=2),
-                    bound_ms(nbytes(x2, w2, b2, y2),
-                             2.0 * x2.numel() * 8 * w2.shape[-1]), 20)
-
-        def train_row(name):
-            """K6 at one call form: forward + both gradients (the
-            function), and the three pieces apart."""
-            xs, w, dy = forms6[name]
-            cis = [x.shape[-1] for x in xs]
-            xr = [x.clone().requires_grad_() for x in xs]
-            wr = w.clone().requires_grad_()
-
-            def fwd_bwd(fn):
-                return lambda: torch.autograd.grad(fn(xr, wr), [wr, *xr], dy)
-
-            xn = torch.cat([T.halo_to_normal(x) for x in xs], -1).permute(
-                0, 4, 1, 2, 3)
-            wn = w.permute(4, 3, 0, 1, 2).contiguous()
-            dyn = T.halo_to_normal(dy).permute(0, 4, 1, 2, 3)
-
-            def library():
-                F.conv3d(xn, wn, padding=1)
-                torch.ops.aten.convolution_backward(
-                    dyn, xn, wn, None, [1, 1, 1], [1, 1, 1], [1, 1, 1],
-                    False, [0, 0, 0], 1, [True, True, False])
-
-            n = xs[0].shape[0] * T.interior_count(xs[0])
-            flops = 3 * 2.0 * 27 * sum(cis) * w.shape[-1] * n
-            # reads xs, w, dy; writes y, the dxs (as large as the xs), dw
-            nb = 2 * nbytes(*xs, w) + 2 * nbytes(dy)
-            pieces = {
-                "forward": lambda: T.conv3d_halo(xs, w),
-                "data_grad": lambda: [T.conv3d_halo_dgrad(dy, w, i, cis)
-                                      for i in range(len(xs))],
-                "weight_grad": lambda: T.conv3d_halo_wgrad(xs, dy),
-            }
-            return (name, fwd_bwd(T.conv3d_halo_train),
-                    fwd_bwd(T.conv3d_halo_train_plain), library,
-                    bound_ms(nb, flops), 5, pieces)
 
         def gn_row(name):
             """K5 at one form. The library's F.group_norm computes the
@@ -1691,127 +1830,422 @@ def main() -> int:
                     {"group_norm_alone": gn_alone} if fused else {},
                     {"two_pass_floor_ms": bound_ms(nb + nbytes(x), 0.0)[0]})
 
-        def wtile_row(name):
-            """K7 forward at one benchmark shape."""
-            x, w = k7_in[name]
-            xn = x.permute(0, 4, 1, 2, 3)             # channels-last NCDHW
-            wn = w.permute(4, 3, 0, 1, 2).contiguous()
-            ci, co = w.shape[3], w.shape[4]
-            vox = x.numel() // ci
-            reps = 5 if x.numel() > 2e8 else 20
-            return (name, lambda: K7.conv3d_same(x, w),
-                    lambda: K7.wtile_conv3d_plain(x, w),
-                    lambda: F.conv3d(xn, wn, padding=1),
-                    bound_ms(nbytes(x, w) + 2 * vox * co,      # y in bf16
-                             2.0 * 27 * ci * co * vox), reps)
-
-        def wtile_vjp_row(name):
-            """K7's op at the first shape: forward + both gradients for a
-            cotangent dy, and the three pieces apart."""
-            x, w = k7_in[name]
-            xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
-            dy = rnd(x.shape[:-1] + (w.shape[-1],))
-            xn, dyn = x.permute(0, 4, 1, 2, 3), dy.permute(0, 4, 1, 2, 3)
-            wn = w.permute(4, 3, 0, 1, 2).contiguous()
-
-            def fwd_bwd(fn):
-                return lambda: torch.autograd.grad(fn(xr, wr), [xr, wr], dy)
-
-            def library():
-                F.conv3d(xn, wn, padding=1)
-                torch.ops.aten.convolution_backward(
-                    dyn, xn, wn, None, [1, 1, 1], [1, 1, 1], [1, 1, 1],
-                    False, [0, 0, 0], 1, [True, True, False])
-
-            flops = 3 * 2.0 * 27 * w.shape[3] * dy.numel()
-            # reads x, w, dy; writes y, dx, dw
-            nb = 2 * nbytes(x, w) + 2 * nbytes(dy)
-            pieces = {
-                "forward": lambda: K7.conv3d_same(x, w),
-                "data_grad": lambda: K7.conv3d_same_dgrad(dy, w),
-                "weight_grad": lambda: K7.conv3d_same_wgrad(x, dy, w.dtype),
-            }
-            return (f"VJP {name}: forward + data grad + weight grad",
-                    fwd_bwd(K7.wtile_conv3d), fwd_bwd(K7.wtile_conv3d_plain),
-                    library, bound_ms(nb, flops), 3, pieces)
-
-        (x3,) = k3_in
-        y3 = T.pack_halo_plain(x3)
-        x4 = k4_in
-        y4 = T.pool_into_halo_plain(x4)
-        x4n = T.halo_to_normal(x4).permute(0, 4, 1, 2, 3)   # interior
+        first = next(iter(k7_in))
         # name, source, TPU kernel, [forms: the main path's first]
         rows = [
             ("conv3d_halo", "ps2d_conv3d.cu", "ps2d.py:667",
-             [conv_row(n) for n in forms]),
+             [conv_row(n, kw, 10) for n, kw in forms.items()]),
             ("up_k2s2_into_halo", "up_k2s2_into_halo.cu", "ps2d.py:228",
-             [up_row("level 0"), up_row("level 1")]),
+             [up_row(f"{lvl} {shape}", x2, w2, b2, 20)
+              for lvl, (x2, w2, b2, shape) in k2_in.items()]),
             ("pack_halo", "pack_halo.cu", "ps2d.py:167",
-             [("(4,128^3,32) -> (4,130^3,32)", lambda: T.pack_halo(x3),
-               lambda: T.pack_halo_plain(x3),
-               lambda: F.pad(x3, (0, 0, 1, 1, 1, 1, 1, 1)),
-               bound_ms(nbytes(x3, y3), 0.0), 20)]),
+             [pack_row(k3_in[0], 20)]),
             ("pool_into_halo", "pool_into_halo.cu", "ps2d.py:316",
-             [("(4,130^3,32) -> (4,66^3,32)", lambda: T.pool_into_halo(x4),
-               lambda: T.pool_into_halo_plain(x4),
-               lambda: F.pad(F.max_pool3d(x4n, 2), (1, 1, 1, 1, 1, 1)),
-               # the function reads the interior only
-               bound_ms(nbytes(x4n, y4), 0.0), 20)]),
+             [pool_row(k4_in, 20)]),
             # K6: forward, data gradients (K1) and weight gradient
             # (library), against autograd through the plain version
             ("conv3d_halo_train", "ps2d_conv3d.cu", "ps2d.py:840",
-             [train_row(n) for n in forms6]),
+             [train_row(n, *v, 5) for n, v in forms6.items()]),
             ("fused_group_norm", "group_norm.cu", "groupnorm.py:68",
              [gn_row(n) for n in gforms]),
             # K7: the nine benchmark shapes, then the VJP at the first
             ("conv3d_same", "conv3d_same.cu", "conv3d.py:338",
-             [wtile_row(n) for n in k7_in]
-             + [wtile_vjp_row(next(iter(k7_in)))]),
+             [wtile_row(n, x, w, 5 if x.numel() > 2e8 else 20)
+              for n, (x, w) in k7_in.items()]
+             + [wtile_vjp_row(first, *k7_in[first],
+                              rnd(k7_in[first][0].shape[:-1]
+                                  + (k7_in[first][1].shape[-1],)), 3)]),
         ]
         # the main form of each kernel: dec0.conv1 for K1
         main_form = {"conv3d_halo": 1}
         out = []
         for name, src, line, fs in rows:
-            timed = []
-            for shape, kern, plain, lib, (bms, by), reps, *more in fs:
-                pieces, extra = (*more, {}, {})[:2]
-                ms = event_ms(kern, reps)
-                if name == "up_k2s2_into_halo":
-                    extra = {"bound_share": bms / ms}
-                pms = event_ms(plain, max(reps // 2, 3))
-                lms = event_ms(lib, reps) if lib else None
-                ms2 = event_ms(kern, reps)   # kernel again: spread in a call
-                row = {"shape": shape, "ms": ms, "ms_again": ms2,
-                       "plain_ms": pms, "library_ms": lms,
-                       "bound_ms": bms, "bound_by": by, **extra}
-                for piece, fn in pieces.items():
-                    row[f"{piece}_ms"] = event_ms(fn, reps)
-                print(f"{name} {shape}: kernel {ms:.4f} / {ms2:.4f} ms, "
-                      f"plain {pms:.4f} ms, library "
-                      + ("none" if lms is None else f"{lms:.4f} ms")
-                      + f", bound {bms:.4f} ms ({by})" + "".join(
-                          f", {k} {row[k]:.4f}" for k in
-                          [*extra, *(f"{p}_ms" for p in pieces)]))
-                timed.append(row)
+            timed = time_forms(name, fs)
             if name == "conv3d_same":
-                fwd = timed[:len(k7_in)]
-                tk, tl = (sum(r[k] for r in fwd) for k in ("ms", "library_ms"))
-                print(f"TOTAL sampled: F.conv3d {tl:.3f} ms  conv3d_same "
-                      f"{tk:.3f} ms  ({tl / tk:.2f}x)")
-            m = timed[main_form.get(name, 0)]
-            out.append({
-                "name": name, "route": "cuda",
-                "source": f"{PKG}/csrc/{src}",
-                "replaces": f"{REF}/ops/pallas/{line}",
-                "launches": None, "launches_by_path": None,   # below
-                "max_abs_err": report[name]["max_abs_err"],
-                "ms": m["ms"], "plain_ms": m["plain_ms"],
-                "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
-                "library_ms": m["library_ms"], "shape": m["shape"],
-                "forms": timed})
+                total_sampled(timed[:len(k7_in)])
+            out.append(kernel_entry(name, src, line, timed,
+                                    main_form.get(name, 0)))
         return out
     kernels_json = run.phase("timings", timings)
     print(f"card after the timings: {card_state()}")
+
+    # ---------------------------------------------------------------- 13
+    def f32region():
+        """The f32 forms of K1-K4, K6 and K7: each against its plain
+        version at the serving shapes (K3, K4 bit-exact; the convs within
+        1e-5 max|ref|; two runs bit-identical); the full-width f32
+        request and five f32 train steps on them, held to the f32 normal
+        path given K1's weights rounded to bf16 (the same function);
+        then the forms' timings, the f32 request and train step beside
+        the f32 normal path's. Returns the kernels line's f32 entries."""
+        f32 = torch.float32
+        peak = f32_peak()
+        print(f"f32 peak (132 SMs x 128 lanes x 2 x the max SM clock): "
+              f"{peak / 1e12:.2f} TFLOP/s")
+
+        def rnd32(shape, s=1.0):
+            return torch.randn(shape, device=dev, generator=g) * s
+
+        def hold(label, got, ref, exact=False):
+            """got against ref: f32, finite, within 1e-5 max|ref| (or
+            equal); returns the max abs error."""
+            check(got.dtype == f32 and got.shape == ref.shape
+                  and bool(torch.isfinite(got).all()), f"{label}: bad output")
+            e = (got - ref).abs().max().item()
+            tol = 0.0 if exact else 1e-5 * ref.abs().max().item()
+            check(e <= tol, f"{label}: max_abs_err {e} > tolerance {tol}")
+            return e, tol
+
+        def halo_zero(y):
+            return (y * (1 - T.halo_mask(y))).abs().max().item() == 0
+
+        # ---- each f32 form against its plain version
+        x3 = rnd32((B, S, S, S, C))
+        e3, _ = hold("pack_halo f32", T.pack_halo(x3), T.pack_halo_plain(x3),
+                     exact=True)
+        x4 = T.pack_halo_plain(x3)
+        e4, _ = hold("pool_into_halo f32", T.pool_into_halo(x4),
+                     T.pool_into_halo_plain(x4), exact=True)
+        print(f"pack_halo f32 (4,128^3,32): max_abs_err {e3}; pool_into_halo "
+              f"f32 (4,130^3,32)->(4,66^3,32): max_abs_err {e4} (tolerance 0)")
+        report["pack_halo_f32"] = {"max_abs_err": e3}
+        report["pool_into_halo_f32"] = {"max_abs_err": e4}
+
+        k2, worst = {}, 0.0
+        for lvl, (d2, ci, co) in k2_levels.items():
+            x2, w2 = rnd32((B, d2, d2, d2, ci)), rnd32((2, 2, 2, ci, co), 0.1)
+            b2 = rnd32((co,), 0.1)
+            torch.full((B, *(2 * d2 + 2,) * 3, co), float("nan"), device=dev)
+            got = T.up_k2s2_into_halo(x2, w2, b2)
+            same = torch.equal(got, T.up_k2s2_into_halo(x2, w2, b2))
+            e, tol = hold(f"up_k2s2_into_halo f32 {lvl}", got,
+                          T.up_k2s2_into_halo_plain(x2, w2, b2))
+            shape = f"(4,{d2}^3,{ci})->(4,{2 * d2 + 2}^3,{co})"
+            print(f"up_k2s2_into_halo f32 {lvl} {shape}: max_abs_err {e} "
+                  f"(tolerance {tol}); halo exactly zero: {halo_zero(got)}; "
+                  f"two runs bit-identical: {same}")
+            check(halo_zero(got) and same, f"up_k2s2_into_halo f32 {lvl}")
+            k2[lvl], worst = (x2, w2, b2, shape), max(worst, e)
+            del got
+        report["up_k2s2_into_halo_f32"] = {"max_abs_err": worst}
+
+        forms32 = k1_forms(f32)
+        worst = 0.0
+        for name, kw in forms32.items():
+            y, (s1, s2) = T.conv3d_halo(emit_stats=True, **kw)
+            y2, (t1, t2) = T.conv3d_halo(emit_stats=True, **kw)
+            yr, (r1, r2) = T.conv3d_halo_plain(emit_stats=True, **kw)
+            e, tol = hold(f"conv3d_halo f32 {name}", y, yr)
+            for s, r in ((s1, r1), (s2, r2)):
+                hold(f"conv3d_halo f32 {name} stats", s, r)
+            same = (torch.equal(y, y2) and torch.equal(s1, t1)
+                    and torch.equal(s2, t2))
+            xs = kw["xs"]
+            geo = T.conv3d_halo_plan(
+                B, *(n - 2 for n in xs[0].shape[1:4]), xs[0].shape[-1],
+                sum(x.shape[-1] for x in xs[1:]), kw["w"].shape[-1], f32)
+            print(f"conv3d_halo f32 {name}: max_abs_err {e} (tolerance "
+                  f"{tol} = 1e-5 max|ref|); stats within 1e-5; two runs "
+                  f"bit-identical (y, stats): {same}; halo zero: "
+                  f"{halo_zero(y)}; launch {geo}")
+            check(same and halo_zero(y), f"conv3d_halo f32 {name}")
+            worst = max(worst, e)
+            del y, y2, yr
+        for i, line in enumerate(built.log.splitlines()):
+            if "entry function" in line and "_f32" in line:
+                info = [x.strip().removeprefix("ptxas info    : ")
+                        for x in built.log.splitlines()[i + 1:i + 4]
+                        if "Used" in x or "spill" in x]
+                print(f"  {line.split(chr(39))[1]}: {'; '.join(info)}")
+        report["conv3d_halo_f32"] = {"max_abs_err": worst}
+
+        TB = 2
+        k6, worst = {}, 0.0
+        for name, cis in {"enc0.conv2 (2,130^3,32)->32": (C,),
+                          "dec0.conv1 2x(2,130^3,32)->32": (C, C),
+                          "dec0.conv2 (2,130^3,32)->32": (C,)}.items():
+            xs = tuple(T.pack_halo_plain(rnd32((TB, S, S, S, c))) for c in cis)
+            w = rnd32((3, 3, 3, sum(cis), C), (2 / (27 * C)) ** 0.5)
+            dy = T.pack_halo_plain(rnd32((TB, S, S, S, C)))
+            dy = dy + 100 * rnd32(dy.shape) * (1 - T.halo_mask(dy))
+
+            def run_k6(fn):
+                xr = [x.clone().requires_grad_() for x in xs]
+                wr = w.clone().requires_grad_()
+                y = fn(xr, wr)
+                gr = torch.autograd.grad(y, [wr, *xr], dy)
+                return [y.detach(), *gr]
+
+            errs = []
+            got, ref = run_k6(T.conv3d_halo_train), run_k6(
+                T.conv3d_halo_train_plain)
+            for label, a, b in zip(["y", "dw"] + [f"dx{i}" for i in
+                                                  range(len(xs))], got, ref):
+                e, tol = hold(f"K6 f32 {name} {label}", a, b)
+                errs.append(f"{label} {e:.3e} (tolerance {tol:.3e})")
+                worst = max(worst, e)
+            check(all(halo_zero(dx) for dx in got[2:]), "K6 f32 dx halo")
+            print(f"conv3d_halo_train f32 {name}: max_abs_err "
+                  + ", ".join(errs))
+            k6[name] = (xs, w, dy)
+        report["conv3d_halo_train_f32"] = {"max_abs_err": worst}
+
+        k7 = {f"{ci}->{co} @({D},{H},{W})": (rnd32((1, D, H, W, ci)),
+                                             rnd32((3, 3, 3, ci, co), 0.05))
+              for ci, co, D, H, W in K7_SHAPES}
+        first = next(iter(k7))
+
+        def wtile_path():
+            ys = {k: K7.wtile_conv3d(x, w) for k, (x, w) in k7.items()}
+            x, w = (t.clone().requires_grad_() for t in k7[first])
+            loss = (K7.wtile_conv3d(x, w) ** 2).sum()
+            return ys, torch.autograd.grad(loss, [x, w])
+
+        (ys, grads), wcounts = request_counts(wtile_path)
+        check(wcounts == launches_of(conv3d_same=len(k7) + 2),
+              f"f32 wtile path launches {wcounts}")
+        worst = 0.0
+        for k, (x, w) in k7.items():
+            check(torch.equal(ys[k], K7.conv3d_same(x, w)),
+                  f"conv3d_same f32 {k}: two runs differ")
+            e, tol = hold(f"conv3d_same f32 {k}", ys[k],
+                          K7.wtile_conv3d_plain(x, w))
+            print(f"conv3d_same f32 {k}: max_abs_err {e} (tolerance {tol});"
+                  f" two runs bit-identical; launch "
+                  f"{K7.conv3d_same_plan(*x.shape[:4], *w.shape[3:], f32)}")
+            worst = max(worst, e)
+        del ys
+        x, w = (t.clone().requires_grad_() for t in k7[first])
+        refs = torch.autograd.grad((K7.wtile_conv3d_plain(x, w) ** 2).sum(),
+                                   [x, w])
+        errs = [f"{lb} {hold(f'wtile_conv3d f32 VJP {lb}', a, b)[0]:.3e}"
+                for lb, a, b in zip(("dx", "dw"), grads, refs)]
+        print(f"wtile_conv3d f32 VJP {first}, loss sum(y^2): max_abs_err "
+              + ", ".join(errs) + f"; wtile path launches {wcounts}")
+        del grads, refs, x, w
+        report["conv3d_same_f32"] = {"max_abs_err": worst}
+
+        # ---- the full-width f32 request on the region's f32 forms
+        conf = cfg.Config(model=cfg.ModelConfig(
+            compute_dtype="float32", ps2d_eval=True, ps2d_levels=2))
+        pred = Predictor(conf, seed=0)
+        check(pred.seg_model.compute_dtype == f32
+              and pred.seg_model.halo_levels((S, S, S)) == 2,
+              "not the f32 level-2 region")
+        joint = models.UNet3DWithClassifier(seed=0)
+        tree = models.to_flax_variables(joint.state_dict())
+        del joint
+        pred.load_joint_grade(tree["params"], tree["batch_stats"])
+        # the f32 normal path, given K1's weights rounded to bf16
+        sd = pred.seg_model.state_dict()
+        for k in pred.seg_model.k1_kernel_names(2):
+            sd[k] = sd[k].to(torch.bfloat16).float()
+        normal = Predictor(cfg.Config(model=cfg.ModelConfig(
+            compute_dtype="float32")), seed=0)
+        normal.seg_model.load_state_dict(sd)
+        normal.joint_model = pred.joint_model
+
+        def request(p, vol):
+            lab, cf = p.segment_with_confidence(vol, mode="cropped")
+            return lab, cf, p.classify_tumor(vol, lab), p.classify_grade(vol)
+
+        want = launches_of(conv3d_halo=14, up_k2s2_into_halo=4, pack_halo=4,
+                           pool_into_halo=2)
+        secs = {"region": [], "normal": []}
+        for s, vol in enumerate(vols[:2]):
+            t = time.perf_counter()
+            (lab, cf, name, grade), counts = request_counts(
+                lambda: request(pred, vol))
+            secs["region"].append(time.perf_counter() - t)
+            inside, bucket, offs = check_labels(lab, vol, conf, "(f32 region)")
+            check(not lab[~inside].any() and np.isfinite(cf).all()
+                  and grade is not None, "bad f32 region request")
+            print(f"f32 region request, volume seed {s}: bucket {bucket}; "
+                  f"classify {name}; grade {grade}; "
+                  f"{secs['region'][-1]:.3f} s; launches {counts}")
+            check(counts == want, f"launches {counts} != {want}")
+        fcounts = counts
+        for side in ("normal", "region", "region", "normal"):
+            p = pred if side == "region" else normal
+            t = time.perf_counter()
+            (_, _, _, _), counts = request_counts(lambda: request(p, vols[0]))
+            secs[side].append(time.perf_counter() - t)
+            check(counts == (want if side == "region" else launches_of()),
+                  f"{side} request launches {counts}")
+        print(f"f32 requests (volume seed 0; region first two volumes, then "
+              f"alternated): region {[round(v, 4) for v in secs['region']]} "
+              f"s, normal path {[round(v, 4) for v in secs['normal']]} s")
+
+        # one window batch (4 x 128^3): the region against the normal path
+        offs, bucket = cropping.plan_crop(
+            vols[0], multiple=16, min_size=S,
+            ladder=conf.inference.crop_bucket_ladder)
+        crop = torch.from_numpy(cropping.extract_crop(pred._canon(vols[0]),
+                                                      offs, bucket)).to(dev)
+        starts = [sw.compute_patch_starts(d, S, 0.5) for d in bucket]
+        wins = [(a, b, c) for a in starts[0] for b in starts[1]
+                for c in starts[2]][:4]
+        x = torch.stack([crop[a:a + S, b:b + S, c:c + S] for a, b, c in wins])
+        out, ref = pred.seg_model(x), normal.seg_model(x)
+        scale = max(ref.abs().max().item(), 1.0)
+        d = (out - ref).abs().max().item()
+        unrounded = models.UNet3D(seed=0, compute_dtype="float32")
+        unrounded.load_state_dict(pred.seg_model.state_dict())
+        unrounded.eval()
+        du = (out - unrounded(x)).abs().max().item()
+        del unrounded, crop
+        print(f"f32 region window batch {tuple(x.shape)} vs the f32 normal "
+              f"path with K1's weights rounded to bf16 (TF32 off): max "
+              f"|d logit| {d:.3e} (bound {1e-4 * scale:.3e} = 1e-4 max(scale,"
+              f" 1)); against unrounded weights {du:.3e}")
+        check(bool(torch.isfinite(out).all()) and d <= 1e-4 * scale,
+              "f32 region logits drift from the normal path")
+        del pred, normal, out, ref, x
+
+        # ---- five f32 train steps on K6 (K1's f32 form)
+        tconf = cfg.Config()
+        mc = tconf.model
+        gen = torch.Generator(device=dev).manual_seed(1)
+        image = torch.randn((TB, S, S, S, 4), device=dev, generator=gen)
+        mask = (torch.rand((TB, S, S, S), device=dev, generator=gen)
+                < 0.2).long() * 2
+        batch = {"image": image, "mask": mask}
+
+        def new32(ps2d=True, rate=mc.dropout_rate):
+            return models.UNet3D(features=mc.features, ps2d_train=ps2d,
+                                 remat=mc.remat, dropout_rate=rate, seed=0,
+                                 compute_dtype="float32")
+
+        step = train_mod.make_train_step(tconf)
+        state = train_mod.create_train_state(new32(), tconf,
+                                             steps_per_epoch=10)
+        tw = launches_of(conv3d_halo=7)
+        losses, step_ms, ttotal = [], [], dict.fromkeys(tw, 0)
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(5):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+            def one():
+                ev[0].record()
+                o = step(state, batch, gen)
+                ev[1].record()
+                return o
+
+            (_, m), counts = request_counts(one)
+            step_ms.append(ev[0].elapsed_time(ev[1]))
+            losses.append(float(m["loss"]))
+            print(f"f32 train step {i}: loss {losses[-1]:.5f}; "
+                  f"{step_ms[-1]:.1f} ms; launches {counts}")
+            check(counts == tw, f"launches {counts} != {tw}")
+            ttotal = {k: ttotal[k] + counts[k] for k in ttotal}
+        peak_b = torch.cuda.max_memory_allocated()
+        check(all(np.isfinite(losses)), f"non-finite f32 loss {losses}")
+        # the same steps on the f32 normal path, alternated with the region
+        states = {"region": state, "normal": train_mod.create_train_state(
+            new32(ps2d=False), tconf, steps_per_epoch=10)}
+        step(states["normal"], batch, gen)           # first call, untimed
+        tsecs = {"region": [], "normal": []}
+        for side in ("normal", "region", "region", "normal"):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            step(states[side], batch, gen)
+            e1.record()
+            torch.cuda.synchronize()
+            tsecs[side].append(e0.elapsed_time(e1))
+        del states, state
+        print(f"f32 train steps (CUDA events): region "
+              f"{[round(v, 2) for v in step_ms]} then "
+              f"{[round(v, 2) for v in tsecs['region']]} ms, normal path "
+              f"{[round(v, 2) for v in tsecs['normal']]} ms; peak "
+              f"{peak_b / 2 ** 30:.2f} GiB")
+
+        # the region's loss and gradients against the normal path's with
+        # K1's weights rounded, dropout off
+        loss_fn = train_mod.make_loss_fn(tconf)
+        conv_mod = import_module(PKG + ".ops.conv")
+
+        def loss_grads(model):
+            with conv_mod.full_f32():
+                out = model.forward_train(image)
+                loss = loss_fn(out, mask)
+                names, params = zip(*model.named_parameters())
+                gs = torch.autograd.grad(loss, params, allow_unused=True)
+            return float(loss.detach()), dict(zip(names, gs))
+
+        km = new32(rate=0.0)
+        lk, gk = loss_grads(km)
+        nm = new32(ps2d=False, rate=0.0)
+        sd = km.state_dict()
+        for k in km.k1_kernel_names(1):
+            sd[k] = sd[k].to(torch.bfloat16).float()
+        nm.load_state_dict(sd)
+        ln, gn = loss_grads(nm)
+        del km, nm
+        # every leaf of 8 values or more (a cosine says nothing of a
+        # scalar; tests/test_torch_train_step.py's rule)
+        cmin, rdev, n, worst = 1.0, 0.0, 0, ""
+        for k, b in gn.items():
+            a = gk[k]
+            if a is None or b is None:      # a head the loss does not read
+                check(a is None and b is None, f"f32 gradient of {k} on one "
+                      f"side only")
+                continue
+            check(bool(torch.isfinite(a).all()), f"f32 gradient of {k}")
+            a, b = a.reshape(-1), b.reshape(-1)
+            na, nb = a.norm().item(), b.norm().item()
+            if k == "head_conv.bias" or nb < 1e-6 or b.numel() < 8:
+                continue          # zero in exact arithmetic (BatchNorm next)
+            cmin = min(cmin, (a @ b).item() / (na * nb))
+            if abs(na / nb - 1) > rdev:
+                rdev, worst = abs(na / nb - 1), k
+            n += 1
+        print(f"f32 train region vs normal path (K1's weights rounded): loss "
+              f"{lk:.7f} vs {ln:.7f} (rel {abs(lk - ln) / abs(ln):.2e}, bound "
+              f"1e-5); {n} gradient leaves: least cosine {cmin:.6f} (bound "
+              f"0.9999), largest |norm ratio - 1| {rdev:.2e} at {worst} "
+              f"(bound 1e-3)")
+        check(abs(lk - ln) <= 1e-5 * max(abs(ln), 1.0) and cmin >= 0.9999
+              and rdev <= 1e-3 and n >= 40, "f32 region train drifts")
+        del gk, gn
+        report["f32region"] = {
+            "launches": fcounts, "train_launches": ttotal,
+            "wtile_launches": wcounts, "request_s": secs,
+            "train_step_ms": {"steps": step_ms, **tsecs},
+            "train_losses": losses, "train_peak_bytes": peak_b,
+            "drift_vs_normal": d, "drift_unrounded": du,
+            "train_cosine_min": cmin}
+
+        # ---- the f32 forms' timings
+        print(f"card before the f32 timings: {card_state()}")
+
+        rows = [
+            ("conv3d_halo_f32", "ps2d_conv3d_f32.cu", "ps2d.py:667",
+             [conv_row(n, kw, 5, peak) for n, kw in forms32.items()]),
+            ("up_k2s2_into_halo_f32", "up_k2s2_into_halo_f32.cu",
+             "ps2d.py:228", [up_row(f"{lvl} {shape}", x2, w2, b2, 10, peak)
+                             for lvl, (x2, w2, b2, shape) in k2.items()]),
+            ("pack_halo_f32", "pack_halo.cu", "ps2d.py:167",
+             [pack_row(x3, 10)]),
+            ("pool_into_halo_f32", "pool_into_halo.cu", "ps2d.py:316",
+             [pool_row(x4, 10)]),
+            ("conv3d_halo_train_f32", "ps2d_conv3d_f32.cu", "ps2d.py:840",
+             [train_row(n, *v, 3, peak) for n, v in k6.items()]),
+            ("conv3d_same_f32", "conv3d_same_f32.cu", "conv3d.py:338",
+             [wtile_row(n, x, w, 3 if x.numel() > 2e8 else 10, peak)
+              for n, (x, w) in k7.items()]
+             + [wtile_vjp_row(first, *k7[first],
+                              rnd32(k7[first][0].shape[:-1]
+                                    + (k7[first][1].shape[-1],)), 2, peak)]),
+        ]
+        out = []
+        for name, src, line, fs in rows:
+            timed = time_forms(name, fs)
+            if name == "conv3d_same_f32":
+                total_sampled(timed[:len(k7)], name)
+            out.append(kernel_entry(name, src, line, timed,
+                                    1 if name == "conv3d_halo_f32" else 0))
+        print(f"card after the f32 timings: {card_state()}")
+        return out
 
     # the later slices' paths run after the timings, so that they leave
     # the kernels' readings as the earlier runs took them; first the
@@ -1821,10 +2255,13 @@ def main() -> int:
     run.phase("f32", f32)
     run.phase("trainer", trainer)
     run.phase("webtrain", webtrain)
+    kernels_json += run.phase("f32region", f32region)
 
     # launches per path: the server requests' (K1-K4), the five
     # train steps' (K1, forwards and K6's data gradients), the
-    # entry points' of K5 and K7
+    # entry points' of K5 and K7; the f32 forms' on the f32region phase's
+    # request, five train steps and K7 path. A bf16 form and its f32 form
+    # share their wrapper's count: each path runs one of them.
     paths = {"server": report["launches"],
              "app": report["app"]["launches"],
              "f32": report["f32"]["launches"],
@@ -1834,22 +2271,30 @@ def main() -> int:
              "webtrain": report["webtrain"]["launches"],
              "groupnorm": report["groupnorm"]["launches"],
              "wtile": report["wtile"]["launches"]}
+    paths32 = {"f32region": report["f32region"]["launches"],
+               "f32region_train": report["f32region"]["train_launches"],
+               "f32region_wtile": report["f32region"]["wtile_launches"]}
     main_path = {"conv3d_halo_train": "train",
                  "fused_group_norm": "groupnorm",
-                 "conv3d_same": "wtile"}
+                 "conv3d_same": "wtile",
+                 "conv3d_halo_train_f32": "f32region_train",
+                 "conv3d_same_f32": "f32region_wtile"}
+    train_paths = ("train", "trainer_steps", "f32region_train")
 
     def launches(name, path):
         """K6 has no kernel of its own: its launches are K1's on
-        the train path, and none on the others."""
-        if name == "conv3d_halo_train":
-            return (paths[path]["conv3d_halo"]
-                    if path in ("train", "trainer_steps") else 0)
-        return paths[path][name]
+        the train paths, and none on the others."""
+        counts = {**paths, **paths32}[path]
+        wrapper = name.removesuffix("_f32")
+        if wrapper == "conv3d_halo_train":
+            return counts["conv3d_halo"] if path in train_paths else 0
+        return counts[wrapper]
     for row in kernels_json:
-        row["launches"] = launches(row["name"],
-                                   main_path.get(row["name"], "server"))
+        f32_form = row["name"].endswith("_f32")
+        row["launches"] = launches(row["name"], main_path.get(
+            row["name"], "f32region" if f32_form else "server"))
         row["launches_by_path"] = {p: launches(row["name"], p)
-                                   for p in paths}
+                                   for p in (paths32 if f32_form else paths)}
 
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -1870,6 +2315,14 @@ def main() -> int:
           f"{tt['save_ms']:.2f} ms and loaded in {tt['load_ms']:.2f} ms, "
           f"peak {tt['peak_bytes'] / 2 ** 30:.2f} GiB, cohort written in "
           f"{tt['cohort_write_s']:.2f} s")
+    fr = report["f32region"]
+    req, stp = fr["request_s"], fr["train_step_ms"]
+    print(f"f32 region (full width, compute_dtype float32): requests "
+          f"{[round(v, 4) for v in req['region']]} s against the f32 normal "
+          f"path's {[round(v, 4) for v in req['normal']]} s; train steps "
+          f"{[round(v, 2) for v in stp['region']]} ms against "
+          f"{[round(v, 2) for v in stp['normal']]} ms; launches per request "
+          f"{fr['launches']}, per five steps {fr['train_launches']}")
     print(f"total {time.perf_counter() - run.t0:.2f} s")
     print(json.dumps({"kernels": kernels_json}))
     print(smi)

@@ -1,4 +1,4 @@
-// K3: relayout of an NDHWC bf16 tensor into the halo layout
+// K3: relayout of an NDHWC tensor (bf16 or f32) into the halo layout
 // (B, D+2, H+2, W+2, C) that the K1 conv reads: the data in the interior,
 // exact zeros in the one-voxel halo.
 //
@@ -8,10 +8,12 @@
 //
 // Bound on the H100: pure data movement, so bound by bytes: each input
 // byte read once, each output byte written once (1.10 GB at the main
-// path's (4, 128^3, 32) shape, 0.33 ms at 3.35 TB/s). Design for that:
-// one thread per 16 B output vector (8 channels), consecutive threads on
-// consecutive addresses for both the load and the store; halo threads
-// store zeros without loading.
+// path's (4, 128^3, 32) bf16 shape, 0.33 ms at 3.35 TB/s; twice that in
+// f32). Design for that: one thread per 16 B output vector (8 bf16 or 4
+// f32 channels), consecutive threads on consecutive addresses for both the
+// load and the store; halo threads store zeros without loading. The kernel
+// moves 16 B vectors whatever they hold: the element type only sets how
+// many vectors a voxel has.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,17 +42,24 @@ pack_kernel(const uint4* __restrict__ x, uint4* __restrict__ y, int D, int H,
   y[idx] = v;
 }
 
-}  // namespace
-
-// x (B, D, H, W, C) bf16, y (B, D+2, H+2, W+2, C) bf16; C a multiple of
-// 8 and both pointers 16 B aligned (checked by the caller). Returns the
-// launch's cudaError_t.
-extern "C" int pack_halo(const void* x, void* y, int B, int D, int H, int W,
-                         int C, void* stream) {
-  const int groups = C / 8;
+template <typename T>
+int launch(const void* x, void* y, int B, int D, int H, int W, int C, cudaStream_t stream) {
+  const int groups = C / (16 / (int)sizeof(T));   // 16 B vectors a voxel
   const long long total = (long long)B * (D + 2) * (H + 2) * (W + 2) * groups;
   const long long blocks = (total + kThreads - 1) / kThreads;
-  pack_kernel<<<(unsigned)blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  pack_kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(
       static_cast<const uint4*>(x), static_cast<uint4*>(y), D, H, W, groups, total);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// x (B, D, H, W, C), y (B, D+2, H+2, W+2, C), both bf16 (x_bf16 != 0) or
+// both f32; C a multiple of 8 and both pointers 16 B aligned (checked by
+// the caller). Returns the launch's cudaError_t.
+extern "C" int pack_halo(const void* x, int x_bf16, void* y, int B, int D, int H, int W,
+                         int C, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return x_bf16 ? launch<__nv_bfloat16>(x, y, B, D, H, W, C, s)
+                : launch<float>(x, y, B, D, H, W, C, s);
 }

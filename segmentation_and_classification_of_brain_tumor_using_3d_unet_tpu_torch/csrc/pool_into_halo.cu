@@ -1,5 +1,5 @@
-// K4: 2x2x2 stride-2 max pool of a halo-layout tensor, written straight
-// into the next level's halo layout.
+// K4: 2x2x2 stride-2 max pool of a halo-layout tensor (bf16 or f32),
+// written straight into the next level's halo layout.
 //
 // Replaces the Pallas kernel behind ops/pallas/ps2d.py::pool_into_flat
 // (kernel body `_pool_flat_kernel`, ps2d.py:286-313) of the JAX package,
@@ -12,9 +12,10 @@
 //
 // Bound on the H100: pure data movement, so bound by bytes: each input
 // byte read once, each output byte written once (0.61 GB at the main
-// path's (4, 130^3, 32) -> (4, 66^3, 32) shape, 0.18 ms at 3.35 TB/s).
-// Design for that, as K3: one thread per 16 B output vector (8
-// channels); the 8 loads of a thread are 16 B each, and neighbouring
+// path's (4, 130^3, 32) -> (4, 66^3, 32) bf16 shape, 0.18 ms at 3.35
+// TB/s; twice that in f32). Design for that, as K3: one thread per 16 B
+// output vector (8 bf16 or 4 f32 channels); the 8 loads of a thread are
+// 16 B each, and neighbouring
 // threads read neighbouring channel groups and voxels two apart, so a
 // warp's loads touch whole 32 B sectors; halo threads store zeros
 // without loading.
@@ -26,7 +27,12 @@ namespace {
 
 constexpr int kThreads = 256;
 
-__device__ __forceinline__ uint4 max8(uint4 a, uint4 b) {
+// elementwise max of two 16 B vectors of T, NaN propagating
+template <typename T>
+__device__ __forceinline__ uint4 max8(uint4 a, uint4 b);
+
+template <>
+__device__ __forceinline__ uint4 max8<__nv_bfloat16>(uint4 a, uint4 b) {
   __nv_bfloat162* pa = reinterpret_cast<__nv_bfloat162*>(&a);
   const __nv_bfloat162* pb = reinterpret_cast<const __nv_bfloat162*>(&b);
 #pragma unroll
@@ -34,6 +40,16 @@ __device__ __forceinline__ uint4 max8(uint4 a, uint4 b) {
   return a;
 }
 
+template <>
+__device__ __forceinline__ uint4 max8<float>(uint4 a, uint4 b) {
+  float* pa = reinterpret_cast<float*>(&a);
+  const float* pb = reinterpret_cast<const float*>(&b);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) pa[k] = pa[k] != pa[k] || pa[k] > pb[k] ? pa[k] : pb[k];
+  return a;
+}
+
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 pool_kernel(const uint4* __restrict__ x, uint4* __restrict__ y, int D, int H,
             int W, int groups, long long total) {
@@ -63,25 +79,33 @@ pool_kernel(const uint4* __restrict__ x, uint4* __restrict__ y, int D, int H,
         for (int q = 0; q < 2; ++q) {
           const uint4 t =
               __ldg(x + ((base + ((long long)a * Hp + r) * Wp + q) * groups + g));
-          v = first ? t : max8(v, t);
+          v = first ? t : max8<T>(v, t);
           first = false;
         }
   }
   y[idx] = v;
 }
 
-}  // namespace
-
-// x (B, D+2, H+2, W+2, C) bf16 halo layout, y (B, D/2+2, H/2+2, W/2+2, C)
-// bf16; D, H, W even, C a multiple of 8, both pointers 16 B aligned
-// (checked by the caller). Returns the launch's cudaError_t.
-extern "C" int pool_into_halo(const void* x, void* y, int B, int D, int H,
-                              int W, int C, void* stream) {
-  const int groups = C / 8;
+template <typename T>
+int launch(const void* x, void* y, int B, int D, int H, int W, int C, cudaStream_t stream) {
+  const int groups = C / (16 / (int)sizeof(T));   // 16 B vectors a voxel
   const long long total =
       (long long)B * (D / 2 + 2) * (H / 2 + 2) * (W / 2 + 2) * groups;
   const long long blocks = (total + kThreads - 1) / kThreads;
-  pool_kernel<<<(unsigned)blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  pool_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
       static_cast<const uint4*>(x), static_cast<uint4*>(y), D, H, W, groups, total);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// x (B, D+2, H+2, W+2, C) halo layout, y (B, D/2+2, H/2+2, W/2+2, C), both
+// bf16 (x_bf16 != 0) or both f32; D, H, W even, C a multiple of 8, both
+// pointers 16 B aligned (checked by the caller). Returns the launch's
+// cudaError_t.
+extern "C" int pool_into_halo(const void* x, int x_bf16, void* y, int B, int D, int H,
+                              int W, int C, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return x_bf16 ? launch<__nv_bfloat16>(x, y, B, D, H, W, C, s)
+                : launch<float>(x, y, B, D, H, W, C, s);
 }

@@ -26,8 +26,9 @@ DoubleConv blocks under ``remat``. With ``ps2d_train`` its level-0
 region runs in the halo layout on the differentiable conv K6
 (``ops/ps2d.py::conv3d_halo_train``, K1 forwards and backwards): enc0's
 conv2 and the dec0 stage's two convs; the glue between them stays plain
-differentiable ops (no eval-only folds), as in JAX. The kernels take
-bf16 only: an f32 model refuses the region (``halo_levels``).
+differentiable ops (no eval-only folds), as in JAX. Both regions run in
+the compute dtype, on the kernels' bf16 or f32 forms, as JAX's kernels
+compute in their input's dtype.
 """
 
 from __future__ import annotations
@@ -307,21 +308,26 @@ class UNet3D(nn.Module):
         back exactly; level 1 also needs ``ps2d_levels`` >= 2, a
         32-multiple level-1 width, D % 4 == 0 and H, W % 8 == 0. (JAX
         also drops a level whose TPU kernel plan does not fit its
-        on-chip memory budget; that limit has no counterpart here.) An
-        f32 model with the region on raises ``NotImplementedError``: the
-        kernels' f32 forms are not ported, and the forward never falls
-        back to the normal path unasked."""
+        on-chip memory budget; that limit has no counterpart here.) The
+        gate is the same in bf16 and in f32."""
         return self._halo_levels(shape, self.ps2d_eval, self.ps2d_levels)
 
+    def k1_kernel_names(self, levels: int) -> list:
+        """The parameters of the convs that run on K1 when ``levels``
+        levels (0-2) run in the halo layout: K1 rounds their values to
+        bf16 in f32 too, so a normal-path model given these rounded
+        computes the region's function (in exact arithmetic)."""
+        n = len(self.features)
+        names = []
+        if levels >= 1:
+            names += ["down0.conv2.kernel", f"dec{n - 1}.conv1.kernel",
+                      f"dec{n - 1}.conv2.kernel"]
+        if levels >= 2:
+            names += ["down1.conv1.kernel", "down1.conv2.kernel",
+                      f"dec{n - 2}.conv1.kernel", f"dec{n - 2}.conv2.kernel"]
+        return names
+
     def _halo_levels(self, shape, on: bool, levels: int) -> int:
-        if on and self.compute_dtype != BF16:
-            raise NotImplementedError(
-                f"compute_dtype {self.compute_dtype} with the ps2d region "
-                "(ps2d_eval / ps2d_train): the region's CUDA kernels take "
-                "bfloat16 only; their float32 forms (K1 ps2d_conv3d_flat_"
-                "multi, K2 up_k2s2_into_flat, K3 pack_flat_fast, K4 "
-                "pool_into_flat, K6 ps2d_conv3d_flat_train) are not ported "
-                "yet. Run float32 with ps2d_eval=False and ps2d_train=False")
         feats, (D, H, W) = self.features, tuple(shape)
         if not (on and feats[0] % 32 == 0
                 and D % 2 == 0 and H % 2 == 0 and W % 2 == 0):

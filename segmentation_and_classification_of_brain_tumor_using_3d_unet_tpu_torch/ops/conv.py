@@ -239,19 +239,20 @@ class _ConvParams(nn.Module):
 
 
 def conv_transpose3d_k2s2_halo(x: torch.Tensor, w: torch.Tensor,
-                               bias: torch.Tensor = None) -> torch.Tensor:
+                               bias: torch.Tensor = None,
+                               dtype: torch.dtype = BF16) -> torch.Tensor:
     """The train route of the decoder-last up conv: the library
     transposed conv (k = s = 2; flax's kernel flipped into torch's
-    (Cin, Cout, 2, 2, 2)), the bias added in bf16, padded into the halo
-    layout (B, 2D+2, 2H+2, 2W+2, Cout) with ``F.pad``. Same function as
-    K2, with a backward (JAX: the s2d-out up and the XLA pad,
-    ``models/unet3d.py:772-792``). bf16 only, as the region is."""
-    wt = w.to(BF16).flip(0, 1, 2).permute(3, 4, 0, 1, 2)
-    y = f32_accumulate(lambda a, b: F.conv_transpose3d(a, b, stride=2),
-                       x.to(BF16).permute(0, 4, 1, 2, 3), wt)
+    (Cin, Cout, 2, 2, 2)) in ``dtype``, the bias added in ``dtype``,
+    padded into the halo layout (B, 2D+2, 2H+2, 2W+2, Cout) with
+    ``F.pad``. Same function as K2, with a backward (JAX: the s2d-out up
+    and the XLA pad, ``models/unet3d.py:772-792``)."""
+    wt = w.to(dtype).flip(0, 1, 2).permute(3, 4, 0, 1, 2)
+    y = accumulate(lambda a, b: F.conv_transpose3d(a, b, stride=2),
+                   x.to(dtype).permute(0, 4, 1, 2, 3), wt)
     y = y.permute(0, 2, 3, 4, 1)
     if bias is not None:
-        y = y + bias.to(BF16)
+        y = y + bias.to(dtype)
     return F.pad(y, (0, 0, 1, 1, 1, 1, 1, 1))
 
 
@@ -291,4 +292,5 @@ class FastConvTranspose3D(_ConvParams):
 
     def halo_train(self, x):
         """Into the halo layout, differentiable (the train path)."""
-        return conv_transpose3d_k2s2_halo(x, self.kernel, self.bias)
+        return conv_transpose3d_k2s2_halo(x, self.kernel, self.bias,
+                                          self.compute_dtype)

@@ -8,10 +8,10 @@ rounding) with ci and co multiples of 32, and its custom VJP. JAX's
 ``Plan``, ``build_wbig`` and its ``W % Tw`` condition are the TPU's
 block-Toeplitz lane geometry; the kernel here needs none of them.
 
-  * ``conv3d_same`` — the kernel's wrapper: bf16 only on the card (a CUDA
-    tensor of another dtype raises ``TypeError``); the plain version,
-    which takes f32 too, on the CPU. ``conv3d_same.launches`` counts its
-    launches.
+  * ``conv3d_same`` — the kernel's wrapper, bf16 or f32: on the card the
+    bf16 form (``csrc/conv3d_same.cu``) or the f32 form
+    (``csrc/conv3d_same_f32.cu``, f32 FMAs, no TF32), on the CPU the
+    plain version. ``conv3d_same.launches`` counts its launches.
   * ``wtile_conv3d`` — the op with gradients (JAX ``wtile_conv3d``): the
     forward and the data gradient on the kernel (the data gradient with
     the taps flipped and ci, co swapped, as JAX's backward), the weight
@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from torch.nn.grad import conv3d_weight
 
 from .conv import BF16, f32_accumulate, full_f32, tf32_for_bf16
-from .ps2d import _aligned, _check, _lib, _on_cpu, _stream
+from .ps2d import _aligned, _check, _kernel_dtype, _lib, _on_cpu, _stream
 
 
 def _check_widths(x: torch.Tensor, w: torch.Tensor) -> None:
@@ -59,23 +59,22 @@ def wtile_conv3d_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def conv3d_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """K7: 3x3x3 SAME conv of x (B, D, H, W, ci) with w (3, 3, 3, ci, co)
-    cast to x.dtype -> (B, D, H, W, co) in x.dtype. On the card x must
-    be bf16."""
+    cast to x.dtype -> (B, D, H, W, co) in x.dtype; x bf16 or f32 (the
+    f32 weights are not rounded, as JAX's are not)."""
     if _on_cpu(x):
         return wtile_conv3d_plain(x, w)
     _check_widths(x, w)
-    if x.dtype != BF16:
-        raise TypeError(f"wtile_conv3d: the CUDA kernel takes bfloat16 only, "
-                        f"got {x.dtype} (the plain version takes float32 on "
-                        f"the CPU)")
+    dt = _kernel_dtype("wtile_conv3d", x)
     B, D, H, W, ci = x.shape
     co = w.shape[-1]
     x = _aligned(x)
-    wk = _aligned(w.to(BF16).reshape(27, ci, co))   # 16 B copies
-    _check("wtile_conv3d w", wk)
-    y = torch.empty((B, D, H, W, co), dtype=BF16, device=x.device)
+    wk = _aligned(w.to(dt).reshape(27, ci, co))     # 16 B copies
+    _check("wtile_conv3d x", x, dtype=dt)
+    _check("wtile_conv3d w", wk, dtype=dt)
+    y = torch.empty((B, D, H, W, co), dtype=dt, device=x.device)
     lib = _lib()
-    lib.check("conv3d_same", lib.conv3d_same(
+    entry = lib.conv3d_same if dt == BF16 else lib.conv3d_same_f32
+    lib.check("conv3d_same", entry(
         x.data_ptr(), wk.data_ptr(), y.data_ptr(), B, D, H, W, ci, co,
         _stream()))
     conv3d_same.launches += 1
@@ -85,18 +84,23 @@ def conv3d_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 conv3d_same.launches = 0
 
 
-def conv3d_same_plan(B: int, D: int, H: int, W: int, ci: int,
-                     co: int) -> dict:
-    """The launch geometry K7 picks for x (B, D, H, W, ci) -> co: output
-    channels N and input channels KC per step, M output voxels (GEMM
-    rows) a block, the TD x TH x TW output patch they cover, the block
-    count and the dynamic shared memory in bytes."""
+def conv3d_same_plan(B: int, D: int, H: int, W: int, ci: int, co: int,
+                     dtype: torch.dtype = BF16) -> dict:
+    """The launch geometry K7's ``dtype`` form picks for x (B, D, H, W,
+    ci) -> co: output channels N a block (and, in bf16, input channels KC
+    per step and M output voxels, the GEMM rows, a block), the TD x TH x
+    TW output patch, the block count and the dynamic shared memory in
+    bytes."""
     import ctypes
     lib = _lib()
-    fn = lib._dll.conv3d_same_plan
+    if dtype == BF16:
+        fn, keys = lib._dll.conv3d_same_plan, ("N", "KC", "M", "TD", "TH",
+                                               "TW", "blocks", "smem")
+    else:
+        fn, keys = lib._dll.conv3d_same_f32_plan, ("N", "TD", "TH", "TW",
+                                                   "blocks", "smem")
     fn.argtypes = (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
     fn.restype = ctypes.c_int
-    keys = ("N", "KC", "M", "TD", "TH", "TW", "blocks", "smem")
     out = (ctypes.c_int * len(keys))()
     lib.check("conv3d_same_plan",
               fn(B, D, H, W, ci, co, ctypes.addressof(out)))
@@ -183,6 +187,6 @@ def wtile_conv3d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """K7's op (JAX ``wtile_conv3d``): 3x3x3 SAME conv over unpadded NDHWC
     with gradients to x and to w. ci and co must be multiples of 32
     (``ValueError`` otherwise). On CUDA tensors the forward and the data
-    gradient launch K7 (bf16 only); on the CPU they run its plain
-    version."""
+    gradient launch K7 (its bf16 or f32 form, by x's dtype); on the CPU
+    they run its plain version."""
     return _WtileConv3d.apply(x, w)

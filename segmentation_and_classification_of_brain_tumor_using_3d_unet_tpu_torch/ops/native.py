@@ -30,16 +30,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C entry points: name -> argument types (every one returns cudaError_t)
+_K1 = (_P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P)
+_K2 = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
+_K7 = (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
+# C entry points: name -> argument types (every one returns cudaError_t);
+# the f32 forms of K1, K2 and K7 take the bf16 forms' arguments
 SIGNATURES = {
-    "ps2d_conv3d": (_P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _P,
-                    _I, _I, _I, _I, _I, _P),
-    "up_k2s2_into_halo": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "pack_halo": (_P, _P, _I, _I, _I, _I, _I, _P),
-    "pool_into_halo": (_P, _P, _I, _I, _I, _I, _I, _P),
+    "ps2d_conv3d": _K1,
+    "ps2d_conv3d_f32": _K1,
+    "up_k2s2_into_halo": _K2,
+    "up_k2s2_into_halo_f32": _K2,
+    "pack_halo": (_P, _I, _P, _I, _I, _I, _I, _I, _P),
+    "pool_into_halo": (_P, _I, _P, _I, _I, _I, _I, _I, _P),
     "group_norm_stats": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _P),
     "group_norm_apply": (_P, _I, _P, _P, _P, _I, _I, _P, _I, _I, _I, _P),
-    "conv3d_same": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "conv3d_same": _K7,
+    "conv3d_same_f32": _K7,
 }
 
 
@@ -111,12 +117,16 @@ def build(csrc_dir: Path = CSRC_DIR) -> Build:
 
 
 class Library:
-    """The loaded kernel library: one bound C function per entry point."""
+    """The loaded kernel library: one bound C function per entry point
+    it exports (a build of an older source tree, as ``compare_builds``
+    loads, lacks the later ones)."""
 
     def __init__(self, built: Build):
         self.build = built
         self._dll = ctypes.CDLL(str(built.path))
         for name, argtypes in SIGNATURES.items():
+            if not hasattr(self._dll, name):
+                continue
             fn = getattr(self._dll, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int

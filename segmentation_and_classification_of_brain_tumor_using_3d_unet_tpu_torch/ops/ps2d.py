@@ -6,10 +6,12 @@ between them.
 Counterpart of the JAX package's ``ops/pallas/ps2d.py``. There the
 region's tensors live in a packed space-to-depth "flat" form that fills
 the TPU's 128-wide lanes. Here they live in the HALO LAYOUT:
-channels-last bf16 with a one-voxel zero halo on D, H and W,
-``(B, D+2, H+2, W+2, C)``. A 3x3x3 SAME conv reads it without any
-bounds logic, and every op below keeps the halo exactly zero, as the
-flat form keeps its pads. Statistics divide by the true voxel count.
+channels-last with a one-voxel zero halo on D, H and W,
+``(B, D+2, H+2, W+2, C)``, in the compute dtype (bf16 or f32, as JAX's
+kernels compute in their input's dtype). A 3x3x3 SAME conv reads it
+without any bounds logic, and every op below keeps the halo exactly
+zero, as the flat form keeps its pads. Statistics divide by the true
+voxel count.
 
 Kernels (``csrc/``), each with its plain PyTorch version beside it:
 
@@ -27,9 +29,12 @@ Kernels (``csrc/``), each with its plain PyTorch version beside it:
     weight gradient a library weight-grad conv. It has no kernel of its
     own: its launches are K1's, counted in ``conv3d_halo.launches``.
 
-A wrapper takes its plain version for tensors on the CPU only; for a
-CUDA tensor it launches its kernel or raises. Each keeps a count of its
-launches in ``<wrapper>.launches``.
+Each kernel has a bf16 and an f32 form (K3 and K4 one source
+templated on the element type; K1 and K2 a source each, ``*_f32.cu``),
+and each wrapper takes either dtype and returns its input's. A wrapper
+takes its plain version for tensors on the CPU only; for a CUDA tensor
+it launches its kernel or raises. Each keeps a count of its launches in
+``<wrapper>.launches``.
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ import torch
 import torch.nn.functional as F
 from torch.nn.grad import conv3d_weight
 
-from .conv import BF16, f32_accumulate, matmul
+from .conv import BF16, F32, accumulate, matmul
 from .norm import apply_affine, bf16_moments, group_affine
 from .pool import max_pool3d
 
@@ -66,6 +71,14 @@ def _check(name: str, t: torch.Tensor, shape=None, dtype=BF16) -> None:
         raise ValueError(f"{name}: data pointer not 16 B aligned")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
+
+
+def _kernel_dtype(name: str, t: torch.Tensor) -> torch.dtype:
+    """The dtype a kernel runs in: its input's, bf16 or f32."""
+    if t.dtype not in (BF16, F32):
+        raise ValueError(f"{name}: the kernels take bfloat16 or float32, got "
+                         f"{t.dtype}")
+    return t.dtype
 
 
 def _ptr(t):
@@ -127,20 +140,21 @@ def pack_halo_plain(x: torch.Tensor) -> torch.Tensor:
 
 
 def pack_halo(x: torch.Tensor) -> torch.Tensor:
-    """K3 (JAX ``pack_flat_fast``): NDHWC bf16 -> halo layout. C must
-    be a multiple of 8."""
+    """K3 (JAX ``pack_flat_fast``): NDHWC bf16 or f32 -> halo layout in
+    x's dtype. C must be a multiple of 8."""
     if _on_cpu(x):
         return pack_halo_plain(x)
     B, D, H, W, C = x.shape
     if C % 8 or x.numel() == 0:
         raise ValueError(f"pack_halo: needs C % 8 == 0 and a non-empty "
                          f"tensor, got {tuple(x.shape)}")
-    _check("pack_halo x", x)
-    y = torch.empty((B, D + 2, H + 2, W + 2, C), dtype=BF16,
-                    device=x.device)
+    dt = _kernel_dtype("pack_halo", x)
+    _check("pack_halo x", x, dtype=dt)
+    y = torch.empty((B, D + 2, H + 2, W + 2, C), dtype=dt, device=x.device)
     lib = _lib()
-    lib.check("pack_halo", lib.pack_halo(x.data_ptr(), y.data_ptr(),
-                                         B, D, H, W, C, _stream()))
+    lib.check("pack_halo", lib.pack_halo(x.data_ptr(), int(dt == BF16),
+                                         y.data_ptr(), B, D, H, W, C,
+                                         _stream()))
     pack_halo.launches += 1
     return y
 
@@ -153,24 +167,26 @@ pack_halo.launches = 0
 # ----------------------------------------------------------------------
 
 
-def _phase_weights(w: torch.Tensor) -> torch.Tensor:
-    """(2, 2, 2, ci, co) flax ConvTranspose kernel -> (8, ci, co) bf16
-    with phase k = (a*2 + p)*2 + q holding the flipped tap."""
-    return w.to(BF16).flip(0, 1, 2).reshape(8, w.shape[3], w.shape[4])
+def _phase_weights(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """(2, 2, 2, ci, co) flax ConvTranspose kernel -> (8, ci, co) in
+    ``dtype`` (x's: rounded to bf16 for a bf16 x only, as JAX's K2 takes
+    its weights in x.dtype) with phase k = (a*2 + p)*2 + q holding the
+    flipped tap."""
+    return w.to(dtype).flip(0, 1, 2).reshape(8, w.shape[3], w.shape[4])
 
 
 def up_k2s2_into_halo_plain(x: torch.Tensor, w: torch.Tensor,
                             bias: torch.Tensor = None) -> torch.Tensor:
-    """Plain version of K2: f32 dot of the bf16 operands plus the f32
-    bias, one rounding to bf16, interleaved and packed into the halo
-    layout."""
+    """Plain version of K2: f32 dot of the operands in x's dtype plus the
+    f32 bias, one rounding to x's dtype, interleaved and packed into the
+    halo layout."""
     B, D2, H2, W2, ci = x.shape
     co = w.shape[-1]
-    wk = _phase_weights(w).permute(1, 0, 2).reshape(ci, 8 * co).float()
-    y = x.float() @ wk
+    wk = _phase_weights(w, x.dtype).permute(1, 0, 2).reshape(ci, 8 * co)
+    y = accumulate(torch.matmul, x.float(), wk.float())
     if bias is not None:
         y = y + bias.float().repeat(8)
-    y = y.to(BF16).reshape(B, D2, H2, W2, 2, 2, 2, co)
+    y = y.to(x.dtype).reshape(B, D2, H2, W2, 2, 2, 2, co)
     y = y.permute(0, 1, 4, 2, 5, 3, 6, 7).reshape(B, 2 * D2, 2 * H2,
                                                   2 * W2, co)
     return pack_halo_plain(y)
@@ -179,9 +195,10 @@ def up_k2s2_into_halo_plain(x: torch.Tensor, w: torch.Tensor,
 def up_k2s2_into_halo(x: torch.Tensor, w: torch.Tensor,
                       bias: torch.Tensor = None) -> torch.Tensor:
     """K2 (JAX ``up_k2s2_into_flat``): ConvTranspose(k=2^3, s=2^3) of
-    x (B, D2, H2, W2, ci) bf16 with the flax kernel w (2, 2, 2, ci, co)
-    and an optional f32 bias, emitted as the halo layout
-    (B, 2*D2+2, 2*H2+2, 2*W2+2, co). ci and co must be multiples of 8."""
+    x (B, D2, H2, W2, ci) bf16 or f32 with the flax kernel w (2, 2, 2,
+    ci, co) taken in x's dtype and an optional f32 bias, emitted as the
+    halo layout (B, 2*D2+2, 2*H2+2, 2*W2+2, co) in x's dtype. ci and co
+    must be multiples of 8."""
     if _on_cpu(x):
         return up_k2s2_into_halo_plain(x, w, bias)
     B, D2, H2, W2, ci = x.shape
@@ -190,17 +207,22 @@ def up_k2s2_into_halo(x: torch.Tensor, w: torch.Tensor,
             or x.numel() == 0:
         raise ValueError(f"up_k2s2_into_halo: x {tuple(x.shape)} and w "
                          f"{tuple(w.shape)} need ci, co % 8 == 0")
-    _check("up_k2s2_into_halo x", x)
-    wk = _phase_weights(w).contiguous()
-    _check("up_k2s2_into_halo w", wk)
+    dt = _kernel_dtype("up_k2s2_into_halo", x)
+    _check("up_k2s2_into_halo x", x, dtype=dt)
+    wk = _phase_weights(w, dt)
+    if dt == F32:     # (ci, 8 co): column k co + o is phase k's channel o
+        wk = wk.permute(1, 0, 2).reshape(ci, 8 * co)
+    wk = _aligned(wk)
+    _check("up_k2s2_into_halo w", wk, dtype=dt)
     b = None
     if bias is not None:
-        b = bias.float().contiguous()
-        _check("up_k2s2_into_halo bias", b, (co,), torch.float32)
+        b = _aligned(bias.float())
+        _check("up_k2s2_into_halo bias", b, (co,), F32)
     y = torch.empty((B, 2 * D2 + 2, 2 * H2 + 2, 2 * W2 + 2, co),
-                    dtype=BF16, device=x.device)
+                    dtype=dt, device=x.device)
     lib = _lib()
-    lib.check("up_k2s2_into_halo", lib.up_k2s2_into_halo(
+    entry = lib.up_k2s2_into_halo if dt == BF16 else lib.up_k2s2_into_halo_f32
+    lib.check("up_k2s2_into_halo", entry(
         x.data_ptr(), wk.data_ptr(), _ptr(b), y.data_ptr(), B, D2, H2, W2,
         ci, co, _stream()))
     up_k2s2_into_halo.launches += 1
@@ -212,12 +234,12 @@ up_k2s2_into_halo.launches = 0
 
 def up_k2s2_plan(B: int, D2: int, H2: int, W2: int, ci: int,
                  co: int) -> dict:
-    """The launch geometry K2 picks for x (B, D2, H2, W2, ci) -> co: R
-    input rows a tile of 64 GEMM rows (W2 <= 64) or tpr tiles a row, KC
-    input channels a K chunk and nK chunks, P of the four (a, p)
-    output-row pairs and CW channels a weight slab (NS = 2 P CW GEMM
-    columns), the slabs, S input-tile buffers, the tiles and halo rows,
-    the dynamic shared memory in bytes and the block count."""
+    """The launch geometry K2's bf16 form picks for x (B, D2, H2, W2,
+    ci) -> co: R input rows a tile of 64 GEMM rows (W2 <= 64) or tpr
+    tiles a row, KC input channels a K chunk and nK chunks, P of the four
+    (a, p) output-row pairs and CW channels a weight slab (NS = 2 P CW
+    GEMM columns), the slabs, S input-tile buffers, the tiles and halo
+    rows, the dynamic shared memory in bytes and the block count."""
     import ctypes
     lib = _lib()
     fn = lib._dll.up_k2s2_plan
@@ -236,23 +258,35 @@ def up_k2s2_plan(B: int, D2: int, H2: int, W2: int, ci: int,
 # ----------------------------------------------------------------------
 
 
-def _affine_pair(in_scale, in_shift, B, ci_total, device):
+def _affine_pair(in_scale, in_shift, B, ci_total, device, dtype):
     sc = (in_scale if in_scale is not None
           else torch.ones((B, ci_total), device=device))
     sh = (in_shift if in_shift is not None
           else torch.zeros((B, ci_total), device=device))
-    return sc.to(BF16).contiguous(), sh.to(BF16).contiguous()
+    return _aligned(sc.to(dtype)), _aligned(sh.to(dtype))
+
+
+def _k1_weights(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """K1's weights in ``dtype``, their values rounded to bf16 first (JAX
+    ``pack_w_rot``, ``ps2d.py:413-414``, in either dtype). In f32 the
+    rounding passes the gradient straight through, as JAX's VJP
+    differentiates the unrounded weights."""
+    wr = w.to(BF16)
+    if dtype == BF16:
+        return wr
+    w = w.to(dtype)
+    return w + (wr.to(dtype) - w).detach()
 
 
 def _transform_inputs(xs, in_scale, in_shift, in_relu, in_mul0):
-    """The on-load transform of K1 as tensor ops, each step rounded to
-    bf16 as the kernel rounds it."""
+    """The on-load transform of K1 as tensor ops in the inputs' dtype,
+    each step rounded as the kernel rounds it."""
     B = xs[0].shape[0]
     affine = in_scale is not None or in_shift is not None
     if affine:
         in_scale, in_shift = _affine_pair(
             in_scale, in_shift, B, sum(x.shape[-1] for x in xs),
-            xs[0].device)
+            xs[0].device, xs[0].dtype)
     vs, off = [], 0
     for i, x in enumerate(xs):
         ci = x.shape[-1]
@@ -274,11 +308,12 @@ def _transform_inputs(xs, in_scale, in_shift, in_relu, in_mul0):
 def conv3d_halo_plain(xs, w, in_scale=None, in_shift=None, in_relu=False,
                       in_mul0=None, emit_stats=False):
     """Plain version of K1: transform, concat, one VALID conv over the
-    halo (== SAME conv of the interior) with f32 accumulation."""
+    halo (== SAME conv of the interior) with f32 accumulation, in the
+    inputs' dtype with the weights' values rounded to bf16."""
     vs = _transform_inputs(xs, in_scale, in_shift, in_relu, in_mul0)
     xcat = torch.cat(vs, dim=-1) if len(vs) > 1 else vs[0]
-    wn = w.to(BF16).permute(4, 3, 0, 1, 2).contiguous()
-    y = f32_accumulate(F.conv3d, xcat.permute(0, 4, 1, 2, 3), wn)
+    wn = _k1_weights(w, xcat.dtype).permute(4, 3, 0, 1, 2).contiguous()
+    y = accumulate(F.conv3d, xcat.permute(0, 4, 1, 2, 3), wn)
     y = y.permute(0, 2, 3, 4, 1)                  # (B, D, H, W, co)
     out = pack_halo_plain(y)
     if not emit_stats:
@@ -291,7 +326,9 @@ def conv3d_halo(xs, w, in_scale=None, in_shift=None, in_relu=False,
                 in_mul0=None, emit_stats=False):
     """K1 (JAX ``ps2d_conv3d_flat_multi``): bias-free 3x3x3 SAME conv
     of the channel concat of 1-2 halo tensors (the concat is never
-    stored), bf16 in, f32 accumulation, bf16 halo-layout out.
+    stored), bf16 or f32 in, f32 accumulation, halo-layout out in the
+    inputs' dtype. The weights' values are rounded to bf16 in either
+    dtype, as JAX's kernel rounds them.
 
     * ``in_scale`` / ``in_shift`` (B, sum ci): per-channel affine on
       load (the previous GroupNorm), optionally followed by ReLU
@@ -299,7 +336,7 @@ def conv3d_halo(xs, w, in_scale=None, in_shift=None, in_relu=False,
     * ``in_mul0`` (same shape as ``xs[0]``): per-voxel, per-channel
       multiplier on input 0 (the attention gate's psi * SE).
     * ``emit_stats``: also return ``(s1, s2)``, each (B, co) f32, the
-      per-channel sum and sum of squares of the bf16 output.
+      per-channel sum and sum of squares of the output.
 
     Kernel limits: each input's channels a multiple of 32, co 16 or a
     multiple of 32."""
@@ -320,29 +357,32 @@ def conv3d_halo(xs, w, in_scale=None, in_shift=None, in_relu=False,
             f"conv3d_halo: unsupported inputs {[tuple(x.shape) for x in xs]}"
             f" / kernel {tuple(w.shape)} (1-2 inputs, ci % 32 == 0, co 16 "
             f"or a multiple of 32)")
+    dt = _kernel_dtype("conv3d_halo", xs[0])
     for i, x in enumerate(xs):
-        _check(f"conv3d_halo x{i}", x, (B, Dp, Hp, Wp, cis[i]))
-    wb = w.to(BF16).contiguous()
-    _check("conv3d_halo w", wb)
+        _check(f"conv3d_halo x{i}", x, (B, Dp, Hp, Wp, cis[i]), dt)
+    wb = _aligned(_k1_weights(w, dt))
+    _check("conv3d_halo w", wb, dtype=dt)
     sc = sh = None
     if in_scale is not None or in_shift is not None:
-        sc, sh = _affine_pair(in_scale, in_shift, B, ci_total, xs[0].device)
-        _check("conv3d_halo in_scale", sc, (B, ci_total))
-        _check("conv3d_halo in_shift", sh, (B, ci_total))
+        sc, sh = _affine_pair(in_scale, in_shift, B, ci_total, xs[0].device,
+                              dt)
+        _check("conv3d_halo in_scale", sc, (B, ci_total), dt)
+        _check("conv3d_halo in_shift", sh, (B, ci_total), dt)
     if in_mul0 is not None:
-        _check("conv3d_halo in_mul0", in_mul0, xs[0].shape)
-    y = torch.empty((B, Dp, Hp, Wp, co), dtype=BF16, device=xs[0].device)
+        _check("conv3d_halo in_mul0", in_mul0, xs[0].shape, dt)
+    y = torch.empty((B, Dp, Hp, Wp, co), dtype=dt, device=xs[0].device)
     ci1 = cis[1] if len(xs) > 1 else 0
     # the kernel writes each block's sums; they are added here over the
     # blocks, in a fixed order (two runs give the same bits)
     parts = None
     if emit_stats:
         n_sp = conv3d_halo_plan(B, Dp - 2, Hp - 2, Wp - 2, cis[0], ci1,
-                                co)["blocks_per_item"]
+                                co, dt)["blocks_per_item"]
         parts = torch.empty((B, n_sp, 2, co), dtype=torch.float32,
                             device=xs[0].device)
     lib = _lib()
-    lib.check("conv3d_halo", lib.ps2d_conv3d(
+    entry = lib.ps2d_conv3d if dt == BF16 else lib.ps2d_conv3d_f32
+    lib.check("conv3d_halo", entry(
         xs[0].data_ptr(), _ptr(xs[1]) if len(xs) > 1 else None, cis[0],
         ci1, wb.data_ptr(), _ptr(sc), _ptr(sh),
         int(in_relu), _ptr(in_mul0), y.data_ptr(), _ptr(parts),
@@ -358,20 +398,25 @@ conv3d_halo.launches = 0
 
 
 def conv3d_halo_plan(B: int, D: int, H: int, W: int, ci0: int, ci1: int,
-                     co: int) -> dict:
-    """The launch geometry K1 picks for inputs of ci0 (and ci1; 0 for one
-    input) channels over a (B, D, H, W) interior -> co: output channels N
-    and input channels KC per step, M output voxels (GEMM rows) a block,
-    the TD x TH x TW output patch they cover, the block count, the
-    dynamic shared memory in bytes, and the blocks a batch item and
-    channel tile (the statistics buffer's block axis)."""
+                     co: int, dtype: torch.dtype = BF16) -> dict:
+    """The launch geometry K1's ``dtype`` form picks for inputs of ci0
+    (and ci1; 0 for one input) channels over a (B, D, H, W) interior ->
+    co: output channels N a block (and, in bf16, input channels KC per
+    step and M output voxels, the GEMM rows, a block), the TD x TH x TW
+    output patch, the block count, the dynamic shared memory in bytes,
+    and the blocks a batch item and channel tile (the statistics
+    buffer's block axis)."""
     import ctypes
     lib = _lib()
-    fn = lib._dll.ps2d_conv3d_plan
+    if dtype == BF16:
+        fn, keys = lib._dll.ps2d_conv3d_plan, ("N", "KC", "M", "TD", "TH",
+                                               "TW", "blocks", "smem",
+                                               "blocks_per_item")
+    else:
+        fn, keys = lib._dll.ps2d_conv3d_f32_plan, (
+            "N", "TD", "TH", "TW", "blocks", "smem", "blocks_per_item")
     fn.argtypes = (ctypes.c_int,) * 7 + (ctypes.c_void_p,)
     fn.restype = ctypes.c_int
-    keys = ("N", "KC", "M", "TD", "TH", "TW", "blocks", "smem",
-            "blocks_per_item")
     out = (ctypes.c_int * len(keys))()
     lib.check("ps2d_conv3d_plan", fn(B, D, H, W, ci0, ci1, co,
                                      ctypes.addressof(out)))
@@ -390,8 +435,9 @@ def pool_into_halo_plain(x: torch.Tensor) -> torch.Tensor:
 
 def pool_into_halo(x: torch.Tensor) -> torch.Tensor:
     """K4 (JAX ``pool_into_flat``): 2x2x2 stride-2 max pool of a halo
-    tensor (B, D+2, H+2, W+2, C) bf16 -> (B, D/2+2, H/2+2, W/2+2, C)
-    with a zero halo. D, H, W must be even and C a multiple of 8."""
+    tensor (B, D+2, H+2, W+2, C) bf16 or f32 -> (B, D/2+2, H/2+2,
+    W/2+2, C) in its dtype with a zero halo. D, H, W must be even and C
+    a multiple of 8."""
     if _on_cpu(x):
         return pool_into_halo_plain(x)
     B, Dp, Hp, Wp, C = x.shape
@@ -399,12 +445,14 @@ def pool_into_halo(x: torch.Tensor) -> torch.Tensor:
     if C % 8 or min(B, D, H, W) < 1 or D % 2 or H % 2 or W % 2:
         raise ValueError(f"pool_into_halo: needs an even, non-empty "
                          f"interior and C % 8 == 0, got {tuple(x.shape)}")
-    _check("pool_into_halo x", x)
-    y = torch.empty((B, D // 2 + 2, H // 2 + 2, W // 2 + 2, C), dtype=BF16,
+    dt = _kernel_dtype("pool_into_halo", x)
+    _check("pool_into_halo x", x, dtype=dt)
+    y = torch.empty((B, D // 2 + 2, H // 2 + 2, W // 2 + 2, C), dtype=dt,
                     device=x.device)
     lib = _lib()
     lib.check("pool_into_halo", lib.pool_into_halo(
-        x.data_ptr(), y.data_ptr(), B, D, H, W, C, _stream()))
+        x.data_ptr(), int(dt == BF16), y.data_ptr(), B, D, H, W, C,
+        _stream()))
     pool_into_halo.launches += 1
     return y
 
@@ -426,19 +474,20 @@ def conv3d_halo_dgrad(dy: torch.Tensor, w: torch.Tensor, i: int, cis):
     zeroes the halo under an affine; the card's K1 never loads it."""
     off = sum(cis[:i])
     w_t = w[:, :, :, off:off + cis[i]].flip(0, 1, 2).transpose(3, 4)
-    ones = torch.ones((dy.shape[0], dy.shape[-1]), dtype=BF16,
+    ones = torch.ones((dy.shape[0], dy.shape[-1]), dtype=dy.dtype,
                       device=dy.device)
     return conv3d_halo((dy,), w_t, in_scale=ones, in_shift=ones * 0)
 
 
 def conv3d_halo_wgrad(xs, dy: torch.Tensor) -> torch.Tensor:
-    """K6's weight gradient (3, 3, 3, sum ci, co), bf16: the library
-    weight-grad conv per input (JAX: XLA's, outside Pallas) over the
-    cotangent's interior. A VALID weight grad over the input's zero
-    halo is the SAME one over its interior."""
+    """K6's weight gradient (3, 3, 3, sum ci, co) in dy's dtype: the
+    library weight-grad conv per input (JAX: XLA's, outside Pallas) over
+    the cotangent's interior, in f32 with TF32 off for f32 operands. A
+    VALID weight grad over the input's zero halo is the SAME one over
+    its interior."""
     dy_in = halo_to_normal(dy).permute(0, 4, 1, 2, 3)   # channels-last
     co = dy.shape[-1]
-    dws = [f32_accumulate(
+    dws = [accumulate(
         lambda a, b: conv3d_weight(a, (co, x.shape[-1], 3, 3, 3), b),
         x.permute(0, 4, 1, 2, 3), dy_in).permute(2, 3, 4, 1, 0)
         for x in xs]
@@ -458,9 +507,7 @@ class _ConvHaloTrain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         w, *xs = ctx.saved_tensors
-        dy = dy.to(BF16).contiguous()
-        if dy.data_ptr() % 16:          # a view at an odd offset
-            dy = dy.clone()
+        dy = _aligned(dy)               # in its own dtype, the output's
         cis = [x.shape[-1] for x in xs]
         dxs = [conv3d_halo_dgrad(dy, w, i, cis)
                if ctx.needs_input_grad[1 + i] else None
@@ -472,13 +519,14 @@ class _ConvHaloTrain(torch.autograd.Function):
 
 def conv3d_halo_train(xs, w) -> torch.Tensor:
     """K6 (JAX ``ps2d_conv3d_flat_train``): ``conv3d_halo(xs, w)`` (bf16
-    halo tensors in, the halo-layout output) with gradients to every
-    input and to ``w``. On CUDA tensors the forward and each input's
-    data gradient launch K1 (counted in ``conv3d_halo.launches``); on
-    the CPU they run K1's plain version. The weight gradient is a
-    library weight-grad conv, as JAX's is XLA's. No fused transforms:
+    or f32 halo tensors in, the halo-layout output in their dtype) with
+    gradients to every input and to ``w``. On CUDA tensors the forward
+    and each input's data gradient launch K1 (counted in
+    ``conv3d_halo.launches``); on the CPU they run K1's plain version.
+    The weight gradient is a library weight-grad conv, as JAX's is
+    XLA's (in f32 with TF32 off for f32 tensors). No fused transforms:
     the train path applies its GroupNorms as separate ops."""
-    return _ConvHaloTrain.apply(w.to(BF16), *xs)
+    return _ConvHaloTrain.apply(w.to(xs[0].dtype), *xs)
 
 
 def conv3d_halo_train_plain(xs, w) -> torch.Tensor:
@@ -486,7 +534,7 @@ def conv3d_halo_train_plain(xs, w) -> torch.Tensor:
     inputs' halos masked (zero, and passing no gradient) and the
     output's halo a constant (its cotangent dropped)."""
     xs = [x * halo_mask(x) for x in xs]
-    return conv3d_halo_plain(xs, w.to(BF16))
+    return conv3d_halo_plain(xs, w.to(xs[0].dtype))
 
 
 KERNELS = (conv3d_halo, up_k2s2_into_halo, pack_halo, pool_into_halo)
@@ -524,7 +572,7 @@ def group_norm_halo_affine(x: torch.Tensor, gamma, beta, num_groups: int,
 
 def group_norm_halo(x: torch.Tensor, gamma, beta, num_groups: int,
                     eps: float = 1e-5, sums=None) -> torch.Tensor:
-    """GroupNorm of a halo tensor, applied in bf16, halo re-zeroed
+    """GroupNorm of a halo tensor, applied in x's dtype, halo re-zeroed
     (JAX ``group_norm_flat``)."""
     scale, shift = group_norm_halo_affine(x, gamma, beta, num_groups, eps,
                                           sums)
@@ -537,24 +585,26 @@ def conv1x1_halo(xs, w: torch.Tensor, bias=None, se0=None,
     ``conv1x1_flat``), halo re-zeroed. ``se0`` (B, ci_0) folds the
     gate's channel factor into input 0's weights per batch item;
     ``psi0`` (B, D+2, H+2, W+2, 1) scales input 0's contribution per
-    voxel — the gated input is never formed."""
-    w2 = w.reshape(w.shape[-2], w.shape[-1]).to(BF16)
+    voxel — the gated input is never formed. Computed in the inputs'
+    dtype."""
+    dt = xs[0].dtype
+    w2 = w.reshape(w.shape[-2], w.shape[-1]).to(dt)
     y, off = None, 0
     for i, x in enumerate(xs):
         ci = x.shape[-1]
         wi = w2[off:off + ci]
         off += ci
         if i == 0 and se0 is not None:
-            wi = wi[None] * se0.to(BF16)[:, :, None]     # (B, ci, co)
-            t = matmul(x.reshape(x.shape[0], -1, ci), wi)
+            wi = wi[None] * se0.to(dt)[:, :, None]       # (B, ci, co)
+            t = matmul(x.reshape(x.shape[0], -1, ci), wi, dt)
             t = t.reshape(*x.shape[:-1], -1)
         else:
-            t = matmul(x, wi)
+            t = matmul(x, wi, dt)
         if i == 0 and psi0 is not None:
             t = t * psi0
         y = t if y is None else y + t
     if bias is not None:
-        y = y + bias.to(BF16)
+        y = y + bias.to(dt)
     return y * halo_mask(y)
 
 

@@ -18,7 +18,9 @@ would use), so the tolerances are float32's, not bf16's:
     values the port gave before the compute dtype was threaded through
     it, and an f32 call leaves the TF32 settings as they were, also when
     two threads' f32 sections overlap;
-  * float32 with the ps2d region raises ``NotImplementedError``.
+  * a compute dtype other than bf16 and f32 raises ``ValueError``.
+
+float32 with the ps2d region is held to JAX's in test_torch_f32_region.py.
 """
 
 import hashlib
@@ -262,15 +264,6 @@ def test_full_f32_sections_overlap_across_threads():
         torch.set_float32_matmul_precision(before[1])
 
 
-@pytest.mark.parametrize("flag", ["ps2d_eval", "ps2d_train"])
-def test_f32_with_the_region_raises(flag):
-    model = UNet3D(features=FEATS, device="cpu", compute_dtype=F32,
-                   **{flag: True})
-    x = torch.zeros((1, 8, 8, 8, 4))
-    with pytest.raises(NotImplementedError, match="K1"):
-        if flag == "ps2d_eval":
-            model(x)
-        else:
-            model.forward_train(x)
+def test_compute_dtype_float16_raises():
     with pytest.raises(ValueError):
         UNet3D(features=FEATS, device="cpu", compute_dtype="float16")

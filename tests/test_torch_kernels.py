@@ -20,12 +20,20 @@ bit-identical across two runs (no float atomics). The unpadded conv (K7)
 within 2^-7 * max|ref|, its gradients within 2^-5 * max|ref|, two runs
 bit-identical, and its wgmma tile step alone within 1e-5 * max|ref| of
 torch.matmul (f32 sums of 16 exact products).
+
+The f32 forms (K1, K2, K7 sources of their own; K3, K4 the same sources
+instantiated for f32) against their plain versions in full f32 (TF32
+off, ``ops.conv.full_f32``, around the whole test, backwards included):
+pack and pool bit-exact; K1, K2, K6 and K7 within 1e-5 * max|ref| (f32
+sums in another order), K1's sums within 1e-5 of the largest sum; two
+runs bit-identical.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.ops.conv import full_f32
 from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.ops import conv3d as K7
 from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.ops import groupnorm as K5
 from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.ops import ps2d as T
@@ -172,10 +180,10 @@ def _k2_inputs(device, shape, ci, co, with_bias, seed=0):
     return x, w, b
 
 
-def _dirty(shape):
+def _dirty(shape, dtype=BF16):
     """Leave NaNs in the allocator's next block of this size, so that a
     halo the kernel fails to write shows."""
-    torch.full(shape, float("nan"), dtype=BF16, device="cuda")
+    torch.full(shape, float("nan"), dtype=dtype, device="cuda")
 
 
 @pytest.mark.gpu
@@ -511,13 +519,17 @@ def test_wtile_conv3d_grads_match_plain(cuda, ci, co, D, H, W, w_dtype):
 
 @pytest.mark.gpu
 def test_conv3d_same_refuses_f32_and_other_widths(cuda):
-    with pytest.raises(TypeError, match="bfloat16"):
-        K7.conv3d_same(torch.zeros((1, 2, 3, 4, 32), device=cuda),
+    """Widths that are not multiples of 32 are refused in either dtype
+    (f32 itself runs on the kernel's f32 form); so is a third dtype."""
+    for dt in (BF16, torch.float32):
+        with pytest.raises(ValueError):
+            K7.conv3d_same(torch.zeros((1, 2, 3, 4, 16), device=cuda,
+                                       dtype=dt),
+                           torch.zeros((3, 3, 3, 16, 32), device=cuda))
+    with pytest.raises(ValueError, match="float32"):
+        K7.conv3d_same(torch.zeros((1, 2, 3, 4, 32), device=cuda,
+                                   dtype=torch.float16),
                        torch.zeros((3, 3, 3, 32, 32), device=cuda))
-    with pytest.raises(ValueError):
-        K7.conv3d_same(torch.zeros((1, 2, 3, 4, 16), device=cuda,
-                                   dtype=BF16),
-                       torch.zeros((3, 3, 3, 16, 32), device=cuda))
 
 
 @pytest.mark.gpu
@@ -567,3 +579,185 @@ def test_wgmma_tile_product_matches_matmul(cuda, n):
     ref = torch.matmul(a.double(), b.double()).float()
     assert d.shape == ref.shape and d.dtype == torch.float32
     assert (d - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+# ---------------------------------------------------------------- f32 forms
+
+F32 = torch.float32
+
+
+@pytest.fixture
+def f32_exact(cuda):
+    """The plain versions' library calls in full f32 for the test,
+    backwards included."""
+    with full_f32():
+        yield cuda
+
+
+def _rel_close(a, b, rel=1e-5):
+    assert a.dtype == b.dtype == F32 and a.shape == b.shape
+    d = (a - b).abs().max().item()
+    assert d <= rel * max(b.abs().max().item(), 1e-3), d
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 5, 9, 20, 32), (1, 4, 4, 4, 64)])
+def test_pack_halo_f32_kernel_matches_plain(f32_exact, shape):
+    x = torch.randn(shape, device=f32_exact)
+    before = T.pack_halo.launches
+    y = T.pack_halo(x)
+    torch.testing.assert_close(y, T.pack_halo_plain(x), rtol=0, atol=0)
+    assert T.pack_halo.launches == before + 1 and y.dtype == F32
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 6, 10, 40, 32), (4, 66, 66, 66, 32)])
+def test_pool_into_halo_f32_kernel_matches_plain(f32_exact, shape):
+    """Over a halo tensor (the second: the server's level-0 skip,
+    (4, 130^3, 32) pooled into (4, 66^3, 32), at half the width)."""
+    B, D, H, W, C = shape
+    x = T.pack_halo(torch.randn((B, D - 2, H - 2, W - 2, C),
+                                device=f32_exact))
+    before = T.pool_into_halo.launches
+    y = T.pool_into_halo(x)
+    torch.testing.assert_close(y, T.pool_into_halo_plain(x), rtol=0, atol=0)
+    assert T.pool_into_halo.launches == before + 1 and y.dtype == F32
+    assert (y * (1 - T.halo_mask(y))).abs().max() == 0
+
+
+def _k1_f32_inputs(device, cis, co, affine, mul0, shape, seed=1):
+    xs, w, kw = _k1_inputs(device, cis, co, affine, mul0, shape, seed)
+    g = torch.Generator(device=device).manual_seed(seed + 100)
+    # f32 values that bf16 does not hold
+    xs = [x.float() + 1e-3 * torch.randn(x.shape, device=device, generator=g)
+          * T.halo_mask(x).float() for x in xs]
+    w = w.float() + 1e-3 * torch.randn(w.shape, device=device, generator=g)
+    return xs, w, {k: v.float() for k, v in kw.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cis,co,affine,relu,mul0,stats,shape", K1_CASES)
+def test_conv3d_halo_f32_kernel_matches_plain(f32_exact, cis, co, affine,
+                                              relu, mul0, stats, shape):
+    xs, w, kw = _k1_f32_inputs(f32_exact, cis, co, affine, mul0, shape)
+    _dirty((shape[0], shape[1] + 2, shape[2] + 2, shape[3] + 2, co), F32)
+    before = T.conv3d_halo.launches
+    got = T.conv3d_halo(xs, w, in_relu=relu, emit_stats=stats, **kw)
+    again = T.conv3d_halo(xs, w, in_relu=relu, emit_stats=stats, **kw)
+    ref = T.conv3d_halo_plain(xs, w, in_relu=relu, emit_stats=stats, **kw)
+    torch.cuda.synchronize()
+    assert T.conv3d_halo.launches == before + 2
+    y, y2, yr = (got[0], again[0], ref[0]) if stats else (got, again, ref)
+    _rel_close(y, yr)
+    assert torch.equal(y, y2)
+    assert (y * (1 - T.halo_mask(y))).abs().max() == 0
+    if stats:
+        for s, s2, sr in zip(got[1], again[1], ref[1]):
+            assert torch.equal(s, s2)
+            torch.testing.assert_close(
+                s, sr, rtol=0, atol=1e-5 * sr.abs().max().item())
+
+
+@pytest.mark.gpu
+def test_k1_f32_plans(cuda):
+    """The f32 form's plans at the K1 cases: N 16, 32 or 64, a patch of
+    32 runs of 8 voxels, two blocks an SM in shared memory."""
+    for cis, co, _, _, _, _, (B, D, H, W) in K1_CASES:
+        p = T.conv3d_halo_plan(B, D, H, W, cis[0], sum(cis[1:]), co, F32)
+        assert p["N"] == (16 if co == 16 else 64 if co % 64 == 0 else 32)
+        assert p["TD"] * p["TH"] * p["TW"] == 256 and p["TW"] % 8 == 0
+        assert p["smem"] <= 113 * 1024 and p["blocks"] >= 1, p
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cis,co", [((32,), 32), ((32, 32), 32),
+                                    ((64,), 96), ((32, 64), 128)])
+def test_conv3d_halo_train_f32_kernel_matches_plain(f32_exact, cis, co):
+    """K6 in f32: forward, data gradients (K1's f32 form) and weight
+    gradient against autograd through the plain conv, with garbage in
+    the cotangent's halo; the weight gradient is not rounded to bf16."""
+    g = torch.Generator(device=f32_exact).manual_seed(2)
+    B, D, H, W = 2, 3, 19, 37
+
+    def rnd(shape, s=1.0):
+        return torch.randn(shape, device=f32_exact, generator=g) * s
+
+    xs0 = [T.pack_halo(rnd((B, D, H, W, c))) for c in cis]
+    w0 = rnd((3, 3, 3, sum(cis), co), 0.1)
+    r = rnd((B, D + 2, H + 2, W + 2, co))
+    r = r + 100 * r * (1 - T.halo_mask(r))      # garbage on the halo
+
+    def run(fn):
+        xs = [x.clone().requires_grad_() for x in xs0]
+        w = w0.clone().requires_grad_()
+        y = fn(xs, w)
+        (y * r).sum().backward()
+        return y.detach(), [x.grad for x in xs], w.grad
+
+    before = T.conv3d_halo.launches
+    y, dxs, dw = run(T.conv3d_halo_train)
+    torch.cuda.synchronize()
+    assert T.conv3d_halo.launches == before + 1 + len(cis)
+    yr, dxs_r, dw_r = run(T.conv3d_halo_train_plain)
+    _rel_close(y, yr)
+    for a, b in zip(dxs, dxs_r):
+        _rel_close(a, b)
+        assert (a * (1 - T.halo_mask(a))).abs().max() == 0
+    _rel_close(dw, dw_r)
+    assert not torch.equal(dw, dw.to(BF16).float())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,ci,co,with_bias", K2_CASES)
+def test_up_k2s2_into_halo_f32_kernel_matches_plain(f32_exact, shape, ci,
+                                                    co, with_bias):
+    x, w, b = _k2_inputs(f32_exact, shape, ci, co, with_bias)
+    x, w = x.float() + 1e-3, w.float() + 1e-4     # not bf16 values
+    B, D2, H2, W2 = shape
+    _dirty((B, 2 * D2 + 2, 2 * H2 + 2, 2 * W2 + 2, co), F32)
+    before = T.up_k2s2_into_halo.launches
+    got = T.up_k2s2_into_halo(x, w, b)
+    again = T.up_k2s2_into_halo(x, w, b)
+    torch.cuda.synchronize()
+    assert T.up_k2s2_into_halo.launches == before + 2
+    _rel_close(got, T.up_k2s2_into_halo_plain(x, w, b))
+    assert torch.equal(got, again)
+    assert (got * (1 - T.halo_mask(got))).abs().max() == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ci,co,D,H,W", K7_CASES[:13] + K7_CASES[-3:])
+def test_conv3d_same_f32_kernel_matches_plain(f32_exact, ci, co, D, H, W):
+    g = torch.Generator(device=f32_exact).manual_seed(4)
+    x = torch.randn((2, D, H, W, ci), device=f32_exact, generator=g)
+    w = torch.randn((3, 3, 3, ci, co), device=f32_exact, generator=g) * 0.05
+    before = K7.conv3d_same.launches
+    y = K7.conv3d_same(x, w)
+    again = K7.conv3d_same(x, w)
+    torch.cuda.synchronize()
+    assert K7.conv3d_same.launches == before + 2 and y.dtype == F32
+    _rel_close(y, K7.wtile_conv3d_plain(x, w))
+    assert torch.equal(y, again)
+    p = K7.conv3d_same_plan(2, D, H, W, ci, co, F32)
+    assert p["N"] == (64 if co % 64 == 0 else 32) and p["blocks"] >= 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ci,co,D,H,W", [(32, 32, 3, 19, 37),
+                                         (64, 128, 2, 10, 40)])
+def test_wtile_conv3d_f32_grads_match_plain(f32_exact, ci, co, D, H, W):
+    g = torch.Generator(device=f32_exact).manual_seed(5)
+    x0 = torch.randn((2, D, H, W, ci), device=f32_exact, generator=g)
+    w0 = torch.randn((3, 3, 3, ci, co), device=f32_exact, generator=g) * 0.05
+
+    def run(fn):
+        x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+        (fn(x, w) ** 2).sum().backward()
+        return x.grad, w.grad
+
+    before = K7.conv3d_same.launches
+    dx, dw = run(K7.wtile_conv3d)
+    torch.cuda.synchronize()
+    assert K7.conv3d_same.launches == before + 2
+    for a, b in zip((dx, dw), run(K7.wtile_conv3d_plain)):
+        _rel_close(a, b)

@@ -119,14 +119,16 @@ def test_unported_options_raise():
     from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch import config as tcfg
     from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.inference.predictor import (
         Predictor)
-    # float32 with the ps2d region: the kernels' f32 forms are not
-    # ported, and the forward refuses rather than leave the region
-    pred = Predictor(tcfg.Config(model=tcfg.ModelConfig(
-        features=(32, 64), compute_dtype="float32", ps2d_eval=True)),
-        device="cpu")
-    with pytest.raises(NotImplementedError, match="float32 forms"):
-        pred.segment_tumor(np.zeros((8, 8, 8, 4), np.float32),
-                           mode="whole_volume")
+    # float32 with the ps2d region is no longer refused: it runs on the
+    # kernels' f32 forms (their plain versions here) and in the region
+    pred = Predictor(tcfg.Config(
+        model=tcfg.ModelConfig(features=(32, 64), compute_dtype="float32",
+                               ps2d_eval=True),
+        data=tcfg.DataConfig(image_size=(16, 16, 16))), device="cpu")
+    assert pred.seg_model.halo_levels((16, 16, 16)) == 1
+    lab = pred.segment_tumor(np.zeros((8, 8, 8, 4), np.float32),
+                             mode="whole_volume")
+    assert lab.shape == (8, 8, 8)
     model = UNet3D(features=(32, 64), device="cpu")
     # fewer than 2**levels voxels on an axis
     with pytest.raises(ValueError):
