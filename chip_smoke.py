@@ -115,6 +115,25 @@ kernels' readings are taken as in the runs before them:
      request and train step timed beside the normal path's, and the f32
      forms' rows of the kernels line;
 
+Phase 14, after them all:
+
+  14. cli — the headless batch path: the host library (built beside the
+     kernels in phase build; g++, OpenMP and zlib.h checked, its threads
+     printed), the three volumes as a BraTS-layout cohort (int16 .nii.gz
+     at gzip level 1, a uint8 seg with enhancing tumour stored as 4, one
+     case at 1x1x1.5 mm), every file's native decode bit-equal to the
+     NumPy codec; pass A, ``predict_main`` as users run it (the default
+     preset, region off: no launch), each mask and confidence bit-equal
+     to ``Predictor.segment_with_confidence``; pass B through the seam
+     ``_predict`` at ps2d_eval, ps2d_levels=2 with --report
+     --brats_labels --format nii.gz: K1 14 / K2 4 / K3 4 / K4 2 launches
+     a case, masks bit-equal to the predictor's labels with 3 -> 4, each
+     mask's affine its input's, every report with GT quality metrics;
+     then ``evaluate_main`` on pass B's masks, each case equal to
+     ``evaluate_case`` on the arrays; each case's host ms by stage and
+     each pass's wall per case. The app and trainer phases print which
+     reader decoded their files;
+
 It prints the per-kernel JSON line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Any failure, or a run past
 its own time budget, exits non-zero without that last line.
@@ -380,7 +399,8 @@ def main() -> int:
         sw = import_module(PKG + ".inference.sliding_window")
         for m in (".serve.app", ".data.nifti", ".ops.stats",
                   ".train.trainer", ".train.checkpoints", ".data.pipeline",
-                  ".serve.jobs"):
+                  ".serve.jobs", ".data.native", ".inference.cli",
+                  ".inference.evaluate"):
             import_module(PKG + m)     # the later phases', in the JAX check
     except ImportError as e:
         print(f"chip_smoke: run from the root of a checkout ({e})",
@@ -400,6 +420,28 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 1
     def build():
+        """The kernels (one nvcc per source) and, beside them in a thread,
+        the host library (g++, ``data/native.py``)."""
+        import logging
+        import threading
+        hn = import_module(PKG + ".data.native")
+        host = {}
+
+        class Warned(logging.Handler):
+            def emit(self, record):
+                host.setdefault("log", record.getMessage())
+
+        def build_host():
+            handler = Warned(logging.WARNING)
+            hn.logger.addHandler(handler)
+            t = time.perf_counter()
+            try:
+                host["ok"] = hn.get_lib() is not None
+            finally:
+                host["s"] = time.perf_counter() - t
+                hn.logger.removeHandler(handler)
+        thread = threading.Thread(target=build_host)
+        thread.start()
         b = native.build()
         print(f"nvcc: {b.seconds:.2f} s -> {b.path.name}")
         for line in b.log.splitlines():
@@ -407,6 +449,12 @@ def main() -> int:
                     or "spill" in line:
                 print("  " + line.strip())
         native.library()
+        thread.join()
+        report["host_build_s"] = host["s"]
+        report["host_build_log"] = " ".join(
+            host.get("log", "no message").split())[:600]
+        print(f"g++ (host library): {host['s']:.2f} s, "
+              f"{'loaded' if host.get('ok') else 'unavailable'}")
         return b
     built = run.phase("build", build)
 
@@ -999,8 +1047,28 @@ def main() -> int:
             for k in steady[0]["phases_ms"]) + f"; wall "
             f"{np.mean([r['wall_s'] for r in steady]) * 1e3:.2f} ms "
             f"(first upload {rows[0]['wall_s'] * 1e3:.2f} ms)")
+        # which reader decoded the uploads, and both on one payload
+        hn = import_module(PKG + ".data.native")
+        with tempfile.NamedTemporaryFile(suffix=".nii.gz") as f:
+            f.write(gzip.compress(nifti.encode(vols[1]), compresslevel=1))
+            f.flush()
+            t = time.perf_counter()
+            native_vol = hn.read_nifti(f.name)
+            native_ms = 1e3 * (time.perf_counter() - t)
+            t = time.perf_counter()
+            codec_vol = nifti.load_volume(f.name)
+            codec_ms = 1e3 * (time.perf_counter() - t)
+        check(native_vol is None or np.array_equal(native_vol, codec_vol),
+              "the native reader differs from the NumPy codec")
+        print("app decode: " + (
+            f"the native host library read the uploads; upload 2's payload "
+            f"again: native {native_ms:.2f} ms" if native_vol is not None
+            else f"the native reader declines a 4-D upload (None in "
+                 f"{native_ms:.2f} ms), so the NumPy codec read them") +
+            f"; the NumPy codec on upload 2's payload: {codec_ms:.2f} ms")
         report["app"] = {"uploads": rows, "launches": total,
-                         "pictures": pictures}
+                         "pictures": pictures, "native_decode_ms": native_ms,
+                         "codec_decode_ms": codec_ms}
     run.phase("app", app)
 
     # ---------------------------------------------------------------- 6
@@ -1330,6 +1398,11 @@ def main() -> int:
                   f"train-step launches {steps} != {want}")
             check(len(vals) == 2 and all(c == per_fwd for c in vals),
                   f"validation-forward launches {vals} != {per_fwd}")
+            hn = import_module(PKG + ".data.native")
+            print(f"trainer decode: the "
+                  f"{'native host library' if hn.available() else 'NumPy codec'}"
+                  f" read the cohort; loader wait at epoch 1's first batch "
+                  f"{1e3 * tr.timing['loader_wait_s'][0]:.2f} ms")
             step_ms = [1e3 * v for v in tr.timing["step_s"]]
             event_step_ms = [a.elapsed_time(b) for a, b in step_events]
             wait_ms = [1e3 * v for v in tr.timing["loader_wait_s"]]
@@ -2252,10 +2325,277 @@ def main() -> int:
     # tensors of the kernel phases go
     del forms, k3_in, k2_in, k4_in, forms6, gforms, k7_in
     torch.cuda.empty_cache()
+    # ---------------------------------------------------------------- 14
+    def cli():
+        """The headless batch path: the host library, a BraTS-layout
+        cohort of the three volumes (int16 .nii.gz, gzip level 1, a seg
+        with enhancing tumour stored as 4, one case at 1x1x1.5 mm), each
+        file's native decode against the NumPy codec, the predict CLI as
+        users run it (pass A) and through its seam at the serving setting
+        (pass B), then the evaluate CLI on pass B's masks."""
+        import gzip
+        import logging
+        import os
+        import re
+        import shutil
+        import tempfile
+        from concurrent.futures import ThreadPoolExecutor
+        from dataclasses import replace
+
+        from scipy import ndimage
+        CLI = import_module(PKG + ".inference.cli")
+        EV = import_module(PKG + ".inference.evaluate")
+        hn = import_module(PKG + ".data.native")
+        ds = import_module(PKG + ".data.dataset")
+        nifti = import_module(PKG + ".data.nifti")
+        pre = import_module(PKG + ".data.preprocess")
+
+        # 1. the host library (built beside the kernels in phase build)
+        probe = subprocess.run(
+            ["sh", "-c", "g++ --version | head -n 1; echo | g++ -fopenmp "
+             "-x c - -E >/dev/null && echo 'openmp: ok'; ls "
+             "/usr/include/zlib.h"], capture_output=True, text=True,
+            timeout=120)
+        print("host toolchain: " + "; ".join(
+            (probe.stdout + probe.stderr).strip().splitlines()))
+        if hn.available():
+            print(f"host native: {hn.library_path().name}, built in "
+                  f"{report['host_build_s']:.2f} s, {hn.host_threads()} "
+                  f"OpenMP threads")
+        else:
+            print(f"host native: unavailable ({report['host_build_log']}); "
+                  f"holding the plain paths instead")
+
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+        try:
+            # 2. the cohort: <case>/<case>_{modality}.nii.gz in int16 and
+            # <case>_seg.nii.gz in uint8, as BraTS ships them
+            root = os.path.join(tmp, "cohort")
+            mods = cfg.BRATS_MODALITIES
+            spacing = {0: None, 1: np.diag([1.0, 1.0, 1.5, 1.0]), 2: None}
+            gts = {}
+            jobs = []
+            for s, vol in enumerate(vols):
+                cid = f"BraTS-Smoke-{s:04d}"
+                os.makedirs(os.path.join(root, cid))
+                tumour = vol[..., 0] > 0.95
+                seg = np.zeros(VOLUME_SHAPE, np.uint8)
+                seg[tumour] = 2
+                seg[ndimage.binary_erosion(tumour, iterations=4)] = 4
+                seg[ndimage.binary_erosion(tumour, iterations=8)] = 1
+                gts[cid] = seg
+                for m, mod in enumerate(mods):
+                    jobs.append((os.path.join(root, cid, f"{cid}_{mod}.nii.gz"),
+                                 np.round(vol[..., m] * 1000).astype(np.int16),
+                                 spacing[s]))
+                jobs.append((os.path.join(root, cid, f"{cid}_seg.nii.gz"), seg,
+                             spacing[s]))
+
+            def write(job):
+                path, data, affine = job
+                with open(path, "wb") as f:
+                    f.write(gzip.compress(nifti.encode(data, affine=affine),
+                                          compresslevel=1))
+            t = time.perf_counter()
+            with ThreadPoolExecutor(8) as pool:
+                list(pool.map(write, jobs))
+            print(f"cli cohort: 3 cases x (4 int16 + 1 seg) .nii.gz of "
+                  f"{VOLUME_SHAPE} written in {time.perf_counter() - t:.2f} s")
+
+            # 3. every file: the native decode bit-equal to the NumPy codec
+            decode = {"native": [], "numpy": []}
+            for path, data, _ in jobs:
+                t = time.perf_counter()
+                a = hn.read_nifti(path)
+                t_native = time.perf_counter() - t
+                t = time.perf_counter()
+                b = nifti.load_volume(path)
+                t_numpy = time.perf_counter() - t
+                if hn.available():
+                    check(a is not None and a.dtype == b.dtype
+                          and np.array_equal(a, b)
+                          and np.array_equal(b, data.astype(np.float32)),
+                          f"{os.path.basename(path)}: native decode differs "
+                          "from the NumPy codec")
+                    decode["native"].append(1e3 * t_native)
+                decode["numpy"].append(1e3 * t_numpy)
+                print(f"  decode {os.path.basename(path)}: native "
+                      f"{1e3 * t_native:.2f} ms, NumPy codec "
+                      f"{1e3 * t_numpy:.2f} ms"
+                      + (", bit-equal" if hn.available() else ""))
+
+            stages = []
+
+            class Stages(logging.Handler):
+                """The CLI's per-case stage lines; the launch counts at
+                each case's closing line."""
+
+                def emit(self, record):
+                    msg = record.getMessage()
+                    m = re.fullmatch(r"case (\S+) (\w+): ([0-9.]+) ms", msg)
+                    if m:
+                        stages.append((m.group(1), m.group(2),
+                                       float(m.group(3))))
+                    elif re.fullmatch(r"\S+: \d+ tumor voxels in .*", msg):
+                        stages.append((msg.split(":")[0], "launches",
+                                       {k.__name__: k.launches
+                                        for k in counted}))
+                    elif record.levelno >= logging.WARNING:
+                        print(self.format(record), file=sys.stderr)
+            log = logging.getLogger(CLI.__name__)
+            handler = Stages()
+            log.addHandler(handler)
+            log.setLevel(logging.INFO)
+
+            def cases_of(before=None):
+                rows, prev = {}, dict(before or {})
+                for cid, stage, v in stages:
+                    row = rows.setdefault(cid, {})
+                    if stage == "launches":
+                        row["launches"] = {k: v[k] - prev.get(k, 0)
+                                           for k in v}
+                        prev = v
+                    else:
+                        row[stage] = v
+                return rows
+
+            def norm_of(case_dir, cid):
+                raw = np.stack([ds.load_any_volume(os.path.join(
+                    case_dir, f"{cid}_{mod}.nii.gz")) for mod in mods], -1)
+                return pre.preprocess_multimodal(
+                    torch.from_numpy(raw).to(dev), None).cpu().numpy()
+
+            try:
+                # 4. pass A, as users run it: the default preset, region off
+                out_a = os.path.join(tmp, "pass_a")
+                stages.clear()
+                t = time.perf_counter()
+                summ_a, counts_a = request_counts(lambda: CLI.predict_main(
+                    ["--input", root, "--output", out_a, "--checkpoint",
+                     "none", "--save_confidence", "--format", "npy"]))
+                wall_a = time.perf_counter() - t
+                check(not any(counts_a.values()),
+                      f"pass A (region off) launched {counts_a}")
+                rows_a = cases_of()
+                conf_a = cfg.get_config("standard")
+                check(not conf_a.model.ps2d_eval
+                      and conf_a.model.features == (32, 64, 128, 256, 512),
+                      "pass A is not the full-width default preset")
+                ref = Predictor(conf_a)
+                for sm in summ_a:
+                    cid = sm["case_id"]
+                    lab, cf = ref.segment_with_confidence(
+                        norm_of(os.path.join(root, cid), cid), mode="cropped")
+                    got_l = np.load(sm["mask"])
+                    got_c = np.load(sm["confidence"])
+                    check(got_l.dtype == lab.dtype and np.array_equal(got_l, lab)
+                          and got_c.dtype == cf.dtype
+                          and np.array_equal(got_c, cf),
+                          f"pass A {cid}: mask or confidence differs from "
+                          "Predictor.segment_with_confidence")
+                del ref
+                print(f"cli pass A (predict_main, default preset, region off, "
+                      f"npy + confidence): {len(summ_a)} cases in "
+                      f"{wall_a:.2f} s, masks and confidences bit-equal to "
+                      f"the predictor's; launches {counts_a}")
+
+                # 5. pass B, the seam at the serving setting
+                out_b = os.path.join(tmp, "pass_b")
+                base = cfg.get_config("standard")
+                conf_b = base.replace(model=replace(
+                    base.model, ps2d_eval=True, ps2d_levels=2))
+                args = CLI.build_parser().parse_args(
+                    ["--input", root, "--output", out_b, "--checkpoint",
+                     "none", "--report", "--brats_labels", "--format",
+                     "nii.gz"])
+                stages.clear()
+                t = time.perf_counter()
+                summ_b, counts_b = request_counts(
+                    lambda: CLI._predict(args, conf_b))
+                wall_b = time.perf_counter() - t
+                rows_b = cases_of()
+                per_case = launches_of(conv3d_halo=14, up_k2s2_into_halo=4,
+                                       pack_halo=4, pool_into_halo=2)
+                check(len(summ_b) == 3 and all(
+                    rows_b[s["case_id"]]["launches"] == per_case
+                    for s in summ_b), f"pass B launches per case "
+                    f"{[rows_b[s['case_id']]['launches'] for s in summ_b]}"
+                    f" != {per_case}")
+                index = json.load(open(os.path.join(out_b, "predictions.json")))
+                check([c["case_id"] for c in index["cases"]] == sorted(gts),
+                      f"predictions.json lists {index['cases']}")
+                ref = Predictor(conf_b)
+                preds = {}
+                for sm in summ_b:
+                    cid = sm["case_id"]
+                    img = os.path.join(root, cid, f"{cid}_{mods[0]}.nii.gz")
+                    lab, _ = ref.segment_with_confidence(
+                        norm_of(os.path.join(root, cid), cid), mode="cropped")
+                    want = np.where(lab == 3, 4, lab).astype(np.uint8)
+                    got = nifti.load(sm["mask"])
+                    check(got.data.dtype == np.uint8
+                          and np.array_equal(got.data, want),
+                          f"pass B {cid}: mask differs from the predictor's "
+                          "labels with 3 -> 4")
+                    check(np.array_equal(nifti.load_affine(sm["mask"]),
+                                         nifti.load_affine(img)),
+                          f"pass B {cid}: the mask's affine is not its input's")
+                    rep = json.load(open(sm["report"]))
+                    check(rep.get("quality_metrics", {}).get("estimated")
+                          is False, f"pass B {cid}: no GT quality metrics")
+                    preds[cid] = want
+                del ref
+                print(f"cli pass B (_predict, ps2d_eval, ps2d_levels=2, "
+                      f"--report --brats_labels, nii.gz at gzip level 9): "
+                      f"{len(summ_b)} cases in {wall_b:.2f} s, launches per "
+                      f"case {per_case}, masks bit-equal (3 -> 4), affines "
+                      f"kept, reports with GT quality metrics")
+            finally:
+                log.removeHandler(handler)
+
+            # 6. the evaluate CLI on pass B's masks
+            t = time.perf_counter()
+            res = EV.evaluate_main(["--pred", out_b, "--gt", root])
+            eval_s = time.perf_counter() - t
+            check(res["n_cases"] == 3, f"evaluated {res['n_cases']} cases")
+
+            def recompute(cid):
+                sp = nifti.affine_spacing(nifti.load_affine(os.path.join(
+                    root, cid, f"{cid}_seg.nii.gz")))
+                return EV.evaluate_case(preds[cid], gts[cid], spacing=sp)
+            # the host EDTs release the GIL: one thread a case
+            with ThreadPoolExecutor(3) as pool:
+                wants = dict(zip(res["cases"], pool.map(recompute,
+                                                        res["cases"])))
+            for cid, m in res["cases"].items():
+                want = wants[cid]
+                check(list(m) == list(want) and all(
+                    (a == b) or (np.isnan(a) and np.isnan(b))
+                    for a, b in zip(m.values(), want.values())),
+                    f"evaluate {cid}: {m} != {want}")
+            print(f"cli evaluate: 3 cases in {eval_s:.2f} s, each equal to "
+                  f"evaluate_case on the arrays (HD95 in the GT header's mm)")
+
+            # 7. timings
+            for name, rows, wall in (("A", rows_a, wall_a),
+                                     ("B", rows_b, wall_b)):
+                for cid, row in rows.items():
+                    print(f"  pass {name} {cid}: " + ", ".join(
+                        f"{k} {v:.2f} ms" for k, v in row.items()
+                        if k != "launches"))
+                print(f"  pass {name}: {wall / 3:.3f} s wall per case")
+            report["cli"] = {
+                "launches": counts_b, "launches_a": counts_a,
+                "decode_ms": decode, "wall_a_s": wall_a, "wall_b_s": wall_b,
+                "rows_a": rows_a, "rows_b": rows_b, "eval_s": eval_s}
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
     run.phase("f32", f32)
     run.phase("trainer", trainer)
     run.phase("webtrain", webtrain)
     kernels_json += run.phase("f32region", f32region)
+    run.phase("cli", cli)
 
     # launches per path: the server requests' (K1-K4), the five
     # train steps' (K1, forwards and K6's data gradients), the
@@ -2269,6 +2609,7 @@ def main() -> int:
              "trainer": report["trainer"]["launches"],
              "trainer_steps": report["trainer"]["step_launches"],
              "webtrain": report["webtrain"]["launches"],
+             "cli": report["cli"]["launches"],
              "groupnorm": report["groupnorm"]["launches"],
              "wtile": report["wtile"]["launches"]}
     paths32 = {"f32region": report["f32region"]["launches"],
@@ -2323,6 +2664,14 @@ def main() -> int:
           f"{[round(v, 2) for v in stp['region']]} ms against "
           f"{[round(v, 2) for v in stp['normal']]} ms; launches per request "
           f"{fr['launches']}, per five steps {fr['train_launches']}")
+    cl = report["cli"]
+    print(f"cli (full width, 3 BraTS-layout cases): pass A "
+          f"{cl['wall_a_s'] / 3:.3f} s a case (default preset, npy), pass B "
+          f"{cl['wall_b_s'] / 3:.3f} s a case (ps2d_levels=2, report, "
+          f"nii.gz); native decode {np.median(cl['decode_ms']['native'] or [0]):.2f}"
+          f" ms against the NumPy codec's "
+          f"{np.median(cl['decode_ms']['numpy']):.2f} ms per file (median); "
+          f"evaluate {cl['eval_s']:.2f} s")
     print(f"total {time.perf_counter() - run.t0:.2f} s")
     print(json.dumps({"kernels": kernels_json}))
     print(smi)

@@ -3,9 +3,10 @@
 cohort ``BraTS2024Dataset`` and the single-file ``BrainTumorDataset``.
 
 The host side stays thin (file scan, decode, cache); the numerics run on
-the device (``preprocess.py``). NIfTI is decoded by the port's NumPy
-codec, JAX's reference path (its native reader is not ported), and the
-zoom of ``BrainTumorDataset`` is SciPy's, JAX's fallback branch.
+the device (``preprocess.py``). NIfTI is decoded by the native host
+reader (``native.py``), else by the port's NumPy codec, and the zoom of
+``BrainTumorDataset`` is the half-pixel resample of ``native.zoom``, as in
+JAX.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..config import BRATS_MODALITIES
-from . import nifti
+from . import native, nifti
 
 _VOLUME_EXTS = (".nii.gz", ".nii", ".npy")
 
@@ -41,12 +42,16 @@ def _decode_pool() -> ThreadPoolExecutor:
 
 
 def load_any_volume(path: str) -> np.ndarray:
-    """Decode .nii / .nii.gz (the port's NumPy codec), .npy, or a 2D image
-    (through PIL, stacked into a 128-slice fake volume) to float32."""
+    """Decode .nii / .nii.gz (the native reader, else the port's NumPy
+    codec), .npy, or a 2D image (through PIL, stacked into a 128-slice
+    fake volume) to float32."""
     p = str(path)
     if p.endswith(".npy"):
         return np.load(p).astype(np.float32)
     if p.endswith(".nii") or p.endswith(".nii.gz"):
+        vol = native.read_nifti(p)
+        if vol is not None:
+            return np.ascontiguousarray(vol)
         return nifti.load_volume(p)
     # 2D image: grayscale stacked into a fake volume
     from PIL import Image
@@ -173,10 +178,14 @@ class BrainTumorDataset:
 
 def _zoom_to(vol: np.ndarray, size: Tuple[int, int, int],
              order: int = 1) -> np.ndarray:
-    """``scipy.ndimage.zoom`` to exactly ``size`` (its rounding may miss
-    by a voxel: cropped or zero-padded)."""
+    """``native.zoom`` (orders 0 and 1: the half-pixel resample of
+    ``jax.image.resize``), else ``scipy.ndimage.zoom`` to exactly ``size``
+    (its rounding may miss by a voxel: cropped or zero-padded)."""
     if vol.shape == tuple(size):
         return vol
+    out = native.zoom(np.asarray(vol, np.float32), tuple(size), order=order)
+    if out is not None:
+        return out
     from scipy import ndimage
     factors = [t / s for t, s in zip(size, vol.shape)]
     out = ndimage.zoom(vol, factors, order=order)

@@ -91,6 +91,16 @@ def save_checkpoint(path: str, state: TrainState,
                     metrics_history: Optional[Dict[str, Any]] = None
                     ) -> str:
     """Write the state tree and the metadata; ``path`` is a directory."""
+    return save_tree(path, state_tree(state), best_dice, epoch,
+                     metrics_history)
+
+
+def save_tree(path: str, tree: Mapping[str, Any],
+              best_dice: float = 0.0, epoch: int = 0,
+              metrics_history: Optional[Dict[str, Any]] = None) -> str:
+    """Write a state tree as ``state_tree`` gives it (numpy or tensor
+    leaves; what a converted Orbax checkpoint holds) and the metadata;
+    ``path`` is a directory."""
     path = _ckpt_dir(path)
     state_dir = os.path.join(path, "state")
     tmp_dir = os.path.join(path, "state.tmp")
@@ -99,7 +109,7 @@ def save_checkpoint(path: str, state: TrainState,
     if os.path.exists(tmp_dir):
         shutil.rmtree(tmp_dir)
     os.makedirs(tmp_dir)
-    torch.save(_tensors(state_tree(state)), os.path.join(tmp_dir, _STATE))
+    torch.save(_tensors(_arrays(tree)), os.path.join(tmp_dir, _STATE))
     if os.path.exists(state_dir):
         shutil.rmtree(state_dir)
     os.rename(tmp_dir, state_dir)

@@ -1,7 +1,8 @@
 """The port imports no JAX: every module of the port package is
 imported in a fresh interpreter, which then must hold neither ``jax``,
 ``jaxlib``, ``flax``, ``optax``, ``orbax`` nor any module of the JAX
-package; the trainer's modules are among those imported."""
+package; the trainer's modules and the headless batch path's are among
+those imported."""
 
 import subprocess
 import sys
@@ -39,6 +40,12 @@ TRAINER_MODULES = ("config", "data.dataset", "data.pipeline",
                    "data.preprocess", "train.checkpoints", "train.trainer",
                    "train.cli", "train.menu", "serve.jobs", "serve.app",
                    "utils.visualization")
+# the headless batch path's modules (predict and evaluate CLIs, the native
+# host library, the startup entry points), each named as its counterpart
+BATCH_MODULES = ("data.native", "data.data_utils", "inference._files",
+                 "inference.cli", "inference.evaluate", "utils.profiling",
+                 "utils.torch_interop", "environment", "setup_project",
+                 "start_app", "__main__")
 
 
 def test_trainer_modules_import_without_jax():
@@ -47,6 +54,6 @@ def test_trainer_modules_import_without_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     names = set(proc.stdout.splitlines()[1].split())
-    for m in TRAINER_MODULES:
+    for m in TRAINER_MODULES + BATCH_MODULES:
         assert f"{PORT}.{m}" in names, m
         assert (root / REF / (m.replace(".", "/") + ".py")).is_file(), m
