@@ -105,7 +105,10 @@ kernels' readings are taken as in the runs before them:
      plain version at the serving shapes (K3, K4 bit-exact; K1's six
      forms, K2's two levels, K6's three forms and K7's nine shapes plus
      its VJP within 1e-5 max|ref|; K1's output and statistics, K2 and K7
-     bit-identical over two runs); the server's request on a full-width
+     bit-identical over two runs); K1's f32 form (three bf16 wgmma passes
+     over an exact split of its activations) against a float64 conv of
+     the same inputs on the card, at most 4x the plain f32 conv's own
+     error at each form, with its launch geometry; the server's request on a full-width
      Predictor(compute_dtype="float32", ps2d_eval, ps2d_levels=2) with K1
      14 / K2 4 / K3 4 / K4 2 launches, one window batch of it within
      1e-4 max(scale, 1) of the f32 normal path (TF32 off) given K1's
@@ -1756,21 +1759,23 @@ def main() -> int:
     # the timing rows of each kernel form: (shape, kernel, plain version,
     # library call, (bound ms, bound by), reps[, pieces timed apart]); the
     # bound's operations at ``peak`` (bf16 tensor cores by default)
-    def conv_row(name, kw, reps, peak=PEAK_BF16_FLOPS):
-        """K1 at one call form."""
+    def conv_row(name, kw, reps, passes=1):
+        """K1 at one call form; its bound's operations those of
+        ``passes`` bf16 passes on the tensor cores (3 for the f32 form:
+        three passes over an exact split of its activations)."""
         xs, w = kw["xs"], kw["w"]
         y = T.conv3d_halo(emit_stats=True, **kw)[0]
         xcat = torch.cat([T.halo_to_normal(t) for t in xs], -1).permute(
             0, 4, 1, 2, 3)
         wn = w.permute(4, 3, 0, 1, 2).contiguous()
         n = xs[0].shape[0] * T.interior_count(xs[0])
-        flops = 2.0 * 27 * w.shape[3] * w.shape[4] * n
+        flops = passes * 2.0 * 27 * w.shape[3] * w.shape[4] * n
         return (name, lambda: T.conv3d_halo(emit_stats=True, **kw),
                 lambda: T.conv3d_halo_plain(emit_stats=True, **kw),
                 lambda: F.conv3d(xcat, wn, padding=1),
                 bound_ms(nbytes(*xs, w, kw.get("in_mul0"),
                                 kw.get("in_scale"), kw.get("in_shift"), y),
-                         flops, peak), reps)
+                         flops), reps)
 
     def up_row(label, x2, w2, b2, reps, peak=PEAK_BF16_FLOPS):
         """K2 at one level."""
@@ -1801,9 +1806,12 @@ def main() -> int:
                 lambda: F.pad(F.max_pool3d(x4n, 2), (1, 1, 1, 1, 1, 1)),
                 bound_ms(nbytes(x4n, y4), 0.0), reps)
 
-    def train_row(name, xs, w, dy, reps, peak=PEAK_BF16_FLOPS):
+    def train_row(name, xs, w, dy, reps, f32_peak=None):
         """K6 at one call form: forward + both gradients (the function),
-        and the three pieces apart."""
+        and the three pieces apart. The bound's operations on the tensor
+        cores in bf16; with ``f32_peak`` (the f32 form) the forward and
+        the data gradients as K1 f32's three bf16 passes each, and the
+        weight gradient (cuDNN, f32) at ``f32_peak``."""
         cis = [x.shape[-1] for x in xs]
         xr = [x.clone().requires_grad_() for x in xs]
         wr = w.clone().requires_grad_()
@@ -1824,6 +1832,8 @@ def main() -> int:
 
         n = xs[0].shape[0] * T.interior_count(xs[0])
         flops = 3 * 2.0 * 27 * sum(cis) * w.shape[-1] * n
+        if f32_peak:        # in operations at the bf16 peak
+            flops = flops / 3 * (2 * 3 + PEAK_BF16_FLOPS / f32_peak)
         # reads xs, w, dy; writes y, the dxs (as large as the xs), dw
         nb = 2 * nbytes(*xs, w) + 2 * nbytes(dy)
         pieces = {
@@ -1834,7 +1844,7 @@ def main() -> int:
         }
         return (name, fwd_bwd(T.conv3d_halo_train),
                 fwd_bwd(T.conv3d_halo_train_plain), library,
-                bound_ms(nb, flops, peak), reps, pieces)
+                bound_ms(nb, flops), reps, pieces)
 
     def wtile_row(name, x, w, reps, peak=PEAK_BF16_FLOPS):
         """K7 forward at one benchmark shape."""
@@ -2002,8 +2012,23 @@ def main() -> int:
             del got
         report["up_k2s2_into_halo_f32"] = {"max_abs_err": worst}
 
+        def f64_conv(kw):
+            """K1's function in float64 on the card: x' (the inputs after
+            the on-load transform, in f32 as the kernel and the plain
+            version compute it) and the weights rounded to bf16, one
+            VALID conv over the halo -> (B, D, H, W, co)."""
+            vs = T._transform_inputs(kw["xs"], kw.get("in_scale"),
+                                     kw.get("in_shift"),
+                                     kw.get("in_relu", False),
+                                     kw.get("in_mul0"))
+            xd = torch.cat(vs, -1).double().permute(0, 4, 1, 2, 3)
+            del vs
+            wd = kw["w"].to(bf16).double().permute(4, 3, 0, 1, 2)
+            return F.conv3d(xd.contiguous(), wd.contiguous()).permute(
+                0, 2, 3, 4, 1)
+
         forms32 = k1_forms(f32)
-        worst = 0.0
+        worst, ratios = 0.0, []
         for name, kw in forms32.items():
             y, (s1, s2) = T.conv3d_halo(emit_stats=True, **kw)
             y2, (t1, t2) = T.conv3d_halo(emit_stats=True, **kw)
@@ -2020,17 +2045,34 @@ def main() -> int:
             print(f"conv3d_halo f32 {name}: max_abs_err {e} (tolerance "
                   f"{tol} = 1e-5 max|ref|); stats within 1e-5; two runs "
                   f"bit-identical (y, stats): {same}; halo zero: "
-                  f"{halo_zero(y)}; launch {geo}")
+                  f"{halo_zero(y)}; launch N {geo['N']}, KC {geo['KC']}, "
+                  f"M {geo['M']}, patch {geo['TD']}x{geo['TH']}x"
+                  f"{geo['TW']}, blocks {geo['blocks']}, smem "
+                  f"{geo['smem']} B")
             check(same and halo_zero(y), f"conv3d_halo f32 {name}")
             worst = max(worst, e)
-            del y, y2, yr
+            del y2
+            # the split loses nothing: against float64 of the same x' and
+            # rounded w, the kernel errs at most 4x as much as the plain
+            # f32 conv (TF32 off)
+            ref64 = f64_conv(kw)
+            ek = (T.halo_to_normal(y).double() - ref64).abs().max().item()
+            ep = (T.halo_to_normal(yr).double() - ref64).abs().max().item()
+            ratios.append(ek / ep)
+            print(f"conv3d_halo f32 {name} vs float64 on the card: kernel "
+                  f"{ek:.4e}, plain f32 {ep:.4e}, ratio {ek / ep:.4f} "
+                  f"(bound 4)")
+            check(ek <= 4 * ep, f"conv3d_halo f32 {name}: the kernel errs "
+                  f"{ek} against float64, over 4x the plain f32's {ep}")
+            del y, yr, ref64
         for i, line in enumerate(built.log.splitlines()):
             if "entry function" in line and "_f32" in line:
                 info = [x.strip().removeprefix("ptxas info    : ")
                         for x in built.log.splitlines()[i + 1:i + 4]
                         if "Used" in x or "spill" in x]
                 print(f"  {line.split(chr(39))[1]}: {'; '.join(info)}")
-        report["conv3d_halo_f32"] = {"max_abs_err": worst}
+        report["conv3d_halo_f32"] = {"max_abs_err": worst,
+                                     "f64_error_ratio": ratios}
 
         TB = 2
         k6, worst = {}, 0.0
@@ -2293,7 +2335,7 @@ def main() -> int:
 
         rows = [
             ("conv3d_halo_f32", "ps2d_conv3d_f32.cu", "ps2d.py:667",
-             [conv_row(n, kw, 5, peak) for n, kw in forms32.items()]),
+             [conv_row(n, kw, 5, passes=3) for n, kw in forms32.items()]),
             ("up_k2s2_into_halo_f32", "up_k2s2_into_halo_f32.cu",
              "ps2d.py:228", [up_row(f"{lvl} {shape}", x2, w2, b2, 10, peak)
                              for lvl, (x2, w2, b2, shape) in k2.items()]),
@@ -2302,7 +2344,7 @@ def main() -> int:
             ("pool_into_halo_f32", "pool_into_halo.cu", "ps2d.py:316",
              [pool_row(x4, 10)]),
             ("conv3d_halo_train_f32", "ps2d_conv3d_f32.cu", "ps2d.py:840",
-             [train_row(n, *v, 3, peak) for n, v in k6.items()]),
+             [train_row(n, *v, 3, f32_peak=peak) for n, v in k6.items()]),
             ("conv3d_same_f32", "conv3d_same_f32.cu", "conv3d.py:338",
              [wtile_row(n, x, w, 3 if x.numel() > 2e8 else 10, peak)
               for n, (x, w) in k7.items()]
@@ -2310,13 +2352,24 @@ def main() -> int:
                               rnd32(k7[first][0].shape[:-1]
                                     + (k7[first][1].shape[-1],)), 2, peak)]),
         ]
+        notes = {
+            "conv3d_halo_f32": "max(bytes / 3.35 TB/s, three bf16 passes' "
+                               "operations / 989 TFLOP/s)",
+            "conv3d_halo_train_f32": "max(bytes / 3.35 TB/s, the forward "
+                                     "and data gradients as three bf16 "
+                                     "passes / 989 TFLOP/s + the weight "
+                                     "gradient / the f32 FMA peak)"}
         out = []
         for name, src, line, fs in rows:
+            note = notes.get(name, "max(bytes / 3.35 TB/s, operations / "
+                                   "the f32 FMA peak)")
+            print(f"{name}: bound = {note}")
             timed = time_forms(name, fs)
             if name == "conv3d_same_f32":
                 total_sampled(timed[:len(k7)], name)
-            out.append(kernel_entry(name, src, line, timed,
-                                    1 if name == "conv3d_halo_f32" else 0))
+            out.append({**kernel_entry(name, src, line, timed,
+                                       1 if name == "conv3d_halo_f32" else 0),
+                        "bound_note": note})
         print(f"card after the f32 timings: {card_state()}")
         return out
 

@@ -19,6 +19,16 @@ launches between CUDA events; the script prints the median per build.
     statistics (no ``ps2d_conv3d_plan``, PR 9's and earlier) is called
     with its own statistics buffer. Prints each form's launch geometry in
     this build and each build's share of the form's bound.
+  * ``--kernel k1f32``: K1's f32 form at the same seven forms with f32
+    inputs (values bf16 does not hold), beside ``F.conv3d`` in f32 with
+    TF32 off (``ops.conv.full_f32``, around the whole comparison). Every
+    build's output must lie within 1e-5 * max|ref| of the plain version
+    (f32, TF32 off) and its statistics within 1e-5 relative. A tree whose
+    f32 form is the SIMT kernel of ``simt_conv_f32.cuh`` (before the
+    split design) takes its weights as f32 and plans with seven keys; it
+    is called so. Each build's share of the split design's bound (the
+    bytes, or three bf16 passes' operations on the tensor cores) is
+    printed.
   * ``--kernel k7``: K7 (``ops/conv3d.py::conv3d_same``) at
     ``benchmarks/bench_wtile.py``'s nine shapes (batch 1) and at the data
     gradient of its VJP at the first shape; ``F.conv3d`` on the same
@@ -64,28 +74,30 @@ def event_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def k1_forms(seed: int = 0):
+def k1_forms(seed: int = 0, dtype=None):
     """K1's timed forms: ``chip_smoke.py``'s six (the UNet's level-0 and
     level-1 call forms in the server's batch of 4 windows of 128^3, and
     co = 128 at level 1), then K6's data gradient at enc0.conv2 (batch 2,
-    as the train step runs it, garbage on the cotangent's halo): name ->
-    (kwargs of ``conv3d_halo``, or for the data gradient (dy, w, cis)).
+    as the train step runs it, garbage on the cotangent's halo), with
+    tensors in ``dtype`` (bf16 by default): name -> (kwargs of
+    ``conv3d_halo``, or for the data gradient (dy, w, cis)).
     """
     import torch
     from .ops import ps2d as T
 
+    dtype = dtype or torch.bfloat16
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def rnd(shape, scale=1.0):
         return (torch.randn(shape, device="cuda", generator=g)
-                * scale).to(torch.bfloat16)
+                * scale).to(dtype)
 
     def halo(b, s, c):
         return T.pack_halo_plain(rnd((b, s, s, s, c)))
 
     def mask(s, c):
         return T.pack_halo_plain(torch.rand(
-            (B, s, s, s, c), device="cuda", generator=g).to(torch.bfloat16))
+            (B, s, s, s, c), device="cuda", generator=g).to(dtype))
 
     def conv(ci, co):
         return rnd((3, 3, 3, ci, co), (2 / (27 * co)) ** 0.5)
@@ -288,7 +300,8 @@ def _legacy_k1(lib, xs, w, in_scale=None, in_shift=None, in_relu=False,
     cis, co = [x.shape[-1] for x in xs], w.shape[-1]
     sc = sh = None
     if in_scale is not None or in_shift is not None:
-        sc, sh = T._affine_pair(in_scale, in_shift, B, sum(cis), xs[0].device)
+        sc, sh = T._affine_pair(in_scale, in_shift, B, sum(cis), xs[0].device,
+                                torch.bfloat16)
     y = torch.empty((B, Dp, Hp, Wp, co), dtype=torch.bfloat16,
                     device=xs[0].device)
     stats = torch.zeros((B, 2, co), dtype=torch.float32, device=xs[0].device)
@@ -300,17 +313,65 @@ def _legacy_k1(lib, xs, w, in_scale=None, in_shift=None, in_relu=False,
     return y, (stats[:, 0], stats[:, 1])
 
 
-def compare_k1(libs, use, rounds: int, reps: int) -> dict:
+def _simt_k1_f32(lib, xs, w, in_scale=None, in_shift=None, in_relu=False,
+                 in_mul0=None):
+    """K1's f32 form with statistics through a build whose f32 form is the
+    SIMT kernel (``simt_conv_f32.cuh``, before the split design): it takes
+    the weights as f32 (their values rounded to bf16) and its plan's
+    seventh value is the statistics buffer's block axis."""
+    import ctypes
+
+    import torch
+    from .ops import ps2d as T
+
+    B, Dp, Hp, Wp, _ = xs[0].shape
+    cis, co = [x.shape[-1] for x in xs], w.shape[-1]
+    ci1 = cis[1] if len(xs) > 1 else 0
+    sc = sh = None
+    if in_scale is not None or in_shift is not None:
+        sc, sh = T._affine_pair(in_scale, in_shift, B, sum(cis),
+                                xs[0].device, torch.float32)
+    wf = T._aligned(T._k1_weights(w, torch.float32).detach())
+    fn = lib._dll.ps2d_conv3d_f32_plan
+    fn.argtypes = (ctypes.c_int,) * 7 + (ctypes.c_void_p,)
+    out = (ctypes.c_int * 7)()
+    lib.check("ps2d_conv3d_f32_plan", fn(B, Dp - 2, Hp - 2, Wp - 2, cis[0],
+                                         ci1, co, ctypes.addressof(out)))
+    y = torch.empty((B, Dp, Hp, Wp, co), dtype=torch.float32,
+                    device=xs[0].device)
+    parts = torch.empty((B, out[6], 2, co), dtype=torch.float32,
+                        device=xs[0].device)
+    lib.check("conv3d_halo", lib.ps2d_conv3d_f32(
+        xs[0].data_ptr(), T._ptr(xs[1]) if len(xs) > 1 else None, cis[0],
+        ci1, wf.data_ptr(), T._ptr(sc), T._ptr(sh), int(in_relu),
+        T._ptr(in_mul0), y.data_ptr(), parts.data_ptr(), B, Dp - 2, Hp - 2,
+        Wp - 2, co, T._stream()))
+    stats = parts.sum(1)
+    return y, (stats[:, 0], stats[:, 1])
+
+
+def simt_f32(csrc: Path) -> bool:
+    """Whether the tree's K1 f32 form is the SIMT kernel (f32 weights)."""
+    return "simt_conv_f32.cuh" in (Path(csrc) / "ps2d_conv3d_f32.cu"
+                                   ).read_text()
+
+
+def compare_k1(libs, use, rounds: int, reps: int, f32: bool = False,
+               simt=()) -> dict:
     """K1 at its forms in every build: checked against the plain version,
-    then timed in alternated rounds beside F.conv3d."""
+    then timed in alternated rounds beside F.conv3d. ``f32``: its f32
+    form, held to 1e-5 (output and statistics), the bound that of three
+    bf16 passes; ``simt`` names the builds called as ``_simt_k1_f32``."""
     import numpy as np
     import torch
     import torch.nn.functional as F
     from .ops import ps2d as T
 
+    dtype = torch.float32 if f32 else torch.bfloat16
+    tol_y, tol_s, passes = (1e-5, 1e-5, 3) if f32 else (2 ** -7, 1e-3, 1)
     order = list(libs) + list(libs)[::-1]
     result = {}
-    for name, form in k1_forms().items():
+    for name, form in k1_forms(dtype=dtype).items():
         if isinstance(form, dict):      # a forward, with statistics
             xs, w = form["xs"], form["w"]
             cis = [x.shape[-1] for x in xs]
@@ -318,6 +379,8 @@ def compare_k1(libs, use, rounds: int, reps: int) -> dict:
             ref, sums = T.conv3d_halo_plain(emit_stats=True, **form)
 
             def kern(label, form=form):
+                if label in simt:
+                    return _simt_k1_f32(libs[label], **form)
                 if hasattr(libs[label]._dll, "ps2d_conv3d_plan"):
                     return T.conv3d_halo(emit_stats=True, **form)
                 return _legacy_k1(libs[label], **form)
@@ -328,10 +391,15 @@ def compare_k1(libs, use, rounds: int, reps: int) -> dict:
             xn = T.halo_to_normal(dy)
             ref = T.conv3d_halo_plain((dy * T.halo_mask(dy),), w)
 
-            def kern(label, dy=dy, w0=w0, cis=cis):
+            def kern(label, dy=dy, w=w, w0=w0, cis=cis):
+                if label in simt:
+                    ones = torch.ones((dy.shape[0], dy.shape[-1]),
+                                      device=dy.device)
+                    return _simt_k1_f32(libs[label], (dy,), w, ones,
+                                        ones * 0)[0]
                 return T.conv3d_halo_dgrad(dy, w0, 0, cis)
         ci, co = sum(cis), w.shape[-1]
-        tol = 2 ** -7 * ref.float().abs().max().item()
+        tol = tol_y * ref.float().abs().max().item()
         for label in libs:
             use(label)
             out = kern(label)
@@ -340,27 +408,28 @@ def compare_k1(libs, use, rounds: int, reps: int) -> dict:
             serr = 0.0 if got is None else max(
                 ((s - r).abs().max() / r.abs().max()).item()
                 for s, r in zip(got, sums))
-            if not (err <= tol and serr <= 1e-3):
+            if not (err <= tol and serr <= tol_s):
                 raise SystemExit(f"compare_builds: {label} differs from the "
                                  f"plain version at {name}: {err} (> {tol}?),"
-                                 f" stats {serr} (> 1e-3?)")
+                                 f" stats {serr} (> {tol_s}?)")
             print(f"{name}: {label} max_abs_err {err} (tolerance {tol}); "
-                  f"stats rel err {serr} (tolerance 1e-3)")
+                  f"stats rel err {serr} (tolerance {tol_s})")
         del ref, out, y
         B, Dp, Hp, Wp = xs[0].shape[:4]
         use("this")
         print(f"{name}: this build's launch " + str(T.conv3d_halo_plan(
-            B, Dp - 2, Hp - 2, Wp - 2, cis[0], sum(cis[1:]), co)))
+            B, Dp - 2, Hp - 2, Wp - 2, cis[0], sum(cis[1:]), co, dtype)))
         n = B * T.interior_count(xs[0])
         nbytes = sum(t.numel() * t.element_size() for t in
                      (*xs, w, form.get("in_mul0"), form.get("in_scale"),
                       form.get("in_shift")) if t is not None) \
-            if isinstance(form, dict) else (dy.numel() + w.numel()) * 2
-        nbytes += B * Dp * Hp * Wp * co * 2                   # y
-        bound = max(2.0 * 27 * ci * co * n / PEAK_BF16_FLOPS,
+            if isinstance(form, dict) else (dy.numel() + w.numel()) \
+            * dy.element_size()
+        nbytes += B * Dp * Hp * Wp * co * xs[0].element_size()   # y
+        bound = max(passes * 2.0 * 27 * ci * co * n / PEAK_BF16_FLOPS,
                     nbytes / PEAK_HBM_BYTES) * 1e3
         xl = xn.permute(0, 4, 1, 2, 3)                 # channels-last NCDHW
-        wl = w.permute(4, 3, 0, 1, 2).contiguous()
+        wl = w.to(dtype).permute(4, 3, 0, 1, 2).contiguous()
         times = {label: [] for label in [*libs, "F.conv3d"]}
         for _ in range(rounds):
             for label in order:
@@ -376,17 +445,19 @@ def compare_k1(libs, use, rounds: int, reps: int) -> dict:
             f"{' '.join(f'{t:.4f}' for t in times[k])})"
             for k, v in med.items()))
     return {"forms": {k: v["median_ms"] for k, v in result.items()},
-            "bound_ms": {k: v["bound_ms"] for k, v in result.items()}}
+            "bound_ms": {k: v["bound_ms"] for k, v in result.items()},
+            "bound_share": {k: v["bound_share"] for k, v in result.items()}}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", action="append", default=[],
                     metavar="LABEL=DIR", help="a csrc directory to compare")
-    ap.add_argument("--kernel", choices=("k1", "k2", "k7"), default="k1")
+    ap.add_argument("--kernel", choices=("k1", "k1f32", "k2", "k7"),
+                    default="k1")
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--reps", type=int, default=10,
-                    help="launches per timing (k1; k2 takes 20, k7 5-20 by size)")
+                    help="launches per timing (k1, k1f32; k2 takes 20, k7 5-20)")
     args = ap.parse_args(argv)
 
     import torch
@@ -409,7 +480,8 @@ def main(argv=None) -> int:
         # ptxas -v: each entry's registers and spills (the lines follow
         # it), K2's or the convs'
         log = built.log.splitlines()
-        entry = "up_kernel" if args.kernel == "k2" else "conv_kernel"
+        entry = {"k2": "up_kernel", "k1f32": "split_f32_kernel"}.get(
+            args.kernel, "conv_kernel")
         for i, line in enumerate(log):
             if "entry function" in line and entry in line:
                 info = [x.strip() for x in log[i + 1:i + 5]
@@ -424,6 +496,11 @@ def main(argv=None) -> int:
     elif args.kernel == "k2":
         out = compare_forms(k2_forms(), libs, use, args.rounds,
                             "F.conv_transpose3d", _ulp, halo=True)
+    elif args.kernel == "k1f32":
+        from .ops.conv import full_f32
+        simt = {k for k, src in trees.items() if simt_f32(src)}
+        with full_f32():
+            out = compare_k1(libs, use, args.rounds, args.reps, True, simt)
     else:
         out = compare_k1(libs, use, args.rounds, args.reps)
     native._library = None

@@ -11,10 +11,10 @@
 // :76-81), and with the taps flipped and ci, co swapped its VJP's data
 // gradient (:365). The bf16 form (conv3d_same.cu) is a separate source.
 //
-// Bound on the H100 and design: simt_conv_f32.cuh, the tile loop it shares
-// with K1's f32 form (ps2d_conv3d_f32.cu). Unlike K1 it reads the unpadded
-// tensor: the staged box is zero-filled at the volume's D, H and W borders,
-// and it writes the patch's voxels inside the volume, nothing else.
+// Bound on the H100 and design: simt_conv_f32.cuh, its tile loop. It
+// reads the unpadded tensor: the staged box is zero-filled at the volume's
+// D, H and W borders, and it writes the patch's voxels inside the volume,
+// nothing else.
 #include <cuda_runtime.h>
 #include <stdint.h>
 

@@ -1,5 +1,6 @@
 // PTX helpers of the port's Hopper implicit-GEMM convs, K7
-// (conv3d_same.cu) and K1 (ps2d_conv3d.cu): cp.async copies, mbarriers,
+// (conv3d_same.cu) and K1 (ps2d_conv3d.cu, and its f32 form
+// ps2d_conv3d_f32.cu): cp.async copies, mbarriers,
 // ldmatrix, the warpgroup MMA (wgmma, RS form: A from registers, B from
 // shared memory through a descriptor) and the no-swizzle layout of its B
 // operand. Each kernel keeps its own main loop; only these pieces are
@@ -102,14 +103,15 @@ __device__ __forceinline__ void slab_row(int i, int& k, int& n8) {
 // ------------------------------------------------------------- wgmma
 // d (64 x N, f32, the warpgroup's accumulator) += a (64 x 16 bf16, this
 // thread's mma.m16n8k16 A fragment) * B (16 x N bf16, descriptor; MN-major,
-// hence the transpose bit, the last immediate)
+// hence the transpose bit, the last immediate); with scale_d = 0,
+// d = a * B (d's old values are not read)
 template <int N>
 struct Mma;
 
 template <>
 struct Mma<16> {
   static __device__ __forceinline__ void run(float (&d)[8], const uint32_t (&a)[4],
-                                              uint64_t desc) {
+                                              uint64_t desc, int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
@@ -117,14 +119,14 @@ struct Mma<16> {
         "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
   }
 };
 
 template <>
 struct Mma<32> {
   static __device__ __forceinline__ void run(float (&d)[16], const uint32_t (&a)[4],
-                                              uint64_t desc) {
+                                              uint64_t desc, int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
@@ -133,14 +135,14 @@ struct Mma<32> {
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
   }
 };
 
 template <>
 struct Mma<64> {
   static __device__ __forceinline__ void run(float (&d)[32], const uint32_t (&a)[4],
-                                              uint64_t desc) {
+                                              uint64_t desc, int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -153,14 +155,14 @@ struct Mma<64> {
           "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
   }
 };
 
 template <>
 struct Mma<128> {
   static __device__ __forceinline__ void run(float (&d)[64], const uint32_t (&a)[4],
-                                              uint64_t desc) {
+                                              uint64_t desc, int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -180,7 +182,7 @@ struct Mma<128> {
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
           "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
   }
 };
 

@@ -1,6 +1,9 @@
-// The float32 tile loop shared by the f32 forms of K1 (ps2d_conv3d_f32.cu)
-// and K7 (conv3d_same_f32.cu): a 3x3x3 conv as an implicit GEMM in f32 FMA
-// on the CUDA cores (no tensor cores: TF32 is not f32).
+// The float32 tile loop of K7's f32 form (conv3d_same_f32.cu), and of it
+// alone: a 3x3x3 conv as an implicit GEMM in f32 FMA on the CUDA cores (no
+// tensor cores: TF32 is not f32). K1's f32 form, which takes bf16-rounded
+// weights, runs on the tensor cores instead (ps2d_conv3d_f32.cu: three
+// bf16 passes over an exact split of its activations); K7's unrounded
+// weights would need the split on both operands.
 //
 // Bound on the H100: at the serving shapes these convs do 27 * 2 * ci * co
 // FLOPs a voxel against 4 * (ci + co) bytes, over 200 FLOP a byte, far

@@ -34,7 +34,8 @@ _K1 = (_P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P)
 _K2 = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
 _K7 = (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
 # C entry points: name -> argument types (every one returns cudaError_t);
-# the f32 forms of K1, K2 and K7 take the bf16 forms' arguments
+# the f32 forms of K1, K2 and K7 take the bf16 forms' arguments (K1's
+# weights as bf16 in both)
 SIGNATURES = {
     "ps2d_conv3d": _K1,
     "ps2d_conv3d_f32": _K1,

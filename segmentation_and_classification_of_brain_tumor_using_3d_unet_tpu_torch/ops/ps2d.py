@@ -31,7 +31,9 @@ Kernels (``csrc/``), each with its plain PyTorch version beside it:
 
 Each kernel has a bf16 and an f32 form (K3 and K4 one source
 templated on the element type; K1 and K2 a source each, ``*_f32.cu``),
-and each wrapper takes either dtype and returns its input's. A wrapper
+and each wrapper takes either dtype and returns its input's. K1's f32
+form runs on the tensor cores as three bf16 passes over an exact split
+of its activations (``split3_bf16`` mirrors the split). A wrapper
 takes its plain version for tensors on the CPU only; for a CUDA tensor
 it launches its kernel or raises. Each keeps a count of its launches in
 ``<wrapper>.launches``.
@@ -328,7 +330,8 @@ def conv3d_halo(xs, w, in_scale=None, in_shift=None, in_relu=False,
     of the channel concat of 1-2 halo tensors (the concat is never
     stored), bf16 or f32 in, f32 accumulation, halo-layout out in the
     inputs' dtype. The weights' values are rounded to bf16 in either
-    dtype, as JAX's kernel rounds them.
+    dtype, as JAX's kernel rounds them (so the f32 form's three bf16
+    passes over an exact split of x' compute the f32 conv).
 
     * ``in_scale`` / ``in_shift`` (B, sum ci): per-channel affine on
       load (the previous GroupNorm), optionally followed by ReLU
@@ -360,8 +363,10 @@ def conv3d_halo(xs, w, in_scale=None, in_shift=None, in_relu=False,
     dt = _kernel_dtype("conv3d_halo", xs[0])
     for i, x in enumerate(xs):
         _check(f"conv3d_halo x{i}", x, (B, Dp, Hp, Wp, cis[i]), dt)
-    wb = _aligned(_k1_weights(w, dt))
-    _check("conv3d_halo w", wb, dtype=dt)
+    # both forms take the weights as bf16 (the f32 form's split needs them
+    # no wider: their values are bf16's in either dtype)
+    wb = _aligned(_k1_weights(w, BF16))
+    _check("conv3d_halo w", wb, dtype=BF16)
     sc = sh = None
     if in_scale is not None or in_shift is not None:
         sc, sh = _affine_pair(in_scale, in_shift, B, ci_total, xs[0].device,
@@ -401,26 +406,38 @@ def conv3d_halo_plan(B: int, D: int, H: int, W: int, ci0: int, ci1: int,
                      co: int, dtype: torch.dtype = BF16) -> dict:
     """The launch geometry K1's ``dtype`` form picks for inputs of ci0
     (and ci1; 0 for one input) channels over a (B, D, H, W) interior ->
-    co: output channels N a block (and, in bf16, input channels KC per
-    step and M output voxels, the GEMM rows, a block), the TD x TH x TW
-    output patch, the block count, the dynamic shared memory in bytes,
-    and the blocks a batch item and channel tile (the statistics
-    buffer's block axis)."""
+    co: output channels N a block, input channels KC per step, M output
+    voxels (the GEMM rows) a block, the TD x TH x TW output patch, the
+    block count, the dynamic shared memory in bytes, and the blocks a
+    batch item and channel tile (the statistics buffer's block axis)."""
     import ctypes
     lib = _lib()
-    if dtype == BF16:
-        fn, keys = lib._dll.ps2d_conv3d_plan, ("N", "KC", "M", "TD", "TH",
-                                               "TW", "blocks", "smem",
-                                               "blocks_per_item")
-    else:
-        fn, keys = lib._dll.ps2d_conv3d_f32_plan, (
-            "N", "TD", "TH", "TW", "blocks", "smem", "blocks_per_item")
+    fn = (lib._dll.ps2d_conv3d_plan if dtype == BF16
+          else lib._dll.ps2d_conv3d_f32_plan)
+    keys = ("N", "KC", "M", "TD", "TH", "TW", "blocks", "smem",
+            "blocks_per_item")
     fn.argtypes = (ctypes.c_int,) * 7 + (ctypes.c_void_p,)
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * len(keys))()
     lib.check("ps2d_conv3d_plan", fn(B, D, H, W, ci0, ci1, co,
                                      ctypes.addressof(out)))
     return dict(zip(keys, out))
+
+
+def split3_bf16(x: torch.Tensor):
+    """The exact three-way split of an f32 tensor that K1's f32 form
+    applies to its transformed activations before its three bf16 passes:
+    ``hi = bf16(x)``, ``mid = bf16(x - hi)``, ``lo = bf16(x - hi - mid)``
+    (each difference exact in f32), so ``hi + mid + lo == x`` for 0 and
+    every 2^-110 <= |x| <= 3.3895e38; below, the error is under 2^-133.
+    A plain mirror of the kernel's split, for the tests."""
+    x = x.float()
+    hi = x.to(BF16)
+    r = x - hi.float()
+    mid = r.to(BF16)
+    lo = (r - mid.float()).to(BF16)
+    return hi, mid, lo
+
 
 # ----------------------------------------------------------------------
 # K4: pool_into_halo
