@@ -106,9 +106,14 @@ kernels' readings are taken as in the runs before them:
      forms, K2's two levels, K6's three forms and K7's nine shapes plus
      its VJP within 1e-5 max|ref|; K1's output and statistics, K2 and K7
      bit-identical over two runs); K1's f32 form (three bf16 wgmma passes
-     over an exact split of its activations) against a float64 conv of
-     the same inputs on the card, at most 4x the plain f32 conv's own
-     error at each form, with its launch geometry; the server's request on a full-width
+     over an exact split of its activations) and K7's (six over an exact
+     split of its activations and weights, at its nine shapes and its
+     VJP's data gradient; the two 240x240x160 shapes and the data gradient
+     on their first 40 D planes) against a float64 conv of the same
+     inputs on the card, at most 4x the plain f32 conv's own error at
+     each, with their launch geometry (K7's error also holds no share of
+     its three smallest passes, beside a control without each that
+     must); the server's request on a full-width
      Predictor(compute_dtype="float32", ps2d_eval, ps2d_levels=2) with K1
      14 / K2 4 / K3 4 / K4 2 launches, one window batch of it within
      1e-4 max(scale, 1) of the f32 normal path (TF32 off) given K1's
@@ -1716,7 +1721,8 @@ def main() -> int:
         for shape, kern, plain, lib, (bms, by), reps, *more in fs:
             pieces, extra = (*more, {}, {})[:2]
             ms = event_ms(kern, reps)
-            if name.startswith("up_k2s2_into_halo"):
+            if name in ("up_k2s2_into_halo", "up_k2s2_into_halo_f32",
+                        "conv3d_same_f32"):
                 extra = {"bound_share": bms / ms}
             pms = event_ms(plain, max(reps // 2, 3))
             lms = event_ms(lib, reps) if lib else None
@@ -1743,9 +1749,12 @@ def main() -> int:
 
     def kernel_entry(name, src, line, timed, main=0):
         """The kernels line's entry of kernel ``name`` (its launches are
-        filled in at the end), its main form's numbers on top."""
+        filled in at the end), its main form's numbers on top, and the
+        split forms' errors against float64 over the plain f32 conv's."""
         m = timed[main]
+        ratios = report[name].get("f64_error_ratio")
         return {
+            **({"f64_error_ratio": ratios} if ratios else {}),
             "name": name, "route": "cuda",
             "source": f"{PKG}/csrc/{src}",
             "replaces": f"{REF}/ops/pallas/{line}",
@@ -1846,8 +1855,10 @@ def main() -> int:
                 fwd_bwd(T.conv3d_halo_train_plain), library,
                 bound_ms(nb, flops), reps, pieces)
 
-    def wtile_row(name, x, w, reps, peak=PEAK_BF16_FLOPS):
-        """K7 forward at one benchmark shape."""
+    def wtile_row(name, x, w, reps, passes=1):
+        """K7 forward at one benchmark shape; its bound's operations
+        those of ``passes`` bf16 passes on the tensor cores (6 for the f32
+        form: six passes over an exact split of x and of w)."""
         xn = x.permute(0, 4, 1, 2, 3)             # channels-last NCDHW
         wn = w.permute(4, 3, 0, 1, 2).contiguous()
         ci, co = w.shape[3], w.shape[4]
@@ -1856,11 +1867,14 @@ def main() -> int:
                 lambda: K7.wtile_conv3d_plain(x, w),
                 lambda: F.conv3d(xn, wn, padding=1),
                 bound_ms(nbytes(x, w) + x.element_size() * vox * co,   # + y
-                         2.0 * 27 * ci * co * vox, peak), reps)
+                         passes * 2.0 * 27 * ci * co * vox), reps)
 
-    def wtile_vjp_row(name, x, w, dy, reps, peak=PEAK_BF16_FLOPS):
+    def wtile_vjp_row(name, x, w, dy, reps, f32_peak=None):
         """K7's op: forward + both gradients for a cotangent dy, and the
-        three pieces apart."""
+        three pieces apart. The bound's operations on the tensor cores in
+        bf16; with ``f32_peak`` (the f32 form) the forward and the data
+        gradient as six bf16 passes each, and the weight gradient (cuDNN,
+        f32) at ``f32_peak``."""
         xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
         xn, dyn = x.permute(0, 4, 1, 2, 3), dy.permute(0, 4, 1, 2, 3)
         wn = w.permute(4, 3, 0, 1, 2).contiguous()
@@ -1875,6 +1889,8 @@ def main() -> int:
                 False, [0, 0, 0], 1, [True, True, False])
 
         flops = 3 * 2.0 * 27 * w.shape[3] * dy.numel()
+        if f32_peak:        # in operations at the bf16 peak
+            flops = flops / 3 * (2 * 6 + PEAK_BF16_FLOPS / f32_peak)
         # reads x, w, dy; writes y, dx, dw
         nb = 2 * nbytes(x, w) + 2 * nbytes(dy)
         pieces = {
@@ -1884,7 +1900,7 @@ def main() -> int:
         }
         return (f"VJP {name}: forward + data grad + weight grad",
                 fwd_bwd(K7.wtile_conv3d), fwd_bwd(K7.wtile_conv3d_plain),
-                library, bound_ms(nb, flops, peak), reps, pieces)
+                library, bound_ms(nb, flops), reps, pieces)
 
     def timings():
         print(f"card before the timings: {card_state()}")
@@ -2138,7 +2154,83 @@ def main() -> int:
         print(f"wtile_conv3d f32 VJP {first}, loss sum(y^2): max_abs_err "
               + ", ".join(errs) + f"; wtile path launches {wcounts}")
         del grads, refs, x, w
-        report["conv3d_same_f32"] = {"max_abs_err": worst}
+
+        def f64_k7(x, w, planes):
+            """K7's function in float64 on the card over the first
+            ``planes`` D planes of the output (the conv of the first
+            planes + 1 input planes, SAME-padded, its last plane
+            dropped), or over the whole volume (``planes`` None)."""
+            xs = x if planes is None else x[:, :planes + 1]
+            y = F.conv3d(xs.double().permute(0, 4, 1, 2, 3),
+                         w.double().permute(4, 3, 0, 1, 2).contiguous(),
+                         padding=1).permute(0, 2, 3, 4, 1)
+            return y if planes is None else y[:, :planes]
+
+        # the split loses nothing: against float64 of the same x and w,
+        # the kernel errs at most 4x as much as the plain f32 conv (TF32
+        # off); the 240^2 x 160 volumes on a 40-plane D slab. That ratio
+        # alone cannot see a dropped pass (a five-pass sum's error, some
+        # 2^-18 a product, grows as sqrt(K) and the plain f32 conv's
+        # faster: the control below prints its ratio). So, for each of the
+        # three smallest kept passes p (x_hi w_lo, x_mid w_mid, x_lo w_hi),
+        # the kernel's error r must hold none of p's share d of the conv:
+        # beta = <r, d> / <d, d> is ~0 where the kernel computes p and -1
+        # where it drops it; |beta| <= 0.5. The control, the plain mirror
+        # without p (ops/conv.py::conv3d_split6 in f32), must read beta
+        # within 0.5 of -1, or the gate could not tell.
+        conv_mod = import_module(PKG + ".ops.conv")
+        small = ((0, 2), (1, 1), (2, 0))
+        k7_dy = rnd32(k7[first][0].shape[:-1] + (k7[first][1].shape[-1],))
+        w1 = k7[first][1]
+        wt = w1.flip(0, 1, 2).transpose(3, 4)
+        checks = {k: (lambda x=x, w=w: K7.conv3d_same(x, w), x, w)
+                  for k, (x, w) in k7.items()}
+        checks[f"VJP data grad {first}"] = (
+            lambda: K7.conv3d_same_dgrad(k7_dy, w1), k7_dy, wt)
+        ratios, betas, control = [], [], []
+        for k, (kern, x, w) in checks.items():
+            planes = 40 if x.shape[1] * x.shape[2] * x.shape[3] > 4e6 \
+                else None
+            ref64 = f64_k7(x, w, planes)
+            cut = slice(None, planes)
+            rk = kern()[:, cut].double() - ref64
+            ek = rk.abs().max().item()
+            ep = (K7.wtile_conv3d_plain(x, w)[:, cut].double()
+                  - ref64).abs().max().item()
+            ratios.append(ek / ep)
+            where = ("the whole volume" if planes is None else
+                     f"the first {planes} of {x.shape[1]} D planes")
+            print(f"conv3d_same f32 {k} vs float64 on the card ({where}): "
+                  f"kernel {ek:.4e}, plain f32 {ep:.4e}, ratio "
+                  f"{ek / ep:.4f} (bound 4)")
+            check(ek <= 4 * ep, f"conv3d_same f32 {k}: the kernel errs {ek} "
+                  f"against float64, over 4x the plain f32's {ep}")
+            xs = x if planes is None else x[:, :planes + 1]
+            line = []
+            for p in small:
+                rest = tuple(q for q in conv_mod.SPLIT6_PASSES if q != p)
+                d = conv_mod.conv3d_split6(xs, w, f32, (p,))[:, cut].double()
+                rc = conv_mod.conv3d_split6(xs, w, f32, rest)[:, cut].double() \
+                    - ref64
+                dd = (d * d).sum().item()
+                bk, bc = (rk * d).sum().item() / dd, (rc * d).sum().item() / dd
+                ec = rc.abs().max().item()
+                betas.append(bk)
+                control.append({"beta": bc, "ratio": ec / ep})
+                line.append(f"x{'hml'[p[0]]}*w{'hml'[p[1]]}: kernel beta "
+                            f"{bk:+.4f}, without it beta {bc:+.4f} ratio "
+                            f"{ec / ep:.4f}")
+                check(abs(bk) <= 0.5, f"conv3d_same f32 {k}: the kernel's "
+                      f"error holds {-bk:.3f} of pass {p}")
+                check(abs(bc + 1) <= 0.5, f"conv3d_same f32 {k}: the control "
+                      f"without pass {p} reads beta {bc}, not -1")
+                del d, rc
+            print(f"  share of a pass in the error (0 kept, -1 dropped; "
+                  f"bound 0.5): " + "; ".join(line))
+            del ref64, rk
+        report["conv3d_same_f32"] = {
+            "max_abs_err": worst, "f64_error_ratio": ratios,
+            "dropped_pass_beta": betas, "dropped_pass_control": control}
 
         # ---- the full-width f32 request on the region's f32 forms
         conf = cfg.Config(model=cfg.ModelConfig(
@@ -2346,15 +2438,16 @@ def main() -> int:
             ("conv3d_halo_train_f32", "ps2d_conv3d_f32.cu", "ps2d.py:840",
              [train_row(n, *v, 3, f32_peak=peak) for n, v in k6.items()]),
             ("conv3d_same_f32", "conv3d_same_f32.cu", "conv3d.py:338",
-             [wtile_row(n, x, w, 3 if x.numel() > 2e8 else 10, peak)
+             [wtile_row(n, x, w, 3 if x.numel() > 2e8 else 10, passes=6)
               for n, (x, w) in k7.items()]
-             + [wtile_vjp_row(first, *k7[first],
-                              rnd32(k7[first][0].shape[:-1]
-                                    + (k7[first][1].shape[-1],)), 2, peak)]),
+             + [wtile_vjp_row(first, *k7[first], k7_dy, 2, f32_peak=peak)]),
         ]
         notes = {
             "conv3d_halo_f32": "max(bytes / 3.35 TB/s, three bf16 passes' "
                                "operations / 989 TFLOP/s)",
+            "conv3d_same_f32": "max(bytes / 3.35 TB/s, six bf16 passes' "
+                               "operations / 989 TFLOP/s; the VJP's weight "
+                               "gradient at the f32 FMA peak)",
             "conv3d_halo_train_f32": "max(bytes / 3.35 TB/s, the forward "
                                      "and data gradients as three bf16 "
                                      "passes / 989 TFLOP/s + the weight "
@@ -2365,11 +2458,31 @@ def main() -> int:
                                    "the f32 FMA peak)")
             print(f"{name}: bound = {note}")
             timed = time_forms(name, fs)
+            extra = {}
             if name == "conv3d_same_f32":
                 total_sampled(timed[:len(k7)], name)
+                # a call launches two kernels, the weights' split and the
+                # conv, under one count; the split's own time at the
+                # widest weights
+                x, w = k7[list(k7)[-1]]
+                ci, co = w.shape[3:]
+                wk = w.reshape(27, ci, co).contiguous()
+                parts = torch.empty((3, 27, ci, co), dtype=torch.bfloat16,
+                                    device=w.device)
+                lib = native.library()
+                sms = event_ms(lambda: lib.check(
+                    "conv3d_same_f32_split_weights",
+                    lib.conv3d_same_f32_split_weights(
+                        wk.data_ptr(), parts.data_ptr(), ci, co,
+                        torch.cuda.current_stream().cuda_stream)), 20)
+                print(f"conv3d_same_f32: one launch count covers two "
+                      f"kernels, the weights' split and the conv; the split "
+                      f"alone at {ci}->{co}: {sms:.4f} ms")
+                extra = {"kernels_a_launch": 2, "weight_split_ms": sms}
+                del parts
             out.append({**kernel_entry(name, src, line, timed,
                                        1 if name == "conv3d_halo_f32" else 0),
-                        "bound_note": note})
+                        "bound_note": note, **extra})
         print(f"card after the f32 timings: {card_state()}")
         return out
 

@@ -23,12 +23,10 @@ launches between CUDA events; the script prints the median per build.
     inputs (values bf16 does not hold), beside ``F.conv3d`` in f32 with
     TF32 off (``ops.conv.full_f32``, around the whole comparison). Every
     build's output must lie within 1e-5 * max|ref| of the plain version
-    (f32, TF32 off) and its statistics within 1e-5 relative. A tree whose
-    f32 form is the SIMT kernel of ``simt_conv_f32.cuh`` (before the
-    split design) takes its weights as f32 and plans with seven keys; it
-    is called so. Each build's share of the split design's bound (the
-    bytes, or three bf16 passes' operations on the tensor cores) is
-    printed.
+    (f32, TF32 off) and its statistics within 1e-5 relative; whether they
+    equal this build's bit for bit is printed. Each build's share of the
+    split design's bound (the bytes, or three bf16 passes' operations on
+    the tensor cores) is printed.
   * ``--kernel k7``: K7 (``ops/conv3d.py::conv3d_same``) at
     ``benchmarks/bench_wtile.py``'s nine shapes (batch 1) and at the data
     gradient of its VJP at the first shape; ``F.conv3d`` on the same
@@ -36,6 +34,14 @@ launches between CUDA events; the script prints the median per build.
     within 2^-7 * max|ref| of the plain version; whether it equals this
     build's bit for bit is printed. Prints each shape's launch geometry
     in this build and each build's share of the shape's bound.
+  * ``--kernel k7f32``: K7's f32 form at the same ten forms with f32
+    inputs, beside ``F.conv3d`` in f32 with TF32 off (``full_f32``,
+    around the whole comparison). Every build's output must lie within
+    1e-5 * max|ref| of the plain version (f32, TF32 off). A tree whose K7
+    f32 form is the SIMT kernel of ``simt_conv_f32.cuh`` (before the
+    split design) takes no scratch for the weights' split; it is called
+    so. Each build's share of the split design's bound (the bytes, or six
+    bf16 passes' operations on the tensor cores) is printed.
   * ``--kernel k2``: K2 (``ops/ps2d.py::up_k2s2_into_halo``) at its two
     request forms (``chip_smoke.py``'s: the server's batch of 4 windows of
     128^3, level 0 (4, 64^3, 64) -> (4, 130^3, 32) and level 1
@@ -139,28 +145,33 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
 
 
-def k7_forms(seed: int = 0):
+def k7_forms(seed: int = 0, dtype=None, conv=None):
     """K7's timed forms: name -> (kernel call, plain call, F.conv3d call,
     bound ms, reps, launch geometry or None). The nine benchmark shapes
     (weights * 0.05 as there), then the VJP's data gradient at the
-    first."""
+    first, with tensors in ``dtype`` (bf16 by default). ``conv(x, w)``
+    replaces the wrapper's call where given (an f32 comparison's, which
+    picks each build's calling convention). In f32 the bound's operations
+    are six bf16 passes (the split design's)."""
     import torch
     import torch.nn.functional as F
     from .ops import conv3d as K7
 
+    dtype = dtype or torch.bfloat16
+    passes = 1 if dtype == torch.bfloat16 else 6
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def rnd(shape, scale=1.0):
         return (torch.randn(shape, device="cuda", generator=g)
-                * scale).to(torch.bfloat16)
+                * scale).to(dtype)
 
     def form(x, w, kern, plain, reps, geo):
         ci, co = w.shape[3], w.shape[4]
         vox = x.numel() // ci
         xn = x.permute(0, 4, 1, 2, 3)             # channels-last NCDHW
         wn = w.permute(4, 3, 0, 1, 2).contiguous()
-        flops = 2.0 * 27 * ci * co * vox
-        nb = (x.numel() + w.numel() + vox * co) * 2
+        flops = passes * 2.0 * 27 * ci * co * vox
+        nb = (x.numel() + w.numel() + vox * co) * x.element_size()
         bound = max(flops / PEAK_BF16_FLOPS, nb / PEAK_HBM_BYTES) * 1e3
         return (kern, plain, lambda: F.conv3d(xn, wn, padding=1), bound,
                 reps, geo)
@@ -170,15 +181,16 @@ def k7_forms(seed: int = 0):
         x, w = rnd((1, D, H, W, ci)), rnd((3, 3, 3, ci, co), 0.05)
         reps = 5 if x.numel() > 2e8 else 20
         out[f"{ci}->{co} @({D},{H},{W})"] = form(
-            x, w, lambda x=x, w=w: K7.conv3d_same(x, w),
+            x, w, lambda x=x, w=w: (conv or K7.conv3d_same)(x, w),
             lambda x=x, w=w: K7.wtile_conv3d_plain(x, w), reps,
             lambda ci=ci, co=co, D=D, H=H, W=W: K7.conv3d_same_plan(
-                1, D, H, W, ci, co))
+                1, D, H, W, ci, co, dtype))
     ci, co, D, H, W = K7_SHAPES[0]
     dy, w = rnd((1, D, H, W, co)), rnd((3, 3, 3, ci, co), 0.05)
     wt = w.flip(0, 1, 2).transpose(3, 4)
     out[f"data grad {co}->{ci} @({D},{H},{W})"] = form(
-        dy, wt, lambda: K7.conv3d_same_dgrad(dy, w),
+        dy, wt, (lambda: conv(dy, wt)) if conv else
+        (lambda: K7.conv3d_same_dgrad(dy, w)),
         lambda: K7.wtile_conv3d_plain(dy, wt), 5, None)
     return out
 
@@ -276,11 +288,58 @@ def compare_forms(forms: dict, libs, use, rounds: int, library: str,
             "bound_share": {k: v["bound_share"] for k, v in result.items()}}
 
 
-def compare_k7(libs, use, rounds: int) -> dict:
+def _simt_k7_f32(lib, x, w):
+    """K7's f32 form through a build whose f32 form is the SIMT kernel
+    (``simt_conv_f32.cuh``, before the split design): its C entry takes
+    no scratch for the weights' split."""
+    import ctypes
+
+    import torch
+    from .ops import native
+    from .ops import ps2d as T
+
+    B, D, H, W, ci = x.shape
+    co = w.shape[-1]
+    x, wk = T._aligned(x), T._aligned(w.reshape(27, ci, co))
+    y = torch.empty((B, D, H, W, co), dtype=torch.float32, device=x.device)
+    fn = lib._dll["conv3d_same_f32"]     # a new handle: its own argtypes
+    fn.argtypes = native._K7
+    fn.restype = ctypes.c_int
+    lib.check("conv3d_same", fn(x.data_ptr(), wk.data_ptr(), y.data_ptr(),
+                                B, D, H, W, ci, co, T._stream()))
+    return y
+
+
+def simt_k7_f32(csrc: Path) -> bool:
+    """Whether the tree's K7 f32 form is the SIMT kernel."""
+    return "simt_conv_f32.cuh" in (Path(csrc) / "conv3d_same_f32.cu"
+                                   ).read_text()
+
+
+def compare_k7(libs, use, rounds: int, f32: bool = False,
+               simt=()) -> dict:
     """K7 at its forms in every build, within 2^-7 max|ref| of the plain
-    version, timed beside F.conv3d; the nine forwards' total."""
-    out = compare_forms(k7_forms(), libs, use, rounds, "F.conv3d",
-                        lambda m: 2 ** -7 * m)
+    version, timed beside F.conv3d; the nine forwards' total. ``f32``:
+    its f32 form, held to 1e-5 max|ref|, the bound that of six bf16
+    passes; ``simt`` names the builds called as ``_simt_k7_f32``."""
+    from .ops import conv3d as K7
+    from .ops import native
+
+    if f32:
+        import torch
+        simt_libs = [libs[k] for k in simt]
+
+        def conv(x, w):
+            lib = native._library
+            if any(lib is s for s in simt_libs):
+                return _simt_k7_f32(lib, x, w)
+            return K7.conv3d_same(x, w)
+
+        forms, tol = k7_forms(dtype=torch.float32, conv=conv), 1e-5
+    else:
+        forms, tol = k7_forms(), 2 ** -7
+    out = compare_forms(forms, libs, use, rounds, "F.conv3d",
+                        lambda m: tol * m)
     fwd = [v for k, v in out["forms"].items() if k[0].isdigit()]
     total = {k: sum(m[k] for m in fwd) for k in fwd[0]}
     print("TOTAL sampled (nine forwards): " + ", ".join(
@@ -313,55 +372,12 @@ def _legacy_k1(lib, xs, w, in_scale=None, in_shift=None, in_relu=False,
     return y, (stats[:, 0], stats[:, 1])
 
 
-def _simt_k1_f32(lib, xs, w, in_scale=None, in_shift=None, in_relu=False,
-                 in_mul0=None):
-    """K1's f32 form with statistics through a build whose f32 form is the
-    SIMT kernel (``simt_conv_f32.cuh``, before the split design): it takes
-    the weights as f32 (their values rounded to bf16) and its plan's
-    seventh value is the statistics buffer's block axis."""
-    import ctypes
-
-    import torch
-    from .ops import ps2d as T
-
-    B, Dp, Hp, Wp, _ = xs[0].shape
-    cis, co = [x.shape[-1] for x in xs], w.shape[-1]
-    ci1 = cis[1] if len(xs) > 1 else 0
-    sc = sh = None
-    if in_scale is not None or in_shift is not None:
-        sc, sh = T._affine_pair(in_scale, in_shift, B, sum(cis),
-                                xs[0].device, torch.float32)
-    wf = T._aligned(T._k1_weights(w, torch.float32).detach())
-    fn = lib._dll.ps2d_conv3d_f32_plan
-    fn.argtypes = (ctypes.c_int,) * 7 + (ctypes.c_void_p,)
-    out = (ctypes.c_int * 7)()
-    lib.check("ps2d_conv3d_f32_plan", fn(B, Dp - 2, Hp - 2, Wp - 2, cis[0],
-                                         ci1, co, ctypes.addressof(out)))
-    y = torch.empty((B, Dp, Hp, Wp, co), dtype=torch.float32,
-                    device=xs[0].device)
-    parts = torch.empty((B, out[6], 2, co), dtype=torch.float32,
-                        device=xs[0].device)
-    lib.check("conv3d_halo", lib.ps2d_conv3d_f32(
-        xs[0].data_ptr(), T._ptr(xs[1]) if len(xs) > 1 else None, cis[0],
-        ci1, wf.data_ptr(), T._ptr(sc), T._ptr(sh), int(in_relu),
-        T._ptr(in_mul0), y.data_ptr(), parts.data_ptr(), B, Dp - 2, Hp - 2,
-        Wp - 2, co, T._stream()))
-    stats = parts.sum(1)
-    return y, (stats[:, 0], stats[:, 1])
-
-
-def simt_f32(csrc: Path) -> bool:
-    """Whether the tree's K1 f32 form is the SIMT kernel (f32 weights)."""
-    return "simt_conv_f32.cuh" in (Path(csrc) / "ps2d_conv3d_f32.cu"
-                                   ).read_text()
-
-
-def compare_k1(libs, use, rounds: int, reps: int, f32: bool = False,
-               simt=()) -> dict:
-    """K1 at its forms in every build: checked against the plain version,
-    then timed in alternated rounds beside F.conv3d. ``f32``: its f32
-    form, held to 1e-5 (output and statistics), the bound that of three
-    bf16 passes; ``simt`` names the builds called as ``_simt_k1_f32``."""
+def compare_k1(libs, use, rounds: int, reps: int, f32: bool = False) -> dict:
+    """K1 at its forms in every build: checked against the plain version
+    (whether each build's output and statistics equal this build's bit for
+    bit is printed), then timed in alternated rounds beside F.conv3d.
+    ``f32``: its f32 form, held to 1e-5 (output and statistics), the
+    bound that of three bf16 passes."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -379,8 +395,6 @@ def compare_k1(libs, use, rounds: int, reps: int, f32: bool = False,
             ref, sums = T.conv3d_halo_plain(emit_stats=True, **form)
 
             def kern(label, form=form):
-                if label in simt:
-                    return _simt_k1_f32(libs[label], **form)
                 if hasattr(libs[label]._dll, "ps2d_conv3d_plan"):
                     return T.conv3d_halo(emit_stats=True, **form)
                 return _legacy_k1(libs[label], **form)
@@ -392,17 +406,14 @@ def compare_k1(libs, use, rounds: int, reps: int, f32: bool = False,
             ref = T.conv3d_halo_plain((dy * T.halo_mask(dy),), w)
 
             def kern(label, dy=dy, w=w, w0=w0, cis=cis):
-                if label in simt:
-                    ones = torch.ones((dy.shape[0], dy.shape[-1]),
-                                      device=dy.device)
-                    return _simt_k1_f32(libs[label], (dy,), w, ones,
-                                        ones * 0)[0]
                 return T.conv3d_halo_dgrad(dy, w0, 0, cis)
         ci, co = sum(cis), w.shape[-1]
         tol = tol_y * ref.float().abs().max().item()
+        outs = {}
         for label in libs:
             use(label)
             out = kern(label)
+            outs[label] = out if sums is not None else (out,)
             y, got = (out[0], out[1]) if sums is not None else (out, None)
             err = (y.float() - ref.float()).abs().max().item()
             serr = 0.0 if got is None else max(
@@ -414,7 +425,15 @@ def compare_k1(libs, use, rounds: int, reps: int, f32: bool = False,
                                  f" stats {serr} (> {tol_s}?)")
             print(f"{name}: {label} max_abs_err {err} (tolerance {tol}); "
                   f"stats rel err {serr} (tolerance {tol_s})")
-        del ref, out, y
+
+        def flat(out):
+            return [out[0], *(out[1] if len(out) > 1 else ())]
+        print(f"{name}: bit-identical to this build (output and statistics):"
+              " " + ", ".join(
+                  f"{k} " + str(all(torch.equal(a, b) for a, b in zip(
+                      flat(v), flat(outs["this"]))))
+                  for k, v in outs.items() if k != "this"))
+        del ref, out, y, outs
         B, Dp, Hp, Wp = xs[0].shape[:4]
         use("this")
         print(f"{name}: this build's launch " + str(T.conv3d_halo_plan(
@@ -453,11 +472,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", action="append", default=[],
                     metavar="LABEL=DIR", help="a csrc directory to compare")
-    ap.add_argument("--kernel", choices=("k1", "k1f32", "k2", "k7"),
+    ap.add_argument("--kernel", choices=("k1", "k1f32", "k2", "k7", "k7f32"),
                     default="k1")
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--reps", type=int, default=10,
-                    help="launches per timing (k1, k1f32; k2 takes 20, k7 5-20)")
+                    help="launches per timing (k1, k1f32; k2 takes 20, "
+                    "k7 and k7f32 5-20)")
     args = ap.parse_args(argv)
 
     import torch
@@ -480,10 +500,11 @@ def main(argv=None) -> int:
         # ptxas -v: each entry's registers and spills (the lines follow
         # it), K2's or the convs'
         log = built.log.splitlines()
-        entry = {"k2": "up_kernel", "k1f32": "split_f32_kernel"}.get(
-            args.kernel, "conv_kernel")
+        entry = {"k2": ("up_kernel",), "k1f32": ("split_f32_kernel",),
+                 "k7f32": ("split6_kernel", "conv_same_f32_kernel")}.get(
+            args.kernel, ("conv_kernel",))
         for i, line in enumerate(log):
-            if "entry function" in line and entry in line:
+            if "entry function" in line and any(e in line for e in entry):
                 info = [x.strip() for x in log[i + 1:i + 5]
                         if "Used" in x or "spill" in x]
                 print(f"  {line.split(chr(39))[1]}: {'; '.join(info)}")
@@ -493,14 +514,18 @@ def main(argv=None) -> int:
 
     if args.kernel == "k7":
         out = compare_k7(libs, use, args.rounds)
+    elif args.kernel == "k7f32":
+        from .ops.conv import full_f32
+        simt = {k for k, src in trees.items() if simt_k7_f32(src)}
+        with full_f32():
+            out = compare_k7(libs, use, args.rounds, True, simt)
     elif args.kernel == "k2":
         out = compare_forms(k2_forms(), libs, use, args.rounds,
                             "F.conv_transpose3d", _ulp, halo=True)
     elif args.kernel == "k1f32":
         from .ops.conv import full_f32
-        simt = {k for k, src in trees.items() if simt_f32(src)}
         with full_f32():
-            out = compare_k1(libs, use, args.rounds, args.reps, True, simt)
+            out = compare_k1(libs, use, args.rounds, args.reps, True)
     else:
         out = compare_k1(libs, use, args.rounds, args.reps)
     native._library = None

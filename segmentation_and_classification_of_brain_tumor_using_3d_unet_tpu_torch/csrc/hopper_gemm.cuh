@@ -3,10 +3,13 @@
 // ps2d_conv3d_f32.cu): cp.async copies, mbarriers,
 // ldmatrix, the warpgroup MMA (wgmma, RS form: A from registers, B from
 // shared memory through a descriptor) and the no-swizzle layout of its B
-// operand. Each kernel keeps its own main loop; only these pieces are
-// shared. sm_90a only (wgmma).
+// operand; for the f32 forms of K1 and K7 (ps2d_conv3d_f32.cu,
+// conv3d_same_f32.cu) the exact split of f32 values into three bf16 parts
+// and their shared-memory budget. Each kernel keeps its own main loop;
+// only these pieces are shared. sm_90a only (wgmma).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -189,5 +192,30 @@ struct Mma<128> {
 // A thread's accumulator element e of n8 block j lies at row
 //   16 * warp + lane / 4 + 8 * (e / 2), column 8 * j + 2 * (lane % 4) + e % 2
 // of its warpgroup's 64 x N tile.
+
+// ------------------------------------------------- the f32 forms' split
+// shared memory a block may take for two blocks an SM: (228 KB - 2 x 1 KB
+// reserved) / 2
+constexpr int kSmemBlock = 115712;
+
+// two f32 values -> their bf16 (round to nearest, even), packed low first,
+// and the f32 remainders x - bf16(x) (exact)
+__device__ __forceinline__ uint32_t split2(float& x, float& y) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 f = __bfloat1622float2(h);
+  x = __fsub_rn(x, f.x);
+  y = __fsub_rn(y, f.y);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// the exact three-way split of four f32 values: hi, mid, lo (4 bf16 each)
+__device__ __forceinline__ void split4(float4 v, uint2& hi, uint2& mid, uint2& lo) {
+  hi.x = split2(v.x, v.y);
+  hi.y = split2(v.z, v.w);
+  mid.x = split2(v.x, v.y);
+  mid.y = split2(v.z, v.w);
+  lo.x = split2(v.x, v.y);
+  lo.y = split2(v.z, v.w);
+}
 
 }  // namespace

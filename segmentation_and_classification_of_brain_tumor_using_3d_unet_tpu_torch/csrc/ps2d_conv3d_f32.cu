@@ -96,9 +96,6 @@ __host__ __device__ constexpr int ring_slots() {
 }
 constexpr int kP = kKC * 2 + 16;     // bf16 tile voxel pitch, bytes
 constexpr int kLandP = kKC * 4;      // f32 slot voxel pitch, bytes
-// shared memory a block may take for two blocks an SM: (228 KB - 2 x 1 KB
-// reserved) / 2
-constexpr int kSmemBlock = 115712;
 
 struct Args {
   const float* x[2];    // halo layout inputs, ci[i] channels each
@@ -143,26 +140,6 @@ __device__ __forceinline__ float4 affine4(float4 v, float4 s, float4 h, bool rel
     v.w = fmaxf(v.w, 0.f);
   }
   return v;
-}
-
-// two f32 values -> their bf16 (round to nearest, even), packed low first,
-// and the f32 remainders x - bf16(x) (exact)
-__device__ __forceinline__ uint32_t split2(float& x, float& y) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 f = __bfloat1622float2(h);
-  x = __fsub_rn(x, f.x);
-  y = __fsub_rn(y, f.y);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// the exact three-way split of four f32 values: hi, mid, lo (4 bf16 each)
-__device__ __forceinline__ void split4(float4 v, uint2& hi, uint2& mid, uint2& lo) {
-  hi.x = split2(v.x, v.y);
-  hi.y = split2(v.z, v.w);
-  mid.x = split2(v.x, v.y);
-  mid.y = split2(v.z, v.w);
-  lo.x = split2(v.x, v.y);
-  lo.y = split2(v.z, v.w);
 }
 
 // ------------------------------------------------------------- kernel

@@ -129,6 +129,45 @@ def _conv3d(x: torch.Tensor, w: torch.Tensor, padding,
     return y.permute(0, 2, 3, 4, 1)
 
 
+def split3_bf16(x: torch.Tensor):
+    """The exact three-way split of an f32 tensor that the f32 forms of
+    K1 (its transformed activations) and K7 (its activations and its
+    weights) apply before their bf16 passes: ``hi = bf16(x)``,
+    ``mid = bf16(x - hi)``, ``lo = bf16(x - hi - mid)`` (each difference
+    exact in f32), so ``hi + mid + lo == x`` for 0 and every
+    2^-110 <= |x| <= 3.3895e38; below, the error is under 2^-133. A
+    plain mirror of the kernels' split, for the tests."""
+    x = x.float()
+    hi = x.to(BF16)
+    r = x - hi.float()
+    mid = r.to(BF16)
+    lo = (r - mid.float()).to(BF16)
+    return hi, mid, lo
+
+
+# the part products K7's f32 form keeps (csrc/conv3d_same_f32.cu), in
+# its order: (x's part, w's part), 0 hi, 1 mid, 2 lo; mid lo, lo mid and
+# lo lo are dropped
+SPLIT6_PASSES = ((0, 0), (0, 1), (1, 0), (0, 2), (1, 1), (2, 0))
+
+
+def conv3d_split6(x: torch.Tensor, w: torch.Tensor,
+                  dtype: torch.dtype = torch.float64,
+                  passes=SPLIT6_PASSES) -> torch.Tensor:
+    """Plain mirror of K7's f32 form: the 3x3x3 SAME conv of NDHWC ``x``
+    with DHWIO ``w`` (both f32) as six convs of their bf16 parts
+    (``split3_bf16``, ``SPLIT6_PASSES``), each computed in ``dtype`` and
+    summed in it pass by pass, in the kernel's order; ``passes`` a subset
+    of them (one pass's share of the conv, or the sum without one). For
+    the tests and the card's check that the gates see a dropped pass."""
+    xs, ws = split3_bf16(x), split3_bf16(w)
+    out = None
+    for i, j in passes:
+        y = _conv3d(xs[i], ws[j], 1, dtype)
+        out = y if out is None else out + y
+    return out.contiguous()
+
+
 def conv3d_zcat(x: torch.Tensor, w: torch.Tensor,
                 bias: torch.Tensor = None,
                 dtype: torch.dtype = BF16) -> torch.Tensor:

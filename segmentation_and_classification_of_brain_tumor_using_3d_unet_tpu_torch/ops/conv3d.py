@@ -10,8 +10,10 @@ block-Toeplitz lane geometry; the kernel here needs none of them.
 
   * ``conv3d_same`` — the kernel's wrapper, bf16 or f32: on the card the
     bf16 form (``csrc/conv3d_same.cu``) or the f32 form
-    (``csrc/conv3d_same_f32.cu``, f32 FMAs, no TF32), on the CPU the
-    plain version. ``conv3d_same.launches`` counts its launches.
+    (``csrc/conv3d_same_f32.cu``: six bf16 passes on the tensor cores
+    over an exact split of x and of w; ``ops/conv.py::conv3d_split6`` is
+    its plain mirror), on the CPU the plain version.
+    ``conv3d_same.launches`` counts its launches.
   * ``wtile_conv3d`` — the op with gradients (JAX ``wtile_conv3d``): the
     forward and the data gradient on the kernel (the data gradient with
     the taps flipped and ci, co swapped, as JAX's backward), the weight
@@ -73,10 +75,17 @@ def conv3d_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _check("wtile_conv3d w", wk, dtype=dt)
     y = torch.empty((B, D, H, W, co), dtype=dt, device=x.device)
     lib = _lib()
-    entry = lib.conv3d_same if dt == BF16 else lib.conv3d_same_f32
-    lib.check("conv3d_same", entry(
-        x.data_ptr(), wk.data_ptr(), y.data_ptr(), B, D, H, W, ci, co,
-        _stream()))
+    if dt == BF16:
+        code = lib.conv3d_same(x.data_ptr(), wk.data_ptr(), y.data_ptr(), B,
+                               D, H, W, ci, co, _stream())
+    else:
+        # scratch for the weights' hi, mid and lo parts, which the launch
+        # splits on the card before the conv
+        parts = torch.empty((3, 27, ci, co), dtype=BF16, device=x.device)
+        code = lib.conv3d_same_f32(x.data_ptr(), wk.data_ptr(),
+                                   parts.data_ptr(), y.data_ptr(), B, D, H,
+                                   W, ci, co, _stream())
+    lib.check("conv3d_same", code)
     conv3d_same.launches += 1
     return y
 
@@ -87,18 +96,14 @@ conv3d_same.launches = 0
 def conv3d_same_plan(B: int, D: int, H: int, W: int, ci: int, co: int,
                      dtype: torch.dtype = BF16) -> dict:
     """The launch geometry K7's ``dtype`` form picks for x (B, D, H, W,
-    ci) -> co: output channels N a block (and, in bf16, input channels KC
-    per step and M output voxels, the GEMM rows, a block), the TD x TH x
-    TW output patch, the block count and the dynamic shared memory in
-    bytes."""
+    ci) -> co: output channels N a block, input channels KC per step, M
+    output voxels (the GEMM rows) a block, the TD x TH x TW output patch,
+    the block count and the dynamic shared memory in bytes."""
     import ctypes
     lib = _lib()
-    if dtype == BF16:
-        fn, keys = lib._dll.conv3d_same_plan, ("N", "KC", "M", "TD", "TH",
-                                               "TW", "blocks", "smem")
-    else:
-        fn, keys = lib._dll.conv3d_same_f32_plan, ("N", "TD", "TH", "TW",
-                                                   "blocks", "smem")
+    fn = (lib._dll.conv3d_same_plan if dtype == BF16
+          else lib._dll.conv3d_same_f32_plan)
+    keys = ("N", "KC", "M", "TD", "TH", "TW", "blocks", "smem")
     fn.argtypes = (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * len(keys))()

@@ -34,8 +34,10 @@ _K1 = (_P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P)
 _K2 = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
 _K7 = (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
 # C entry points: name -> argument types (every one returns cudaError_t);
-# the f32 forms of K1, K2 and K7 take the bf16 forms' arguments (K1's
-# weights as bf16 in both)
+# the f32 forms of K1 and K2 take the bf16 forms' arguments (K1's weights
+# as bf16 in both); K7's f32 form takes scratch for its weights' split
+# after w, and that split, the first of its two kernels, has an entry of
+# its own for timing
 SIGNATURES = {
     "ps2d_conv3d": _K1,
     "ps2d_conv3d_f32": _K1,
@@ -46,7 +48,8 @@ SIGNATURES = {
     "group_norm_stats": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _P),
     "group_norm_apply": (_P, _I, _P, _P, _P, _I, _I, _P, _I, _I, _I, _P),
     "conv3d_same": _K7,
-    "conv3d_same_f32": _K7,
+    "conv3d_same_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "conv3d_same_f32_split_weights": (_P, _P, _I, _I, _P),
 }
 
 

@@ -33,10 +33,10 @@ Each kernel has a bf16 and an f32 form (K3 and K4 one source
 templated on the element type; K1 and K2 a source each, ``*_f32.cu``),
 and each wrapper takes either dtype and returns its input's. K1's f32
 form runs on the tensor cores as three bf16 passes over an exact split
-of its activations (``split3_bf16`` mirrors the split). A wrapper
-takes its plain version for tensors on the CPU only; for a CUDA tensor
-it launches its kernel or raises. Each keeps a count of its launches in
-``<wrapper>.launches``.
+of its activations (``ops/conv.py::split3_bf16`` mirrors the split).
+A wrapper takes its plain version for tensors on the CPU only; for a
+CUDA tensor it launches its kernel or raises. Each keeps a count of its
+launches in ``<wrapper>.launches``.
 """
 
 from __future__ import annotations
@@ -46,6 +46,7 @@ import torch.nn.functional as F
 from torch.nn.grad import conv3d_weight
 
 from .conv import BF16, F32, accumulate, matmul
+from .conv import split3_bf16  # noqa: F401  (importable here too)
 from .norm import apply_affine, bf16_moments, group_affine
 from .pool import max_pool3d
 
@@ -422,21 +423,6 @@ def conv3d_halo_plan(B: int, D: int, H: int, W: int, ci0: int, ci1: int,
     lib.check("ps2d_conv3d_plan", fn(B, D, H, W, ci0, ci1, co,
                                      ctypes.addressof(out)))
     return dict(zip(keys, out))
-
-
-def split3_bf16(x: torch.Tensor):
-    """The exact three-way split of an f32 tensor that K1's f32 form
-    applies to its transformed activations before its three bf16 passes:
-    ``hi = bf16(x)``, ``mid = bf16(x - hi)``, ``lo = bf16(x - hi - mid)``
-    (each difference exact in f32), so ``hi + mid + lo == x`` for 0 and
-    every 2^-110 <= |x| <= 3.3895e38; below, the error is under 2^-133.
-    A plain mirror of the kernel's split, for the tests."""
-    x = x.float()
-    hi = x.to(BF16)
-    r = x - hi.float()
-    mid = r.to(BF16)
-    lo = (r - mid.float()).to(BF16)
-    return hi, mid, lo
 
 
 # ----------------------------------------------------------------------

@@ -27,7 +27,8 @@ off, ``ops.conv.full_f32``, around the whole test, backwards included):
 pack and pool bit-exact; K1, K2, K6 and K7 within 1e-5 * max|ref| (f32
 sums in another order), K1's sums within 1e-5 of the largest sum; two
 runs bit-identical. K1's f32 form (three bf16 wgmma passes over an exact
-split of its activations) also errs against a float64 conv of the same
+split of its activations) and K7's (six over an exact split of its
+activations and weights) also err against a float64 conv of the same
 inputs by at most 4x the plain f32 conv's own error.
 """
 
@@ -762,12 +763,36 @@ def test_up_k2s2_into_halo_f32_kernel_matches_plain(f32_exact, shape, ci,
     assert (got * (1 - T.halo_mask(got))).abs().max() == 0
 
 
+# K7's f32 cases, which reach every instantiation of its f32 form
+# (test_k7_f32_plans), and two thin volumes whose patch needs a TH below
+# the balanced most (test_k7_f32_plans_thin)
+K7_F32_CASES = K7_CASES[:13] + K7_CASES[-3:] + [(32, 32, 1, 64, 64),
+                                                (32, 64, 4, 64, 1)]
+
+
+def _k7_f32_inputs(dev, ci, co, D, H, W):
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn((2, D, H, W, ci), device=dev, generator=g)
+    w = torch.randn((3, 3, 3, ci, co), device=dev, generator=g) * 0.05
+    return x, w
+
+
+def _check_k7_f32_plan(p, B, D, H, W, co):
+    """K7 f32's plan: N = 64 where it divides co, else 32; chunks of
+    KC = 16 channels, M = 128 GEMM rows holding the patch, two blocks an
+    SM in shared memory, one block per patch and channel tile."""
+    assert p["KC"] == 16 and p["M"] == 128, p
+    assert p["TD"] * p["TH"] * p["TW"] <= 128 and p["TD"] <= 4, p
+    assert p["smem"] <= 115712, p
+    patches = (-(-D // p["TD"])) * (-(-H // p["TH"])) * (-(-W // p["TW"]))
+    assert p["blocks"] == patches * B * (co // p["N"]), p
+    assert p["N"] == (64 if co % 64 == 0 else 32), p
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("ci,co,D,H,W", K7_CASES[:13] + K7_CASES[-3:])
+@pytest.mark.parametrize("ci,co,D,H,W", K7_F32_CASES)
 def test_conv3d_same_f32_kernel_matches_plain(f32_exact, ci, co, D, H, W):
-    g = torch.Generator(device=f32_exact).manual_seed(4)
-    x = torch.randn((2, D, H, W, ci), device=f32_exact, generator=g)
-    w = torch.randn((3, 3, 3, ci, co), device=f32_exact, generator=g) * 0.05
+    x, w = _k7_f32_inputs(f32_exact, ci, co, D, H, W)
     before = K7.conv3d_same.launches
     y = K7.conv3d_same(x, w)
     again = K7.conv3d_same(x, w)
@@ -775,8 +800,62 @@ def test_conv3d_same_f32_kernel_matches_plain(f32_exact, ci, co, D, H, W):
     assert K7.conv3d_same.launches == before + 2 and y.dtype == F32
     _rel_close(y, K7.wtile_conv3d_plain(x, w))
     assert torch.equal(y, again)
-    p = K7.conv3d_same_plan(2, D, H, W, ci, co, F32)
-    assert p["N"] == (64 if co % 64 == 0 else 32) and p["blocks"] >= 1
+    _check_k7_f32_plan(K7.conv3d_same_plan(2, D, H, W, ci, co, F32), 2, D,
+                       H, W, co)
+
+
+@pytest.mark.gpu
+def test_k7_f32_plans(cuda):
+    """The f32 form's plans at its cases reach each of its four
+    instantiations: N 32 and 64, each with one channel tile and with
+    several (it has one step size, three taps)."""
+    seen = set()
+    for ci, co, D, H, W in K7_F32_CASES:
+        p = K7.conv3d_same_plan(2, D, H, W, ci, co, F32)
+        _check_k7_f32_plan(p, 2, D, H, W, co)
+        seen.add((p["N"], p["N"] == co))
+    assert seen == {(n, one) for n in (32, 64) for one in (True, False)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,D,H,W", [(1, 1, 64, 64), (1, 1, 240, 240),
+                                     (2, 4, 64, 1), (1, 2, 200, 1),
+                                     (1, 1, 300, 1), (1, 3, 1, 1000),
+                                     (1, 1, 1, 1)])
+def test_k7_f32_plans_thin(cuda, B, D, H, W):
+    """Thin volumes, where the largest balanced TH's box would not fit,
+    still get a plan (a smaller TH), at both N."""
+    for co in (32, 64):
+        _check_k7_f32_plan(K7.conv3d_same_plan(B, D, H, W, 32, co, F32), B,
+                           D, H, W, co)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ci,co,D,H,W", K7_CASES)
+def test_conv3d_same_f32_split_error_vs_float64(f32_exact, ci, co, D, H, W):
+    """Six bf16 passes over an exact split of x and of w lose nothing:
+    the kernel's max |error| against the float64 conv of the same x and
+    w is at most 4x the plain f32 conv's own. That alone would pass a
+    kernel without one of the small passes (x_hi w_lo, x_mid w_mid,
+    x_lo w_hi: some 2^-18 a product, summed as sqrt(K)), so the kernel's
+    error must also hold none of each such pass's share d of the conv:
+    <err, d> / <d, d> is ~0 where the pass is computed, -1 where it is
+    dropped."""
+    from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.ops.conv import (
+        conv3d_split6)
+    x, w = _k7_f32_inputs(f32_exact, ci, co, D, H, W)
+    ref = torch.nn.functional.conv3d(
+        x.double().permute(0, 4, 1, 2, 3),
+        w.double().permute(4, 3, 0, 1, 2).contiguous(),
+        padding=1).permute(0, 2, 3, 4, 1)
+    r = K7.conv3d_same(x, w).double() - ref
+    err = r.abs().max().item()
+    err_plain = (K7.wtile_conv3d_plain(x, w).double() - ref).abs().max().item()
+    assert err <= 4 * err_plain, (err, err_plain)
+    for p in ((0, 2), (1, 1), (2, 0)):
+        d = conv3d_split6(x, w, F32, (p,)).double()
+        beta = ((r * d).sum() / (d * d).sum()).item()
+        assert abs(beta) <= 0.5, (p, beta)
 
 
 @pytest.mark.gpu
