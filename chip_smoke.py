@@ -106,14 +106,15 @@ kernels' readings are taken as in the runs before them:
      forms, K2's two levels, K6's three forms and K7's nine shapes plus
      its VJP within 1e-5 max|ref|; K1's output and statistics, K2 and K7
      bit-identical over two runs); K1's f32 form (three bf16 wgmma passes
-     over an exact split of its activations) and K7's (six over an exact
-     split of its activations and weights, at its nine shapes and its
-     VJP's data gradient; the two 240x240x160 shapes and the data gradient
-     on their first 40 D planes) against a float64 conv of the same
-     inputs on the card, at most 4x the plain f32 conv's own error at
-     each, with their launch geometry (K7's error also holds no share of
-     its three smallest passes, beside a control without each that
-     must); the server's request on a full-width
+     over an exact split of its activations), K2's (six over an exact
+     split of its activations and weights, at both levels) and K7's (six,
+     at its nine shapes and its VJP's data gradient; the two 240x240x160
+     shapes and the data gradient on their first 40 D planes) against a
+     float64 conv of the same inputs on the card, at most 4x the plain
+     f32 conv's own error at each, with their launch geometry (K2's and
+     K7's errors also hold no share of their three smallest passes,
+     beside a control without each that must); the server's request on a
+     full-width
      Predictor(compute_dtype="float32", ps2d_eval, ps2d_levels=2) with K1
      14 / K2 4 / K3 4 / K4 2 launches, one window batch of it within
      1e-4 max(scale, 1) of the f32 normal path (TF32 off) given K1's
@@ -1750,11 +1751,15 @@ def main() -> int:
     def kernel_entry(name, src, line, timed, main=0):
         """The kernels line's entry of kernel ``name`` (its launches are
         filled in at the end), its main form's numbers on top, and the
-        split forms' errors against float64 over the plain f32 conv's."""
+        split forms' errors against float64 over the plain f32 conv's,
+        with the shares of their smallest passes in them and the
+        controls'."""
         m = timed[main]
-        ratios = report[name].get("f64_error_ratio")
+        gates = {k: report[name][k] for k in (
+            "f64_error_ratio", "dropped_pass_beta", "dropped_pass_control")
+            if report[name].get(k)}
         return {
-            **({"f64_error_ratio": ratios} if ratios else {}),
+            **gates,
             "name": name, "route": "cuda",
             "source": f"{PKG}/csrc/{src}",
             "replaces": f"{REF}/ops/pallas/{line}",
@@ -1786,8 +1791,10 @@ def main() -> int:
                                 kw.get("in_scale"), kw.get("in_shift"), y),
                          flops), reps)
 
-    def up_row(label, x2, w2, b2, reps, peak=PEAK_BF16_FLOPS):
-        """K2 at one level."""
+    def up_row(label, x2, w2, b2, reps, passes=1):
+        """K2 at one level; its bound's operations those of ``passes``
+        bf16 passes on the tensor cores (6 for the f32 form: six passes
+        over an exact split of x and of w)."""
         y2 = T.up_k2s2_into_halo_plain(x2, w2, b2)
         x2n = x2.permute(0, 4, 1, 2, 3)          # channels-last NCDHW
         w2n = w2.flip(0, 1, 2).permute(3, 4, 0, 1, 2).contiguous()
@@ -1796,7 +1803,7 @@ def main() -> int:
                 lambda: F.conv_transpose3d(x2n, w2n, b2.to(x2.dtype),
                                            stride=2),
                 bound_ms(nbytes(x2, w2, b2, y2),
-                         2.0 * x2.numel() * 8 * w2.shape[-1], peak), reps)
+                         passes * 2.0 * x2.numel() * 8 * w2.shape[-1]), reps)
 
     def pack_row(x3, reps):
         """K3 at the level-0 window batch."""
@@ -2010,23 +2017,83 @@ def main() -> int:
         report["pack_halo_f32"] = {"max_abs_err": e3}
         report["pool_into_halo_f32"] = {"max_abs_err": e4}
 
+        def pass_shares(label, rk, ref64, ep, mirror, betas, control):
+            """The six-pass forms' gate beside the float64 ratio: the
+            kernel's error rk (against ref64) must hold none of the share
+            d of each of the three smallest kept passes p (x_hi w_lo,
+            x_mid w_mid, x_lo w_hi): beta = <rk, d> / <d, d> is ~0 where
+            the kernel computes p and -1 where it drops it; |beta| <= 0.5.
+            The control, the plain mirror without p (``mirror(passes,
+            full)`` in f32, float64 out; ``full``: the bias and all that
+            the kernel adds besides the passes), must read beta within 0.5
+            of -1, or the gate could not tell. Appends to betas and
+            control."""
+            line = []
+            for p in ((0, 2), (1, 1), (2, 0)):
+                rest = tuple(q for q in T.SPLIT6_PASSES if q != p)
+                d, rc = mirror((p,), False), mirror(rest, True) - ref64
+                dd = (d * d).sum().item()
+                bk, bc = (rk * d).sum().item() / dd, (rc * d).sum().item() / dd
+                ec = rc.abs().max().item()
+                betas.append(bk)
+                control.append({"beta": bc, "ratio": ec / ep})
+                line.append(f"x{'hml'[p[0]]}*w{'hml'[p[1]]}: kernel beta "
+                            f"{bk:+.4f}, without it beta {bc:+.4f} ratio "
+                            f"{ec / ep:.4f}")
+                check(abs(bk) <= 0.5, f"{label}: the kernel's error holds "
+                      f"{-bk:.3f} of pass {p}")
+                check(abs(bc + 1) <= 0.5, f"{label}: the control without "
+                      f"pass {p} reads beta {bc}, not -1")
+                del d, rc
+            print(f"  share of a pass in the error (0 kept, -1 dropped; "
+                  f"bound 0.5): " + "; ".join(line))
+
+        # K2: against its plain version, then against float64 of the same
+        # x, w and bias: the kernel errs at most 4x as much as the plain
+        # f32 GEMM, and holds no share of its smallest passes (the mirror
+        # ops/ps2d.py::up_k2s2_into_halo_split6)
         k2, worst = {}, 0.0
+        ratios, betas, control = [], [], []
         for lvl, (d2, ci, co) in k2_levels.items():
             x2, w2 = rnd32((B, d2, d2, d2, ci)), rnd32((2, 2, 2, ci, co), 0.1)
             b2 = rnd32((co,), 0.1)
             torch.full((B, *(2 * d2 + 2,) * 3, co), float("nan"), device=dev)
             got = T.up_k2s2_into_halo(x2, w2, b2)
             same = torch.equal(got, T.up_k2s2_into_halo(x2, w2, b2))
-            e, tol = hold(f"up_k2s2_into_halo f32 {lvl}", got,
-                          T.up_k2s2_into_halo_plain(x2, w2, b2))
+            yp = T.up_k2s2_into_halo_plain(x2, w2, b2)
+            e, tol = hold(f"up_k2s2_into_halo f32 {lvl}", got, yp)
             shape = f"(4,{d2}^3,{ci})->(4,{2 * d2 + 2}^3,{co})"
             print(f"up_k2s2_into_halo f32 {lvl} {shape}: max_abs_err {e} "
                   f"(tolerance {tol}); halo exactly zero: {halo_zero(got)}; "
-                  f"two runs bit-identical: {same}")
+                  f"two runs bit-identical: {same}; launch "
+                  f"{T.up_k2s2_plan(B, d2, d2, d2, ci, co, f32)}")
             check(halo_zero(got) and same, f"up_k2s2_into_halo f32 {lvl}")
             k2[lvl], worst = (x2, w2, b2, shape), max(worst, e)
+            ref64 = T._phases_into_halo(
+                torch.matmul(x2.double(),
+                             T._phase_matrix(w2.double(), torch.float64))
+                + b2.double().repeat(8), x2.shape)
+            rk = got.double() - ref64
             del got
-        report["up_k2s2_into_halo_f32"] = {"max_abs_err": worst}
+            ek = rk.abs().max().item()
+            ep = (yp.double() - ref64).abs().max().item()
+            del yp
+            ratios.append(ek / ep)
+            print(f"up_k2s2_into_halo f32 {lvl} vs float64 on the card: "
+                  f"kernel {ek:.4e}, plain f32 {ep:.4e}, ratio "
+                  f"{ek / ep:.4f} (bound 4)")
+            check(ek <= 4 * ep, f"up_k2s2_into_halo f32 {lvl}: the kernel "
+                  f"errs {ek} against float64, over 4x the plain f32's {ep}")
+            pass_shares(
+                f"up_k2s2_into_halo f32 {lvl}", rk, ref64, ep,
+                lambda ps, full, x2=x2, w2=w2, b2=b2:
+                    T.up_k2s2_into_halo_split6(x2, w2, b2 if full else None,
+                                               f32, ps).double(),
+                betas, control)
+            del ref64, rk
+        report["up_k2s2_into_halo_f32"] = {
+            "max_abs_err": worst, "f64_error_ratio": ratios,
+            "dropped_pass_beta": betas, "dropped_pass_control": control}
 
         def f64_conv(kw):
             """K1's function in float64 on the card: x' (the inputs after
@@ -2082,7 +2149,8 @@ def main() -> int:
                   f"{ek} against float64, over 4x the plain f32's {ep}")
             del y, yr, ref64
         for i, line in enumerate(built.log.splitlines()):
-            if "entry function" in line and "_f32" in line:
+            if "entry function" in line and ("_f32" in line
+                                             or "split6" in line):
                 info = [x.strip().removeprefix("ptxas info    : ")
                         for x in built.log.splitlines()[i + 1:i + 4]
                         if "Used" in x or "spill" in x]
@@ -2171,15 +2239,10 @@ def main() -> int:
         # off); the 240^2 x 160 volumes on a 40-plane D slab. That ratio
         # alone cannot see a dropped pass (a five-pass sum's error, some
         # 2^-18 a product, grows as sqrt(K) and the plain f32 conv's
-        # faster: the control below prints its ratio). So, for each of the
-        # three smallest kept passes p (x_hi w_lo, x_mid w_mid, x_lo w_hi),
-        # the kernel's error r must hold none of p's share d of the conv:
-        # beta = <r, d> / <d, d> is ~0 where the kernel computes p and -1
-        # where it drops it; |beta| <= 0.5. The control, the plain mirror
-        # without p (ops/conv.py::conv3d_split6 in f32), must read beta
-        # within 0.5 of -1, or the gate could not tell.
+        # faster: the control prints its ratio), so the kernel's error
+        # must also hold no share of its smallest passes (pass_shares, the
+        # mirror ops/conv.py::conv3d_split6).
         conv_mod = import_module(PKG + ".ops.conv")
-        small = ((0, 2), (1, 1), (2, 0))
         k7_dy = rnd32(k7[first][0].shape[:-1] + (k7[first][1].shape[-1],))
         w1 = k7[first][1]
         wt = w1.flip(0, 1, 2).transpose(3, 4)
@@ -2206,27 +2269,11 @@ def main() -> int:
             check(ek <= 4 * ep, f"conv3d_same f32 {k}: the kernel errs {ek} "
                   f"against float64, over 4x the plain f32's {ep}")
             xs = x if planes is None else x[:, :planes + 1]
-            line = []
-            for p in small:
-                rest = tuple(q for q in conv_mod.SPLIT6_PASSES if q != p)
-                d = conv_mod.conv3d_split6(xs, w, f32, (p,))[:, cut].double()
-                rc = conv_mod.conv3d_split6(xs, w, f32, rest)[:, cut].double() \
-                    - ref64
-                dd = (d * d).sum().item()
-                bk, bc = (rk * d).sum().item() / dd, (rc * d).sum().item() / dd
-                ec = rc.abs().max().item()
-                betas.append(bk)
-                control.append({"beta": bc, "ratio": ec / ep})
-                line.append(f"x{'hml'[p[0]]}*w{'hml'[p[1]]}: kernel beta "
-                            f"{bk:+.4f}, without it beta {bc:+.4f} ratio "
-                            f"{ec / ep:.4f}")
-                check(abs(bk) <= 0.5, f"conv3d_same f32 {k}: the kernel's "
-                      f"error holds {-bk:.3f} of pass {p}")
-                check(abs(bc + 1) <= 0.5, f"conv3d_same f32 {k}: the control "
-                      f"without pass {p} reads beta {bc}, not -1")
-                del d, rc
-            print(f"  share of a pass in the error (0 kept, -1 dropped; "
-                  f"bound 0.5): " + "; ".join(line))
+            pass_shares(
+                f"conv3d_same f32 {k}", rk, ref64, ep,
+                lambda ps, full, xs=xs, w=w, cut=cut: conv_mod.conv3d_split6(
+                    xs, w, f32, ps)[:, cut].double(),
+                betas, control)
             del ref64, rk
         report["conv3d_same_f32"] = {
             "max_abs_err": worst, "f64_error_ratio": ratios,
@@ -2429,7 +2476,8 @@ def main() -> int:
             ("conv3d_halo_f32", "ps2d_conv3d_f32.cu", "ps2d.py:667",
              [conv_row(n, kw, 5, passes=3) for n, kw in forms32.items()]),
             ("up_k2s2_into_halo_f32", "up_k2s2_into_halo_f32.cu",
-             "ps2d.py:228", [up_row(f"{lvl} {shape}", x2, w2, b2, 10, peak)
+             "ps2d.py:228", [up_row(f"{lvl} {shape}", x2, w2, b2, 10,
+                                    passes=6)
                              for lvl, (x2, w2, b2, shape) in k2.items()]),
             ("pack_halo_f32", "pack_halo.cu", "ps2d.py:167",
              [pack_row(x3, 10)]),
@@ -2445,6 +2493,8 @@ def main() -> int:
         notes = {
             "conv3d_halo_f32": "max(bytes / 3.35 TB/s, three bf16 passes' "
                                "operations / 989 TFLOP/s)",
+            "up_k2s2_into_halo_f32": "max(bytes / 3.35 TB/s, six bf16 "
+                                     "passes' operations / 989 TFLOP/s)",
             "conv3d_same_f32": "max(bytes / 3.35 TB/s, six bf16 passes' "
                                "operations / 989 TFLOP/s; the VJP's weight "
                                "gradient at the f32 FMA peak)",

@@ -37,11 +37,9 @@ launches between CUDA events; the script prints the median per build.
   * ``--kernel k7f32``: K7's f32 form at the same ten forms with f32
     inputs, beside ``F.conv3d`` in f32 with TF32 off (``full_f32``,
     around the whole comparison). Every build's output must lie within
-    1e-5 * max|ref| of the plain version (f32, TF32 off). A tree whose K7
-    f32 form is the SIMT kernel of ``simt_conv_f32.cuh`` (before the
-    split design) takes no scratch for the weights' split; it is called
-    so. Each build's share of the split design's bound (the bytes, or six
-    bf16 passes' operations on the tensor cores) is printed.
+    1e-5 * max|ref| of the plain version (f32, TF32 off). Each build's
+    share of the split design's bound (the bytes, or six bf16 passes'
+    operations on the tensor cores) is printed.
   * ``--kernel k2``: K2 (``ops/ps2d.py::up_k2s2_into_halo``) at its two
     request forms (``chip_smoke.py``'s: the server's batch of 4 windows of
     128^3, level 0 (4, 64^3, 64) -> (4, 130^3, 32) and level 1
@@ -51,6 +49,17 @@ launches between CUDA events; the script prints the median per build.
     exactly zero; whether it equals this build's bit for bit is printed.
     Prints each form's launch geometry in this build and each build's
     share of the form's bound.
+  * ``--kernel k2f32``: K2's f32 form at the same two forms with f32
+    inputs (values bf16 does not hold), beside ``F.conv_transpose3d`` in
+    f32 with TF32 off (``ops.conv.full_f32``, around the whole
+    comparison). Every build's output must lie within 1e-5 * max|ref| of
+    the plain version (f32, TF32 off), its halo exactly zero; whether it
+    equals this build's bit for bit is printed. Each build's share of the
+    split design's bound (the bytes, or six bf16 passes' operations on the
+    tensor cores) and this build's launch geometry are printed, and each
+    build's max |error| against the float64 transposed conv of the same
+    inputs over the plain f32 GEMM's. A tree from before the split design
+    (the SIMT kernel) takes the same arguments.
 
     python -m segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.compare_builds \\
         --kernel k1 --against parent=/path/to/parent/csrc
@@ -145,14 +154,12 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
 
 
-def k7_forms(seed: int = 0, dtype=None, conv=None):
+def k7_forms(seed: int = 0, dtype=None):
     """K7's timed forms: name -> (kernel call, plain call, F.conv3d call,
     bound ms, reps, launch geometry or None). The nine benchmark shapes
     (weights * 0.05 as there), then the VJP's data gradient at the
-    first, with tensors in ``dtype`` (bf16 by default). ``conv(x, w)``
-    replaces the wrapper's call where given (an f32 comparison's, which
-    picks each build's calling convention). In f32 the bound's operations
-    are six bf16 passes (the split design's)."""
+    first, with tensors in ``dtype`` (bf16 by default). In f32 the
+    bound's operations are six bf16 passes (the split design's)."""
     import torch
     import torch.nn.functional as F
     from .ops import conv3d as K7
@@ -181,7 +188,7 @@ def k7_forms(seed: int = 0, dtype=None, conv=None):
         x, w = rnd((1, D, H, W, ci)), rnd((3, 3, 3, ci, co), 0.05)
         reps = 5 if x.numel() > 2e8 else 20
         out[f"{ci}->{co} @({D},{H},{W})"] = form(
-            x, w, lambda x=x, w=w: (conv or K7.conv3d_same)(x, w),
+            x, w, lambda x=x, w=w: K7.conv3d_same(x, w),
             lambda x=x, w=w: K7.wtile_conv3d_plain(x, w), reps,
             lambda ci=ci, co=co, D=D, H=H, W=W: K7.conv3d_same_plan(
                 1, D, H, W, ci, co, dtype))
@@ -189,24 +196,35 @@ def k7_forms(seed: int = 0, dtype=None, conv=None):
     dy, w = rnd((1, D, H, W, co)), rnd((3, 3, 3, ci, co), 0.05)
     wt = w.flip(0, 1, 2).transpose(3, 4)
     out[f"data grad {co}->{ci} @({D},{H},{W})"] = form(
-        dy, wt, (lambda: conv(dy, wt)) if conv else
-        (lambda: K7.conv3d_same_dgrad(dy, w)),
+        dy, wt, lambda: K7.conv3d_same_dgrad(dy, w),
         lambda: K7.wtile_conv3d_plain(dy, wt), 5, None)
     return out
 
 
-def k2_forms(seed: int = 0):
-    """K2's timed forms, ``chip_smoke.py``'s: name -> (kernel call, plain
-    call, F.conv_transpose3d call, bound ms, reps, launch geometry)."""
+def k2_forms(seed: int = 0, dtype=None):
+    """K2's timed forms, ``chip_smoke.py``'s, with tensors in ``dtype``
+    (bf16 by default; the bias f32): name -> (kernel call, plain call,
+    F.conv_transpose3d call, bound ms, reps, launch geometry[, float64
+    reference]). In f32 the bound's operations are six bf16 passes (the
+    split design's), and the float64 transposed conv of the same inputs
+    comes last."""
     import torch
     import torch.nn.functional as F
     from .ops import ps2d as T
 
+    dtype = dtype or torch.bfloat16
+    passes = 1 if dtype == torch.bfloat16 else 6
     g = torch.Generator(device="cuda").manual_seed(seed)
 
-    def rnd(shape, scale=1.0, dtype=torch.bfloat16):
+    def rnd(shape, scale=1.0, dt=dtype):
         return (torch.randn(shape, device="cuda", generator=g)
-                * scale).to(dtype)
+                * scale).to(dt)
+
+    def f64(x, w, b):
+        return T._phases_into_halo(
+            torch.matmul(x.double(), T._phase_matrix(w.double(),
+                                                     torch.float64))
+            + b.double().repeat(8), x.shape)
 
     out = {}
     for lvl, (d2, ci, co) in {"level 0": (64, 64, 32),
@@ -215,17 +233,19 @@ def k2_forms(seed: int = 0):
         b = rnd((co,), 0.1, torch.float32)
         xn = x.permute(0, 4, 1, 2, 3)             # channels-last NCDHW
         wn = w.flip(0, 1, 2).permute(3, 4, 0, 1, 2).contiguous()
-        nb = (x.numel() + w.numel() + 4 * (2 * d2 + 2) ** 3 * co) * 2 \
-            + b.numel() * 4
-        flops = 2.0 * x.numel() * 8 * co
+        nb = (x.numel() + w.numel() + 4 * (2 * d2 + 2) ** 3 * co) \
+            * x.element_size() + b.numel() * 4
+        flops = passes * 2.0 * x.numel() * 8 * co
         out[f"{lvl} (4,{d2}^3,{ci})->(4,{2 * d2 + 2}^3,{co})"] = (
             lambda x=x, w=w, b=b: T.up_k2s2_into_halo(x, w, b),
             lambda x=x, w=w, b=b: T.up_k2s2_into_halo_plain(x, w, b),
             lambda xn=xn, wn=wn, b=b: F.conv_transpose3d(
-                xn, wn, b.to(torch.bfloat16), stride=2),
-            max(flops / PEAK_BF16_FLOPS, nb / PEAK_HBM_BYTES) * 1e3, 20,
+                xn, wn, b.to(dtype), stride=2),
+            max(flops / PEAK_BF16_FLOPS, nb / PEAK_HBM_BYTES) * 1e3,
+            20 if passes == 1 else 10,
             lambda d2=d2, ci=ci, co=co: T.up_k2s2_plan(4, d2, d2, d2, ci,
-                                                       co))
+                                                       co, dtype),
+            *(() if passes == 1 else (lambda x=x, w=w, b=b: f64(x, w, b),)))
     return out
 
 
@@ -240,14 +260,16 @@ def compare_forms(forms: dict, libs, use, rounds: int, library: str,
     """A kernel at its forms in every build: checked against the plain
     version (within ``tol_of(max|ref|)``; with ``halo``, the halo
     exactly zero too), then timed in alternated rounds beside the
-    library call."""
+    library call. A form with a float64 reference also prints each
+    build's max |error| against it over the plain version's."""
     import numpy as np
     import torch
     from .ops import ps2d as T
 
     result = {}
     order = list(libs) + list(libs)[::-1]
-    for name, (kern, plain, lib_fn, bound, reps, geo) in forms.items():
+    ratios = {}
+    for name, (kern, plain, lib_fn, bound, reps, geo, *f64) in forms.items():
         ref = plain().float()
         tol = tol_of(ref.abs().max().item())
         outs = {}
@@ -266,6 +288,15 @@ def compare_forms(forms: dict, libs, use, rounds: int, library: str,
         print(f"{name}: bit-identical to this build: " + ", ".join(
             f"{k} {torch.equal(v, outs['this'])}" for k, v in outs.items()
             if k != "this"))
+        if f64:
+            r64 = f64[0]()
+            ep = (ref.double() - r64).abs().max().item()
+            ratios[name] = {k: (v.double() - r64).abs().max().item() / ep
+                            for k, v in outs.items()}
+            print(f"{name}: max |error| against float64 over the plain "
+                  f"version's ({ep:.4e}): " + ", ".join(
+                      f"{k} {v:.4f}" for k, v in ratios[name].items()))
+            del r64
         del ref, outs
         use("this")
         if geo is not None:
@@ -285,57 +316,18 @@ def compare_forms(forms: dict, libs, use, rounds: int, library: str,
             for k, v in med.items()))
     return {"forms": {k: v["median_ms"] for k, v in result.items()},
             "bound_ms": {k: v["bound_ms"] for k, v in result.items()},
-            "bound_share": {k: v["bound_share"] for k, v in result.items()}}
+            "bound_share": {k: v["bound_share"] for k, v in result.items()},
+            **({"f64_error_ratio": ratios} if ratios else {})}
 
 
-def _simt_k7_f32(lib, x, w):
-    """K7's f32 form through a build whose f32 form is the SIMT kernel
-    (``simt_conv_f32.cuh``, before the split design): its C entry takes
-    no scratch for the weights' split."""
-    import ctypes
-
-    import torch
-    from .ops import native
-    from .ops import ps2d as T
-
-    B, D, H, W, ci = x.shape
-    co = w.shape[-1]
-    x, wk = T._aligned(x), T._aligned(w.reshape(27, ci, co))
-    y = torch.empty((B, D, H, W, co), dtype=torch.float32, device=x.device)
-    fn = lib._dll["conv3d_same_f32"]     # a new handle: its own argtypes
-    fn.argtypes = native._K7
-    fn.restype = ctypes.c_int
-    lib.check("conv3d_same", fn(x.data_ptr(), wk.data_ptr(), y.data_ptr(),
-                                B, D, H, W, ci, co, T._stream()))
-    return y
-
-
-def simt_k7_f32(csrc: Path) -> bool:
-    """Whether the tree's K7 f32 form is the SIMT kernel."""
-    return "simt_conv_f32.cuh" in (Path(csrc) / "conv3d_same_f32.cu"
-                                   ).read_text()
-
-
-def compare_k7(libs, use, rounds: int, f32: bool = False,
-               simt=()) -> dict:
+def compare_k7(libs, use, rounds: int, f32: bool = False) -> dict:
     """K7 at its forms in every build, within 2^-7 max|ref| of the plain
     version, timed beside F.conv3d; the nine forwards' total. ``f32``:
     its f32 form, held to 1e-5 max|ref|, the bound that of six bf16
-    passes; ``simt`` names the builds called as ``_simt_k7_f32``."""
-    from .ops import conv3d as K7
-    from .ops import native
-
+    passes."""
     if f32:
         import torch
-        simt_libs = [libs[k] for k in simt]
-
-        def conv(x, w):
-            lib = native._library
-            if any(lib is s for s in simt_libs):
-                return _simt_k7_f32(lib, x, w)
-            return K7.conv3d_same(x, w)
-
-        forms, tol = k7_forms(dtype=torch.float32, conv=conv), 1e-5
+        forms, tol = k7_forms(dtype=torch.float32), 1e-5
     else:
         forms, tol = k7_forms(), 2 ** -7
     out = compare_forms(forms, libs, use, rounds, "F.conv3d",
@@ -472,12 +464,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", action="append", default=[],
                     metavar="LABEL=DIR", help="a csrc directory to compare")
-    ap.add_argument("--kernel", choices=("k1", "k1f32", "k2", "k7", "k7f32"),
-                    default="k1")
+    ap.add_argument("--kernel", choices=("k1", "k1f32", "k2", "k2f32", "k7",
+                                         "k7f32"), default="k1")
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--reps", type=int, default=10,
                     help="launches per timing (k1, k1f32; k2 takes 20, "
-                    "k7 and k7f32 5-20)")
+                    "k2f32 10, k7 and k7f32 5-20)")
     args = ap.parse_args(argv)
 
     import torch
@@ -501,6 +493,7 @@ def main(argv=None) -> int:
         # it), K2's or the convs'
         log = built.log.splitlines()
         entry = {"k2": ("up_kernel",), "k1f32": ("split_f32_kernel",),
+                 "k2f32": ("up_split6_kernel", "up_f32_kernel"),
                  "k7f32": ("split6_kernel", "conv_same_f32_kernel")}.get(
             args.kernel, ("conv_kernel",))
         for i, line in enumerate(log):
@@ -516,12 +509,17 @@ def main(argv=None) -> int:
         out = compare_k7(libs, use, args.rounds)
     elif args.kernel == "k7f32":
         from .ops.conv import full_f32
-        simt = {k for k, src in trees.items() if simt_k7_f32(src)}
         with full_f32():
-            out = compare_k7(libs, use, args.rounds, True, simt)
+            out = compare_k7(libs, use, args.rounds, True)
     elif args.kernel == "k2":
         out = compare_forms(k2_forms(), libs, use, args.rounds,
                             "F.conv_transpose3d", _ulp, halo=True)
+    elif args.kernel == "k2f32":
+        from .ops.conv import full_f32
+        with full_f32():
+            out = compare_forms(k2_forms(dtype=torch.float32), libs, use,
+                                args.rounds, "F.conv_transpose3d",
+                                lambda m: 1e-5 * m, halo=True)
     elif args.kernel == "k1f32":
         from .ops.conv import full_f32
         with full_f32():

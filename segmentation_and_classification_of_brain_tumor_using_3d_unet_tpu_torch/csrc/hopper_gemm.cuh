@@ -1,12 +1,12 @@
-// PTX helpers of the port's Hopper implicit-GEMM convs, K7
-// (conv3d_same.cu) and K1 (ps2d_conv3d.cu, and its f32 form
-// ps2d_conv3d_f32.cu): cp.async copies, mbarriers,
-// ldmatrix, the warpgroup MMA (wgmma, RS form: A from registers, B from
-// shared memory through a descriptor) and the no-swizzle layout of its B
-// operand; for the f32 forms of K1 and K7 (ps2d_conv3d_f32.cu,
-// conv3d_same_f32.cu) the exact split of f32 values into three bf16 parts
-// and their shared-memory budget. Each kernel keeps its own main loop;
-// only these pieces are shared. sm_90a only (wgmma).
+// PTX helpers of the port's Hopper GEMM kernels, K7 (conv3d_same.cu), K1
+// (ps2d_conv3d.cu) and K2 (up_k2s2_into_halo.cu), and their f32 forms
+// (*_f32.cu): cp.async copies, bulk (TMA engine) stores from shared
+// memory, mbarriers, ldmatrix, the warpgroup MMA (wgmma, RS form: A from
+// registers, B from shared memory through a descriptor) and the
+// no-swizzle layout of its B operand, a division by a constant worked out
+// on the host; for the f32 forms the exact split of f32 values into three
+// bf16 parts and their shared-memory budget. Each kernel keeps its own
+// main loop; only these pieces are shared. sm_90a only (wgmma).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -71,11 +71,53 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
       "r"(parity)
       : "memory");
 }
+// bytes shared -> global by the bulk-copy (TMA) engine, asynchronous to
+// the issuing thread; 16 B aligned, a multiple of 16 B
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, int bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// this thread's bulk copies have read their shared memory (or, with
+// all, have completed)
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
 // keep the compiler from moving accumulator accesses across a wait
 template <int R>
 __device__ __forceinline__ void fence_operands(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// ----------------------------------------------------- index arithmetic
+// x / d for 0 <= x < 2^31 as a multiply-high and a shift (the round-up
+// method: mul = ceil(2^(31 + l) / d), l = ceil(log2 d)), the constant
+// worked out on the host
+struct FastDiv {
+  int d;
+  uint32_t mul, shr;
+};
+
+inline FastDiv fast_div(int d) {
+  FastDiv f{d, 0u, 0u};
+  if (d > 1) {
+    int l = 0;
+    while ((1ll << l) < d) ++l;
+    f.mul = (uint32_t)(((1ull << (31 + l)) + d - 1) / d);
+    f.shr = l - 1;
+  }
+  return f;
+}
+
+__device__ __forceinline__ int operator/(int x, const FastDiv& f) {
+  return f.d == 1 ? x : (int)(__umulhi((uint32_t)x, f.mul) >> f.shr);
 }
 
 // ------------------------------------------------------ B operand layout

@@ -59,47 +59,20 @@
 #include <initializer_list>
 
 #include "hopper_gemm.cuh"
+#include "up_k2s2_tiles.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 constexpr int kThreads = 256;  // two warpgroups
-constexpr int kTM = 64;        // GEMM rows (input voxels) a tile
 constexpr int kTwoPerSM = 113 * 1024;  // dynamic shared memory for two blocks an SM
 constexpr int kOnePerSM = 227 * 1024;
 
-// x / d for 0 <= x < 2^31 as a multiply-high and a shift (the
-// round-up method: mul = ceil(2^(31 + l) / d), l = ceil(log2 d))
-struct FastDiv {
-  int d;
-  uint32_t mul, shr;
-};
-
-FastDiv fast_div(int d) {
-  FastDiv f{d, 0u, 0u};
-  if (d > 1) {
-    int l = 0;
-    while ((1ll << l) < d) ++l;
-    f.mul = (uint32_t)(((1ull << (31 + l)) + d - 1) / d);
-    f.shr = l - 1;
-  }
-  return f;
-}
-
-__device__ __forceinline__ int operator/(int x, const FastDiv& f) {
-  return f.d == 1 ? x : (int)(__umulhi((uint32_t)x, f.mul) >> f.shr);
-}
-
-// Launch geometry: tiles of R whole input rows (W2 <= 64) or of 64
-// voxels of one row (tpr tiles a row); K in nK chunks of KC (a multiple
-// of 16; zeros past ci); slabs of P pairs x CW channels (NS = 2 P CW
-// columns, CW a power of two); S input buffers; the shared-memory layout.
-struct Geo {
-  int D2, H2, W2, ci, co, Dp, Hp, Wp;
-  int R, tpr, KC, nK, P, CW, NS, n_cs, n_slabs, S, pitch, log_pair;
-  int rows, n_tiles, n_halo;
-  int b_off, a_off, s_off, bias_off, smem;
-  FastDiv by_tpr, by_W2, by_H2, by_D2, by_c8;
+// K2's launch geometry (up_k2s2_tiles.cuh; KC a multiple of 16, staged
+// rows of bf16), with the weights' offset in shared memory
+struct Geo : K2Geo {
+  int b_off;
+  FastDiv by_c8;
 };
 
 // d (64 x N, f32, the warpgroup's accumulator) += A (64 x 16 bf16,
@@ -176,58 +149,6 @@ __device__ __forceinline__ uint64_t a_desc(uint32_t addr, int c8) {
          ((uint64_t)(c8 * 128 >> 4) << 32);
 }
 
-__device__ __forceinline__ void store16(bf16* p, uint4 v) { *reinterpret_cast<uint4*>(p) = v; }
-
-// bytes shared -> global by the bulk-copy (TMA) engine, asynchronous to
-// the issuing thread; 16 B aligned, a multiple of 16 B
-__device__ __forceinline__ void bulk_store(bf16* dst, uint32_t src, int bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
-               "r"(src), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-// this thread's bulk copies have read their shared memory (or, with
-// all, have completed)
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-__device__ __forceinline__ void bulk_wait_all() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
-// One tile: input rows [r0, r0 + nr) (the first is (b, d, h)), voxels
-// [w0, w0 + wn) of each.
-struct TileAt {
-  int r0, nr, w0, wn, b, d, h;
-};
-
-// input row r -> (b, d, h)
-__device__ __forceinline__ void row_at(const Geo& g, int r, int& b, int& d, int& h) {
-  const int bd = r / g.by_H2;
-  h = r - bd * g.H2;
-  b = bd / g.by_D2;
-  d = bd - b * g.D2;
-}
-
-__device__ __forceinline__ TileAt tile_at(const Geo& g, int t) {
-  TileAt o;
-  if (g.tpr == 1) {
-    o.r0 = t * g.R;
-    o.nr = min(g.R, g.rows - o.r0);
-    o.w0 = 0;
-    o.wn = g.W2;
-  } else {
-    o.r0 = t / g.by_tpr;
-    o.nr = 1;
-    o.w0 = (t - o.r0 * g.tpr) * kTM;
-    o.wn = min(kTM, g.W2 - o.w0);
-  }
-  row_at(g, o.r0, o.b, o.d, o.h);
-  return o;
-}
-
 template <int NS>
 __global__ void __launch_bounds__(kThreads, 2)
 up_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
@@ -237,7 +158,7 @@ up_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, wg = warp >> 2;
   const int G = gridDim.x, slab = blockIdx.x % g.n_slabs;
   const int pair0 = slab / g.n_cs * g.P, c0 = slab % g.n_cs * g.CW;
-  const int c8 = g.KC / 8, CW8 = g.CW / 8, pair_cols = 2 * g.CW;
+  const int c8 = g.KC / 8, pair_cols = 2 * g.CW;
   const uint32_t Bs = smem_u32(smem + g.b_off);  // [1 or S][KC x NS], core matrices
   const uint32_t As = smem_u32(smem + g.a_off);  // [S][64 x KC], core matrices
   bf16* Ss = reinterpret_cast<bf16*>(smem + g.s_off);  // [P][64][pitch]
@@ -291,75 +212,8 @@ up_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   if (g.nK == 1) load_b(0, Bs);
   for (int i = 0; i < S - 1; ++i) load_next(i);
 
-  // halo rows: the planes pd = 0 and Dp-1, then rows ph = 0 and Hp-1 of
-  // every other plane, B (2 Hp + 4 D2) rows of Wp * co zeros
-  {
-    const int row_len = g.Wp * g.co, per_b = 2 * g.Hp + 4 * g.D2;
-    const uint4 z = make_uint4(0u, 0u, 0u, 0u);
-    for (int hr = blockIdx.x; hr < g.n_halo; hr += G) {
-      const int b = hr / per_b, e = hr - b * per_b;
-      int pd, ph;
-      if (e < 2 * g.Hp) {
-        pd = e < g.Hp ? 0 : g.Dp - 1;
-        ph = e < g.Hp ? e : e - g.Hp;
-      } else {
-        pd = 1 + (e - 2 * g.Hp) / 2;
-        ph = (e & 1) ? g.Hp - 1 : 0;
-      }
-      bf16* o = y + (size_t)((b * g.Dp + pd) * g.Hp + ph) * row_len;
-      for (int i = tid * 8; i < row_len; i += kThreads * 8) store16(o + i, z);
-    }
-  }
-
-  // a staged tile out: GEMM row m of pair pi is output voxels 1+2w and
-  // 2+2w of row (b, 1+2d+a, 1+2h+p), channels [c0, c0 + CW) of each: one
-  // bulk copy where the slab is all of co (the two voxels contiguous),
-  // else one a voxel
-  const size_t row_len = (size_t)g.Wp * g.co;
-  const bool whole = g.CW == g.co;
+  zero_halo_rows(y, g);
   const uint32_t Ss_u = smem_u32(Ss);
-  auto send_tile = [&](int tile) {
-    const TileAt tt = tile_at(g, tile);
-    const int per_pair = tt.nr * tt.wn << !whole, bytes = (whole ? 4 : 2) * g.CW;
-    for (int i = tid; i < g.P * per_pair; i += kThreads) {
-      int pi = 0, j = i;  // (pair, staged row or half of it); P <= 4
-      while (j >= per_pair) {
-        j -= per_pair;
-        ++pi;
-      }
-      const int m = whole ? j : j >> 1, q = whole ? 0 : j & 1;
-      const int rr = g.tpr == 1 ? m / g.by_W2 : 0, w = tt.w0 + m - rr * tt.wn;
-      int b, d, h;
-      row_at(g, tt.r0 + rr, b, d, h);
-      const int pair = pair0 + pi;
-      const int orow = (b * g.Dp + 1 + 2 * d + (pair >> 1)) * g.Hp + 1 + 2 * h + (pair & 1);
-      bulk_store(y + (size_t)orow * row_len + (1 + 2 * w + q) * g.co + c0,
-                 Ss_u + ((pi * kTM + m) * g.pitch + q * g.CW) * 2, bytes);
-    }
-    bulk_commit();
-  };
-  // its rows' halo voxels, positions 0 (the tile starts the row) and
-  // Wp - 1 (it ends it), channels [c0, c0 + CW): zeros
-  auto halo_voxels = [&](int tile) {
-    const TileAt tt = tile_at(g, tile);
-    const bool lead = tt.w0 == 0, trail = tt.w0 + tt.wn == g.W2;
-    const int l8 = g.log_pair - 4;  // log2(CW8)
-    for (int i = tid; i < g.P * tt.nr * 2 * CW8; i += kThreads) {
-      const int side = (i >> l8) & 1;
-      if (side ? !trail : !lead) continue;
-      int pi = 0, rr = i >> (l8 + 1);  // (pair, row of the tile)
-      while (rr >= tt.nr) {
-        rr -= tt.nr;
-        ++pi;
-      }
-      const int pair = pair0 + pi;
-      int b, d, h;
-      row_at(g, tt.r0 + rr, b, d, h);
-      const int orow = (b * g.Dp + 1 + 2 * d + (pair >> 1)) * g.Hp + 1 + 2 * h + (pair & 1);
-      store16(y + (size_t)orow * row_len + (side ? g.Wp - 1 : 0) * g.co + c0 + (i & (CW8 - 1)) * 8,
-              make_uint4(0u, 0u, 0u, 0u));
-    }
-  };
 
   float acc[NH / 2];
   int pending = -1;  // a tile staged and not yet stored
@@ -376,7 +230,7 @@ up_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     fence_proxy_async();
     __syncthreads();
     // the staged tile out, by the bulk-copy engine, while this one runs
-    if (pending >= 0) send_tile(pending);
+    if (pending >= 0) send_tile(y, Ss_u, g, pair0, c0, pending);
 
     if (kc == 0) {
 #pragma unroll
@@ -390,7 +244,7 @@ up_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     wgmma_commit();
     fence_operands(acc);
     if (pending >= 0) {
-      halo_voxels(pending);
+      halo_voxels(y, g, pair0, c0, pending);
       pending = -1;
     }
     bulk_wait_read();  // the staging has been read out
@@ -425,8 +279,8 @@ up_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   if (pending >= 0) {
     fence_proxy_async();
     __syncthreads();
-    send_tile(pending);
-    halo_voxels(pending);
+    send_tile(y, Ss_u, g, pair0, c0, pending);
+    halo_voxels(y, g, pair0, c0, pending);
   }
   cp_async_wait<0>();
   bulk_wait_all();
@@ -439,12 +293,6 @@ int smem_of(int KC, int nK, int P, int CW, int S) {
   return (nK > 1 ? S : 1) * KC * NS * 2 + S * kTM * KC * 2 + P * kTM * (2 * CW + 8) * 2 + NS * 4;
 }
 
-int log2_of(int v) {
-  int s = 0;
-  while ((1 << s) < v) ++s;
-  return s;
-}
-
 // The slab: CW the largest power of two <= 128 that divides co, P =
 // min(4, 128 / CW) pairs (NS = 2 P CW <= 256 columns). Then, for the
 // shared memory of two blocks an SM (else one): fewer pairs, then fewer
@@ -452,18 +300,7 @@ int log2_of(int v) {
 // many input buffers (up to 4) as that shared memory holds.
 Geo plan(int B, int D2, int H2, int W2, int ci, int co) {
   Geo g;
-  g.D2 = D2;
-  g.H2 = H2;
-  g.W2 = W2;
-  g.ci = ci;
-  g.co = co;
-  g.Dp = 2 * D2 + 2;
-  g.Hp = 2 * H2 + 2;
-  g.Wp = 2 * W2 + 2;
-  g.rows = B * D2 * H2;
-  g.R = W2 <= kTM ? kTM / W2 : 1;
-  g.tpr = W2 <= kTM ? 1 : (W2 + kTM - 1) / kTM;
-  g.n_tiles = g.tpr == 1 ? (g.rows + g.R - 1) / g.R : g.rows * g.tpr;
+  plan_tiles(g, B, D2, H2, W2, ci, co);
   int CW0 = 8;
   while (CW0 < 128 && co % (2 * CW0) == 0) CW0 *= 2;
   const int Kp = (ci + 15) / 16 * 16, P0 = CW0 >= 32 ? 128 / CW0 : 4;
@@ -487,21 +324,12 @@ Geo plan(int B, int D2, int H2, int W2, int ci, int co) {
     }
     if (found) break;
   }
-  g.NS = 2 * g.P * g.CW;
-  g.n_cs = co / g.CW;
-  g.n_slabs = 4 / g.P * g.n_cs;
-  g.log_pair = log2_of(2 * g.CW);
-  g.pitch = 2 * g.CW + 8;
-  g.n_halo = B * (2 * g.Hp + 4 * D2);
+  plan_slab(g);
   g.b_off = 0;
   g.a_off = g.b_off + (g.nK > 1 ? g.S : 1) * g.KC * g.NS * 2;
   g.s_off = g.a_off + g.S * kTM * g.KC * 2;
   g.bias_off = g.s_off + g.P * kTM * g.pitch * 2;
   g.smem = g.bias_off + g.NS * 4;
-  g.by_tpr = fast_div(g.tpr);
-  g.by_W2 = fast_div(W2);
-  g.by_H2 = fast_div(H2);
-  g.by_D2 = fast_div(D2);
   g.by_c8 = fast_div(g.KC / 8);
   return g;
 }

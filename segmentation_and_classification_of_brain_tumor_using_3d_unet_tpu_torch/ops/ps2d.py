@@ -33,7 +33,9 @@ Each kernel has a bf16 and an f32 form (K3 and K4 one source
 templated on the element type; K1 and K2 a source each, ``*_f32.cu``),
 and each wrapper takes either dtype and returns its input's. K1's f32
 form runs on the tensor cores as three bf16 passes over an exact split
-of its activations (``ops/conv.py::split3_bf16`` mirrors the split).
+of its activations (``ops/conv.py::split3_bf16`` mirrors the split), K2's
+as six over an exact split of its activations and its weights
+(``up_k2s2_into_halo_split6`` mirrors it).
 A wrapper takes its plain version for tensors on the CPU only; for a
 CUDA tensor it launches its kernel or raises. Each keeps a count of its
 launches in ``<wrapper>.launches``.
@@ -45,8 +47,7 @@ import torch
 import torch.nn.functional as F
 from torch.nn.grad import conv3d_weight
 
-from .conv import BF16, F32, accumulate, matmul
-from .conv import split3_bf16  # noqa: F401  (importable here too)
+from .conv import BF16, F32, SPLIT6_PASSES, accumulate, matmul, split3_bf16
 from .norm import apply_affine, bf16_moments, group_affine
 from .pool import max_pool3d
 
@@ -178,21 +179,56 @@ def _phase_weights(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return w.to(dtype).flip(0, 1, 2).reshape(8, w.shape[3], w.shape[4])
 
 
+def _phase_matrix(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """(2, 2, 2, ci, co) flax kernel -> the GEMM's (ci, 8 co) in
+    ``dtype``: column k co + o is phase k's tap of output channel o."""
+    return _phase_weights(w, dtype).permute(1, 0, 2).reshape(
+        w.shape[3], 8 * w.shape[4])
+
+
+def _phases_into_halo(y: torch.Tensor, x_shape) -> torch.Tensor:
+    """The GEMM's output (B*D2*H2*W2, 8 co) for an x of ``x_shape``,
+    interleaved and packed into the halo layout (B, 2*D2+2, 2*H2+2,
+    2*W2+2, co)."""
+    B, D2, H2, W2, _ = x_shape
+    co = y.shape[-1] // 8
+    y = y.reshape(B, D2, H2, W2, 2, 2, 2, co)
+    y = y.permute(0, 1, 4, 2, 5, 3, 6, 7).reshape(B, 2 * D2, 2 * H2,
+                                                  2 * W2, co)
+    return pack_halo_plain(y)
+
+
 def up_k2s2_into_halo_plain(x: torch.Tensor, w: torch.Tensor,
                             bias: torch.Tensor = None) -> torch.Tensor:
     """Plain version of K2: f32 dot of the operands in x's dtype plus the
     f32 bias, one rounding to x's dtype, interleaved and packed into the
     halo layout."""
-    B, D2, H2, W2, ci = x.shape
-    co = w.shape[-1]
-    wk = _phase_weights(w, x.dtype).permute(1, 0, 2).reshape(ci, 8 * co)
-    y = accumulate(torch.matmul, x.float(), wk.float())
+    y = accumulate(torch.matmul, x.float(), _phase_matrix(w, x.dtype).float())
     if bias is not None:
         y = y + bias.float().repeat(8)
-    y = y.to(x.dtype).reshape(B, D2, H2, W2, 2, 2, 2, co)
-    y = y.permute(0, 1, 4, 2, 5, 3, 6, 7).reshape(B, 2 * D2, 2 * H2,
-                                                  2 * W2, co)
-    return pack_halo_plain(y)
+    return _phases_into_halo(y.to(x.dtype), x.shape)
+
+
+def up_k2s2_into_halo_split6(x: torch.Tensor, w: torch.Tensor,
+                             bias: torch.Tensor = None,
+                             dtype: torch.dtype = torch.float64,
+                             passes=SPLIT6_PASSES) -> torch.Tensor:
+    """Plain mirror of K2's f32 form: the GEMM of f32 ``x`` with the f32
+    phase weights as six GEMMs of their bf16 parts (``split3_bf16``,
+    ``SPLIT6_PASSES``: (x's part, w's part)), each computed in ``dtype``
+    and summed in it pass by pass in the kernel's order, then the bias in
+    ``dtype``, into the halo layout in ``dtype``; ``passes`` a subset of
+    them (one pass's share, or the sum without one). For the tests and
+    the card's check that the gates see a dropped pass."""
+    xs = split3_bf16(x)
+    ws = split3_bf16(_phase_matrix(w, F32))
+    out = None
+    for i, j in passes:
+        y = torch.matmul(xs[i].to(dtype), ws[j].to(dtype))
+        out = y if out is None else out + y
+    if bias is not None:
+        out = out + bias.to(dtype).repeat(8)
+    return _phases_into_halo(out, x.shape)
 
 
 def up_k2s2_into_halo(x: torch.Tensor, w: torch.Tensor,
@@ -212,10 +248,9 @@ def up_k2s2_into_halo(x: torch.Tensor, w: torch.Tensor,
                          f"{tuple(w.shape)} need ci, co % 8 == 0")
     dt = _kernel_dtype("up_k2s2_into_halo", x)
     _check("up_k2s2_into_halo x", x, dtype=dt)
-    wk = _phase_weights(w, dt)
-    if dt == F32:     # (ci, 8 co): column k co + o is phase k's channel o
-        wk = wk.permute(1, 0, 2).reshape(ci, 8 * co)
-    wk = _aligned(wk)
+    # bf16 (8, ci, co); f32 the GEMM's (ci, 8 co)
+    wk = _aligned(_phase_weights(w, dt) if dt == BF16
+                  else _phase_matrix(w, dt))
     _check("up_k2s2_into_halo w", wk, dtype=dt)
     b = None
     if bias is not None:
@@ -235,17 +270,18 @@ def up_k2s2_into_halo(x: torch.Tensor, w: torch.Tensor,
 up_k2s2_into_halo.launches = 0
 
 
-def up_k2s2_plan(B: int, D2: int, H2: int, W2: int, ci: int,
-                 co: int) -> dict:
-    """The launch geometry K2's bf16 form picks for x (B, D2, H2, W2,
-    ci) -> co: R input rows a tile of 64 GEMM rows (W2 <= 64) or tpr
+def up_k2s2_plan(B: int, D2: int, H2: int, W2: int, ci: int, co: int,
+                 dtype: torch.dtype = BF16) -> dict:
+    """The launch geometry K2's ``dtype`` form picks for x (B, D2, H2,
+    W2, ci) -> co: R input rows a tile of 64 GEMM rows (W2 <= 64) or tpr
     tiles a row, KC input channels a K chunk and nK chunks, P of the four
     (a, p) output-row pairs and CW channels a weight slab (NS = 2 P CW
     GEMM columns), the slabs, S input-tile buffers, the tiles and halo
     rows, the dynamic shared memory in bytes and the block count."""
     import ctypes
     lib = _lib()
-    fn = lib._dll.up_k2s2_plan
+    fn = (lib._dll.up_k2s2_plan if dtype == BF16
+          else lib._dll.up_k2s2_f32_plan)
     fn.argtypes = (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
     fn.restype = ctypes.c_int
     keys = ("R", "tpr", "KC", "nK", "P", "CW", "NS", "slabs", "S", "tiles",

@@ -27,9 +27,11 @@ off, ``ops.conv.full_f32``, around the whole test, backwards included):
 pack and pool bit-exact; K1, K2, K6 and K7 within 1e-5 * max|ref| (f32
 sums in another order), K1's sums within 1e-5 of the largest sum; two
 runs bit-identical. K1's f32 form (three bf16 wgmma passes over an exact
-split of its activations) and K7's (six over an exact split of its
-activations and weights) also err against a float64 conv of the same
-inputs by at most 4x the plain f32 conv's own error.
+split of its activations), K7's and K2's (six over an exact split of
+their activations and weights) also err against a float64 conv of the
+same inputs by at most 4x the plain f32 conv's own error; K7's and K2's
+errors hold none of the share of any of their three smallest passes
+(least squares, |beta| <= 0.5; -1 would be a pass dropped).
 """
 
 import numpy as np
@@ -760,6 +762,89 @@ def test_up_k2s2_into_halo_f32_kernel_matches_plain(f32_exact, shape, ci,
     assert T.up_k2s2_into_halo.launches == before + 2
     _rel_close(got, T.up_k2s2_into_halo_plain(x, w, b))
     assert torch.equal(got, again)
+    assert (got * (1 - T.halo_mask(got))).abs().max() == 0
+
+
+@pytest.mark.gpu
+def test_k2_f32_cases_cover_every_plan(cuda):
+    """The f32 form's plans at the K2 cases reach each of its kernel
+    instantiations (slabs of 64, 128 and 256 columns), K whole and in
+    chunks, tiles of several rows, of a row and of part of a row, slabs of
+    4, 2 and 1 pairs and of part of co, every one within one block's
+    shared memory an SM and K in chunks of 32-multiples. The main path's
+    two forms: K whole; all 8 phases a slab with three input buffers at
+    level 0, one (a, p) pair of two input rows a tile at level 1."""
+    plans = [T.up_k2s2_plan(*shape, ci, co, F32)
+             for shape, ci, co, _ in K2_CASES]
+    assert {p["NS"] for p in plans} == {64, 128, 256}
+    assert {p["nK"] > 1 for p in plans} == {False, True}
+    assert {p["P"] for p in plans} == {1, 2, 4}
+    assert {(p["R"] > 1, p["tpr"] > 1) for p in plans} == {
+        (True, False), (False, False), (False, True)}
+    assert any(p["CW"] < co for p, (_, _, co, _) in zip(plans, K2_CASES))
+    for p, (_, ci, co, _) in zip(plans, K2_CASES):
+        assert p["KC"] % 32 == 0 and p["KC"] * p["nK"] >= ci, p
+        assert p["NS"] == 2 * p["P"] * p["CW"] and co % p["CW"] == 0, p
+        assert p["slabs"] == 4 // p["P"] * co // p["CW"], p
+        assert p["smem"] <= 227 * 1024 and p["blocks"] >= p["slabs"], p
+    assert plans[0]["nK"] == plans[1]["nK"] == 1
+    assert (plans[0]["P"], plans[0]["R"], plans[0]["NS"], plans[0]["S"]) \
+        == (4, 1, 256, 3), plans[0]
+    assert (plans[1]["P"], plans[1]["R"], plans[1]["NS"]) == (1, 2, 128), \
+        plans[1]
+
+
+def _k2_f32_inputs(device, shape, ci, co, seed=11):
+    """f32 values of full precision (x normal, w and bias * 0.1)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((*shape, ci), device=device, generator=g)
+    w = torch.randn((2, 2, 2, ci, co), device=device, generator=g) * 0.1
+    b = torch.randn((co,), device=device, generator=g) * 0.1
+    return x, w, b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,ci,co", [((4, 64, 64, 64), 64, 32),
+                                         ((4, 32, 32, 32), 128, 64)])
+def test_up_k2s2_into_halo_f32_split_error_vs_float64(f32_exact, shape, ci,
+                                                      co):
+    """Six bf16 passes over an exact split of x and of the phase weights
+    lose nothing, at the main path's two forms: against the float64
+    transposed conv of the same x, w and bias the kernel's max |error| is
+    at most 4x the plain f32 GEMM's, and it holds none of the share d of
+    each of its three smallest passes (x_hi w_lo, x_mid w_mid, x_lo w_hi):
+    <err, d> / <d, d> is ~0 where the pass is computed, -1 where it is
+    dropped."""
+    x, w, b = _k2_f32_inputs(f32_exact, shape, ci, co)
+    f64 = torch.float64
+    ref = T._phases_into_halo(
+        torch.matmul(x.double(), T._phase_matrix(w.double(), f64))
+        + b.double().repeat(8), x.shape)
+    r = T.up_k2s2_into_halo(x, w, b).double() - ref
+    err = r.abs().max().item()
+    err_plain = (T.up_k2s2_into_halo_plain(x, w, b).double()
+                 - ref).abs().max().item()
+    assert err <= 4 * err_plain, (err, err_plain)
+    for p in ((0, 2), (1, 1), (2, 0)):
+        d = T.up_k2s2_into_halo_split6(x, w, None, F32, (p,)).double()
+        beta = ((r * d).sum() / (d * d).sum()).item()
+        assert abs(beta) <= 0.5, (p, beta)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W2", [37, 70])
+@pytest.mark.parametrize("ci,co", [(8, 16), (24, 24)])
+def test_up_k2s2_into_halo_f32_thin_and_wide(f32_exact, W2, ci, co):
+    """Rows of part of a tile (W2 = 37) and of two tiles (70), with K
+    mostly zero padding (ci = 8 and 24 of a K of 32) and slabs of part of
+    co (24: three of 8 channels), within 1e-5 * max|ref| of the plain
+    version, the halo exactly zero over a NaN-filled allocation."""
+    shape = (2, 3, 2, W2)
+    x, w, b = _k2_f32_inputs(f32_exact, shape, ci, co, seed=W2 + ci)
+    _dirty((2, 8, 6, 2 * W2 + 2, co), F32)
+    got = T.up_k2s2_into_halo(x, w, b)
+    torch.cuda.synchronize()
+    _rel_close(got, T.up_k2s2_into_halo_plain(x, w, b))
     assert (got * (1 - T.halo_mask(got))).abs().max() == 0
 
 
