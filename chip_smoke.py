@@ -52,9 +52,11 @@ the CUDA toolkit. Imports no JAX. Phases, each printing its seconds:
      step against the full batch; one joint step and one eval step;
   7. groupnorm — K5 through its entry point ``fused_group_norm`` at
      the DoubleConv tail's forms (4x128^3x32 GN8 with ReLU, the same
-     with the residual, 240x240x160x32 with both, in bf16; one f32
-     form), 3 launches a call; each against its plain version, and two
-     runs bit-identical;
+     with the residual, 240x240x160x32 with both, in bf16; 4x128^3x32
+     GN8 in f32, alone and with ReLU and a residual), one launch a call
+     (one cooperative kernel); each form's launch plan, the C code's
+     equal to ``group_norm_plan``'s; each against its plain version, and
+     two runs bit-identical;
   8. wtile — K7 through its entry point ``wtile_conv3d`` at
      benchmarks/bench_wtile.py's nine shapes (batch 1, bf16), and its
      VJP at the first shape (forward and data gradient on K7, 11
@@ -1608,14 +1610,27 @@ def main() -> int:
                 big, bf16, True, "other"),
             "(4,128^3,32) GN8 f32": gn_form(
                 (B, S, S, S, C), torch.float32, False),
+            "(4,128^3,32) GN8 ReLU + residual f32": gn_form(
+                (B, S, S, S, C), torch.float32, True, "other"),
         }
         outs, counts = request_counts(lambda: {
             k: GN.fused_group_norm(**kw) for k, kw in gforms.items()})
-        want = launches_of(fused_group_norm=3 * len(gforms))
+        want = launches_of(fused_group_norm=len(gforms))
         print(f"groupnorm path ({len(gforms)} calls): launches {counts}")
         check(counts == want, f"launches {counts} != {want}")
         worst = 0.0
         for name, kw in gforms.items():
+            x, r = kw["x"], kw["residual"]
+            n, c = x.shape[0], x.shape[-1]
+            rd = GN.residual_stream_dtype(x, r)
+            plan = GN.group_norm_device_plan(n, x.numel() // (n * c), c,
+                                             x.dtype, rd)
+            mirror = GN.group_norm_plan(n, x.numel() // (n * c), c, x.dtype,
+                                        plan["sms"], plan["smem_cap"], rd)
+            print(f"fused_group_norm {name}: plan {plan}")
+            check(all(plan[k] == mirror[k] for k in GN._PLAN_KEYS),
+                  f"fused_group_norm {name}: the C plan {plan} is not "
+                  f"group_norm_plan's {mirror}")
             y = outs[name]
             ref = GN.fused_group_norm_plain(**kw)
             again = GN.fused_group_norm(**kw)
@@ -1723,8 +1738,8 @@ def main() -> int:
             pieces, extra = (*more, {}, {})[:2]
             ms = event_ms(kern, reps)
             if name in ("up_k2s2_into_halo", "up_k2s2_into_halo_f32",
-                        "conv3d_same_f32"):
-                extra = {"bound_share": bms / ms}
+                        "conv3d_same_f32", "fused_group_norm"):
+                extra = {**extra, "bound_share": bms / ms}
             pms = event_ms(plain, max(reps // 2, 3))
             lms = event_ms(lib, reps) if lib else None
             ms2 = event_ms(kern, reps)   # kernel again: spread in a call
@@ -1913,25 +1928,33 @@ def main() -> int:
         print(f"card before the timings: {card_state()}")
 
         def gn_row(name):
-            """K5 at one form. The library's F.group_norm computes the
-            function where it is a GroupNorm alone; beside the fused forms
-            it is timed as a piece. The bound counts x (and a residual
-            that is not x) read once and y written once; the two passes
-            read x twice: their floor is the bound with x's bytes once
-            more."""
+            """K5 at one form. The library computes the function as
+            F.group_norm, then relu_ and add_ where the form has them
+            (F.group_norm alone is timed as a piece beside the fused
+            forms). The bound counts x (and a residual that is not x)
+            read once and y written once; the two passes read x twice:
+            their floor is the bound with x's bytes once more."""
             kw = gforms[name]
             x, r = kw["x"], kw["residual"]
             xn = x.permute(0, 4, 1, 2, 3)             # channels-last NCDHW
+            rn = None if r is None else r.permute(0, 4, 1, 2, 3)
             gm, bt = kw["gamma"].to(x.dtype), kw["beta"].to(x.dtype)
 
             def gn_alone():
-                F.group_norm(xn, kw["num_groups"], gm, bt, 1e-5)
+                return F.group_norm(xn, kw["num_groups"], gm, bt, 1e-5)
+
+            def library():
+                y = gn_alone()
+                if kw["relu"]:
+                    y.relu_()
+                if rn is not None:
+                    y.add_(rn)
 
             fused = kw["relu"] or r is not None
             nb = nbytes(x, None if r is x else r, x)  # x, residual, y
             return (name, lambda: GN.fused_group_norm(**kw),
                     lambda: GN.fused_group_norm_plain(**kw),
-                    None if fused else gn_alone, bound_ms(nb, 0.0),
+                    library, bound_ms(nb, 0.0),
                     10 if x.numel() > 3e8 else 20,
                     {"group_norm_alone": gn_alone} if fused else {},
                     {"two_pass_floor_ms": bound_ms(nb + nbytes(x), 0.0)[0]})

@@ -61,6 +61,25 @@ launches between CUDA events; the script prints the median per build.
     inputs over the plain f32 GEMM's. A tree from before the split design
     (the SIMT kernel) takes the same arguments.
 
+  * ``--kernel k5``: K5 (``ops/groupnorm.py::fused_group_norm``) at
+    ``chip_smoke.py``'s four forms ((4, 128^3, 32) GN8 with ReLU in bf16,
+    the same ``+ x``, (1, 240, 240, 160, 32) with ReLU and a residual in
+    bf16, (4, 128^3, 32) in f32) and an f32 form with ReLU and a residual;
+    the library's ``F.group_norm`` (then ``relu_`` and ``add_`` where the
+    form has them) on the same inputs is timed in the same rounds. Each
+    build and the library are timed back to back and with an L2 flush (a
+    256 MiB write, outside the events) before every launch; the flushed
+    medians are the readings. Every build's output must lie within 1 bf16
+    ulp (bf16) or 1e-5 (f32) of max|ref| of the plain version; whether
+    two runs are bit-identical is printed. Each build's share of the
+    single-read bound and of the two-pass floor (x's bytes once more) is
+    printed, with this build's launch plan. A build from before the
+    one-launch kernel (``group_norm_stats`` and ``group_norm_apply`` in
+    place of ``group_norm``) runs those two C entry points with
+    ``group_affine`` between them, and its pieces
+    (the statistics' two kernels, the fold, the apply) are timed apart;
+    ``torch.profiler`` splits every build's call into its kernels.
+
     python -m segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.compare_builds \\
         --kernel k1 --against parent=/path/to/parent/csrc
 
@@ -460,12 +479,243 @@ def compare_k1(libs, use, rounds: int, reps: int, f32: bool = False) -> dict:
             "bound_share": {k: v["bound_share"] for k, v in result.items()}}
 
 
+def k5_forms(seed: int = 0) -> dict:
+    """K5's timed forms: name -> kwargs of ``fused_group_norm``."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(shape, scale, dt):
+        return (torch.randn(shape, device="cuda", generator=g)
+                * scale).to(dt)
+
+    def form(shape, dt, relu, residual=None):
+        x = rnd(shape, 2.0, dt) + 0.5
+        r = (x if residual == "x" else None if residual is None
+             else rnd(shape, 1.0, dt))
+        c = shape[-1]
+        return dict(x=x, gamma=1 + rnd((c,), 0.3, torch.float32),
+                    beta=rnd((c,), 0.3, torch.float32), num_groups=8,
+                    relu=relu, residual=r)
+
+    bf, f32 = torch.bfloat16, torch.float32
+    small, big = (4, 128, 128, 128, 32), (1, 240, 240, 160, 32)
+    return {
+        "(4,128^3,32) GN8 ReLU bf16": form(small, bf, True),
+        "(4,128^3,32) GN8 ReLU + x bf16": form(small, bf, True, "x"),
+        "(1,240,240,160,32) GN8 ReLU + residual bf16": form(big, bf, True,
+                                                            "other"),
+        "(4,128^3,32) GN8 f32": form(small, f32, False),
+        "(4,128^3,32) GN8 ReLU + residual f32": form(small, f32, True,
+                                                     "other"),
+    }
+
+
+def _legacy_k5(lib, x, gamma, beta, num_groups, eps=1e-5, residual=None,
+               relu=False):
+    """K5 through a build from before the one-launch kernel: its
+    statistics entry (two kernels: per-chunk sums, then their sum),
+    ``group_affine`` (PyTorch), its apply entry. Returns the three pieces
+    as calls (each may run again) and the whole."""
+    import ctypes
+    import math
+
+    import torch
+    from .ops import ps2d as T
+    from .ops.norm import group_affine
+
+    P, I = ctypes.c_void_p, ctypes.c_int
+    stats, apply_ = lib._dll.group_norm_stats, lib._dll.group_norm_apply
+    stats.argtypes = (P, I, P, P, I, I, I, I, I, P)
+    apply_.argtypes = (P, I, P, P, P, I, I, P, I, I, I, P)
+    stats.restype = apply_.restype = ctypes.c_int
+    dt = {torch.float32: 0, torch.bfloat16: 1}
+    n, c = x.shape[0], x.shape[-1]
+    m = x.numel() // (n * c)
+    chunks = max(1, min(math.ceil(m / 512), math.ceil(1056 / n)))
+    chunk_rows = math.ceil(m / chunks)
+    chunks = math.ceil(m / chunk_rows)
+    part = torch.empty((n, chunks, 2, c), dtype=torch.float32,
+                       device=x.device)
+    sums = torch.empty((n, 2, c), dtype=torch.float32, device=x.device)
+    y = torch.empty_like(x)
+    aff = {}
+
+    def do_stats():
+        lib.check("group_norm_stats", stats(
+            x.data_ptr(), dt[x.dtype], part.data_ptr(), sums.data_ptr(), n,
+            m, c, chunk_rows, chunks, T._stream()))
+
+    def do_fold():
+        sc, sh = group_affine(sums[:, 0] / m, sums[:, 1] / m, gamma, beta,
+                              num_groups, eps)
+        aff["scale"], aff["shift"] = sc.contiguous(), sh.contiguous()
+
+    def do_apply():
+        lib.check("group_norm_apply", apply_(
+            x.data_ptr(), dt[x.dtype], aff["scale"].data_ptr(),
+            aff["shift"].data_ptr(), T._ptr(residual),
+            0 if residual is None else dt[residual.dtype], int(relu),
+            y.data_ptr(), n, m, c, T._stream()))
+
+    def whole():
+        do_stats()
+        do_fold()
+        do_apply()
+        return y
+
+    return {"stats": do_stats, "fold": do_fold, "apply": do_apply}, whole
+
+
+def flushed_ms(fn, reps: int, scratch) -> float:
+    """Mean ms of ``fn`` between CUDA events, each launch after a write
+    of ``scratch`` (outside the events) that leaves none of its inputs in
+    the 50 MB L2."""
+    import torch
+    fn()
+    ev = []
+    for _ in range(reps):
+        scratch.zero_()
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        fn()
+        end.record()
+        ev.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in ev) / reps
+
+
+def kernels_of(fn, calls: int = 5) -> dict:
+    """Device ms per call of each kernel ``fn`` launches, from
+    ``torch.profiler`` over ``calls`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None)
+        if t is None:
+            t = getattr(e, "cuda_time_total", 0.0)
+        if t > 0 and e.count >= calls:
+            out[e.key[:60]] = (t / 1e3 / calls, e.count // calls)
+    return out
+
+
+def compare_k5(libs, use, rounds: int) -> dict:
+    """K5 at its five forms in every build, within K5's tolerances of the
+    plain version, two runs compared; timed flushed and back to back in
+    alternated rounds beside the library sequence. A build from before the
+    one-launch kernel runs through ``_legacy_k5`` and has its pieces
+    timed apart."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from .ops import groupnorm as GN
+
+    scratch = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    order = list(libs) + list(libs)[::-1]
+    result = {}
+    for name, kw in k5_forms().items():
+        x, r = kw["x"], kw["residual"]
+        n, c = x.shape[0], x.shape[-1]
+        m = x.numel() // (n * c)
+        bf = x.dtype == torch.bfloat16
+        calls, pieces = {}, {}
+        for label, lib in libs.items():
+            if hasattr(lib._dll, "group_norm"):
+                calls[label] = lambda kw=kw: GN.fused_group_norm(**kw)
+            else:
+                pieces[label], calls[label] = _legacy_k5(lib, **kw)
+        ref = GN.fused_group_norm_plain(**kw).float()
+        mx = ref.abs().max().item()
+        tol = _ulp(mx) if bf else 1e-5 * mx
+        for label in libs:
+            use(label)
+            y = calls[label]().clone()
+            again = calls[label]()
+            err = (y.float() - ref).abs().max().item()
+            same = torch.equal(y, again)
+            if not (err <= tol and bool(torch.isfinite(y).all())):
+                raise SystemExit(f"compare_builds: {label} differs from the "
+                                 f"plain version at {name}: {err} (> {tol}?)")
+            print(f"{name}: {label} max_abs_err {err} (tolerance {tol}: "
+                  f"{'1 bf16 ulp' if bf else '1e-5'} of max|ref| {mx}); two "
+                  f"runs bit-identical: {same}")
+            del y, again
+        del ref
+        use("this")
+        plan = GN.group_norm_device_plan(n, m, c, x.dtype,
+                                         GN.residual_stream_dtype(x, r))
+        print(f"{name}: this build's plan {plan}")
+        xn = x.permute(0, 4, 1, 2, 3)              # channels-last NCDHW
+        gm, bt = kw["gamma"].to(x.dtype), kw["beta"].to(x.dtype)
+
+        def library(xn=xn, gm=gm, bt=bt, kw=kw, r=r):
+            y = F.group_norm(xn, kw["num_groups"], gm, bt, 1e-5)
+            if kw["relu"]:
+                y.relu_()
+            if r is not None:
+                y.add_(r.permute(0, 4, 1, 2, 3))
+            return y
+        calls["library"] = library
+        for label, fn in calls.items():
+            use(label if label in libs else "this")
+            print(f"{name}: {label} kernels (torch.profiler, ms a call, "
+                  f"launches a call): {kernels_of(fn)}")
+        for label, ps in pieces.items():
+            use(label)
+            calls[label]()
+            print(f"{name}: {label} pieces flushed / back to back: " + ", ".join(
+                f"{k} {flushed_ms(f, 10, scratch):.4f} / "
+                f"{event_ms(f, 10):.4f} ms" for k, f in ps.items()))
+        use("this")
+        nb = sum(t.numel() * t.element_size()
+                 for t in (x, None if r is x else r, x) if t is not None)
+        bound = nb / PEAK_HBM_BYTES * 1e3
+        floor = (nb + x.numel() * x.element_size()) / PEAK_HBM_BYTES * 1e3
+        reps = 10 if x.numel() > 3e8 else 20
+        keys = [*libs, "library"]
+        times = {(k, how): [] for k in keys for how in ("flushed", "b2b")}
+        for _ in range(rounds):
+            for label in [*order, "library"]:
+                use(label if label in libs else "this")
+                times[(label, "flushed")].append(
+                    flushed_ms(calls[label], reps, scratch))
+                times[(label, "b2b")].append(event_ms(calls[label], reps))
+        use("this")
+        med = {f"{k} {how}": float(np.median(v))
+               for (k, how), v in times.items()}
+        result[name] = {"median_ms": med, "bound_ms": bound,
+                        "two_pass_floor_ms": floor,
+                        "bound_share": {k: bound / v for k, v in med.items()},
+                        "floor_share": {k: floor / v for k, v in med.items()}}
+        print(f"{name}: bound {bound:.4f} ms, two-pass floor {floor:.4f} ms; "
+              + "; ".join(
+                  f"{k} {v:.4f} ms ({bound / v:.1%} of bound, {floor / v:.1%}"
+                  f" of floor; {' '.join(f'{t:.4f}' for t in times[tuple(k.rsplit(' ', 1))])})"
+                  for k, v in med.items()))
+        del calls, pieces, kw
+    return {"forms": {k: v["median_ms"] for k, v in result.items()},
+            "bound_ms": {k: v["bound_ms"] for k, v in result.items()},
+            "two_pass_floor_ms": {k: v["two_pass_floor_ms"]
+                                  for k, v in result.items()},
+            "bound_share": {k: v["bound_share"] for k, v in result.items()},
+            "floor_share": {k: v["floor_share"] for k, v in result.items()}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", action="append", default=[],
                     metavar="LABEL=DIR", help="a csrc directory to compare")
-    ap.add_argument("--kernel", choices=("k1", "k1f32", "k2", "k2f32", "k7",
-                                         "k7f32"), default="k1")
+    ap.add_argument("--kernel", choices=("k1", "k1f32", "k2", "k2f32", "k5",
+                                         "k7", "k7f32"), default="k1")
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--reps", type=int, default=10,
                     help="launches per timing (k1, k1f32; k2 takes 20, "
@@ -494,7 +744,9 @@ def main(argv=None) -> int:
         log = built.log.splitlines()
         entry = {"k2": ("up_kernel",), "k1f32": ("split_f32_kernel",),
                  "k2f32": ("up_split6_kernel", "up_f32_kernel"),
-                 "k7f32": ("split6_kernel", "conv_same_f32_kernel")}.get(
+                 "k7f32": ("split6_kernel", "conv_same_f32_kernel"),
+                 "k5": ("gn_kernel", "stats_partial", "stats_final",
+                        "apply_kernel")}.get(
             args.kernel, ("conv_kernel",))
         for i, line in enumerate(log):
             if "entry function" in line and any(e in line for e in entry):
@@ -505,7 +757,9 @@ def main(argv=None) -> int:
     def use(label):
         native._library = libs[label]
 
-    if args.kernel == "k7":
+    if args.kernel == "k5":
+        out = compare_k5(libs, use, args.rounds)
+    elif args.kernel == "k7":
         out = compare_k7(libs, use, args.rounds)
     elif args.kernel == "k7f32":
         from .ops.conv import full_f32

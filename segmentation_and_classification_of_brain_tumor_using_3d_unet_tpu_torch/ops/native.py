@@ -45,8 +45,9 @@ SIGNATURES = {
     "up_k2s2_into_halo_f32": _K2,
     "pack_halo": (_P, _I, _P, _I, _I, _I, _I, _I, _P),
     "pool_into_halo": (_P, _I, _P, _I, _I, _I, _I, _I, _P),
-    "group_norm_stats": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _P),
-    "group_norm_apply": (_P, _I, _P, _P, _P, _I, _I, _P, _I, _I, _I, _P),
+    "group_norm": (_P, _I, _P, _I, _I, _P, _P, ctypes.c_float, _P, _P, _I, _I,
+                   _I, _I, _I, _P),
+    "group_norm_plan": (_I, _I, _I, _I, _I, _I, _P),
     "conv3d_same": _K7,
     "conv3d_same_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "conv3d_same_f32_split_weights": (_P, _P, _I, _I, _P),

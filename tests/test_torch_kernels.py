@@ -389,8 +389,10 @@ def test_conv3d_halo_dgrad_ignores_cotangent_halo(cuda, cis, co):
 
 
 # (shape, groups): a ragged voxel count, C = 24 (3 vectors a row), C = 12
-# (one value an access), C = 512 (more vectors a row than a warp), and a
-# sample of 20480 voxels (40 chunks in the statistics pass)
+# (one value an access), C = 512 (more vectors a row than a warp), a
+# sample of 20480 voxels, 300 samples of 8 voxels (blocks walk many
+# samples), and ranges of ~500 KB in f32, larger than what a block keeps
+# on chip between its passes (192 KB)
 K5_CASES = [
     ((2, 5, 9, 20, 32), 8),
     ((1, 5, 3, 7, 32), 4),
@@ -399,13 +401,16 @@ K5_CASES = [
     ((2, 3, 5, 7, 12), 4),
     ((1, 2, 3, 5, 512), 8),
     ((2, 16, 32, 40, 32), 8),
+    ((300, 2, 2, 2, 32), 8),
+    ((2, 64, 64, 64, 32), 8),
 ]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, BF16])
 @pytest.mark.parametrize("relu,residual", [(False, None), (True, None),
-                                           (True, "same"), (False, "f32")])
+                                           (True, "same"), (False, "f32"),
+                                           (True, "x")])
 @pytest.mark.parametrize("shape,groups", K5_CASES)
 def test_fused_group_norm_kernel_matches_plain(cuda, shape, groups, relu,
                                                residual, dtype):
@@ -414,13 +419,15 @@ def test_fused_group_norm_kernel_matches_plain(cuda, shape, groups, relu,
     gamma = 1 + 0.3 * torch.randn(shape[-1], device=cuda, generator=g)
     beta = 0.3 * torch.randn(shape[-1], device=cuda, generator=g)
     r = None
-    if residual is not None:
+    if residual == "x":                 # x itself: read from x's stages
+        r = x
+    elif residual is not None:
         r = torch.randn(shape, device=cuda, generator=g).to(
             dtype if residual == "same" else torch.float32)
     before = K5.fused_group_norm.launches
     got = K5.fused_group_norm(x, gamma, beta, groups, residual=r, relu=relu)
     torch.cuda.synchronize()
-    assert K5.fused_group_norm.launches == before + 3
+    assert K5.fused_group_norm.launches == before + 1
     again = K5.fused_group_norm(x, gamma, beta, groups, residual=r,
                                 relu=relu)
     ref = K5.fused_group_norm_plain(x, gamma, beta, groups, residual=r,
@@ -430,6 +437,21 @@ def test_fused_group_norm_kernel_matches_plain(cuda, shape, groups, relu,
     m = ref.float().abs().max().item()
     d = (got.float() - ref.float()).abs().max().item()
     assert d <= (_ulp(m) if dtype == BF16 else 1e-5 * m), d
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("res_dtype", [None, torch.float32, BF16])
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("shape", [(4, 128 ** 3, 32), (300, 8, 32),
+                                   (2, 105, 12), (1, 30, 512)])
+def test_fused_group_norm_plan_on_the_card(cuda, shape, dtype, res_dtype):
+    """The C code's plan on this card is group_norm_plan's for its SMs
+    and shared memory."""
+    got = K5.group_norm_device_plan(*shape, dtype, res_dtype)
+    want = K5.group_norm_plan(*shape, dtype, got["sms"], got["smem_cap"],
+                              res_dtype)
+    assert {k: got[k] for k in K5._PLAN_KEYS} == {
+        k: want[k] for k in K5._PLAN_KEYS}
 
 
 @pytest.mark.gpu
