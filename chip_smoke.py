@@ -144,6 +144,32 @@ Phase 14, after them all:
      ``evaluate_case`` on the arrays; each case's host ms by stage and
      each pass's wall per case. The app and trainer phases print which
      reader decoded their files;
+  15. parallel — ``parallel/`` at full width (ps2d_eval, ps2d_levels=2):
+     (a) world 1, the predict CLI's ``--data_parallel --batch_per_chip
+     3`` (whole_volume) over phase cli's cohort beside the sequential
+     whole_volume run on the same seeded weights (runs seq, dp, dp, seq):
+     one wave of 3 with K1 7 / K2 2 / K3 2 / K4 1 launches (the
+     sequential run 3x that), labels equal wherever the top-2 margin
+     exceeds twice the max logit drift between the batch-3 and batch-1
+     forwards (flips printed), confidences within 2^-6 max(scale, 1)
+     (the softmax moves by at most half the logits' move), each route's
+     segment wall per case on the host clock and one wave and the three
+     sequential cases under torch.profiler; (b) two spawned processes
+     sharing the card (gloo for the collectives, staged through pinned
+     host memory; every kernel on cuda:0): the window-parallel cropped
+     request on a 240x240x155 volume (bucket 160x192x160, 8 windows,
+     one forward of 4 a rank with K1 7 / K2 2 / K3 2 / K4 1) within
+     atol 1e-4, rtol 1e-3 of one process's blended logits, labels under
+     the margin rule; then one data-parallel f32 train step at Config()
+     defaults (ps2d_train, dropout 0; world 2 x batch 1) against one
+     process at batch 2, run first and freed: loss within 1e-4
+     relative, every gradient leaf's cosine >= 0.999, the head
+     BatchNorm's new statistics within 1e-5, the parameters after the
+     step bit-identical across the ranks, K1 7 launches a rank; each
+     part's wall (the step's, and a second step's on both sides), each
+     rank's peak memory and the gloo all-reduce ms of the gradient
+     buckets printed. A rank that fails, dies or hangs fails
+     the phase;
 
 It prints the per-kernel JSON line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Any failure, or a run past
@@ -161,7 +187,7 @@ import traceback
 
 import numpy as np
 
-BUDGET_S = 540.0          # the whole run, build included
+BUDGET_S = 600.0          # the whole run, build included
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
 VOLUME_SHAPE = (240, 240, 155)
@@ -382,6 +408,166 @@ def device_profile(fn, label: str, top: int = 15) -> None:
                   f"{e.key[:90]} (below the top {top})")
 
 
+def _parallel_rank(rank: int, world: int, rdv: str, tmp: str, q) -> None:
+    """One rank of phase parallel's two-process world on the one card
+    (spawned): every kernel on ``cuda:0``, only the collectives over gloo
+    (NCCL refuses two ranks on one device). The window-parallel cropped
+    request, then one data-parallel f32 train step on this rank's row of
+    the batch the parent saved under ``tmp``. Puts (rank, ok, result)."""
+    import hashlib
+    import os
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")   # one host
+    import torch
+    import torch.distributed as dist
+    try:
+        from importlib import import_module
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        M = import_module(PKG + ".parallel.mesh")
+        dev = M.initialize_distributed(f"file://{rdv}", world, rank,
+                                       backend="gloo", device="cuda:0")
+        T = import_module(PKG + ".ops.ps2d")
+        cfg = import_module(PKG + ".config")
+        models = import_module(PKG + ".models")
+        train_mod = import_module(PKG + ".train")
+        Predictor = import_module(PKG + ".inference.predictor").Predictor
+        counted = (T.conv3d_halo, T.up_k2s2_into_halo, T.pack_halo,
+                   T.pool_into_halo)
+
+        def counts(fn):
+            torch.cuda.synchronize()
+            for k in counted:
+                k.launches = 0
+            out = fn()
+            torch.cuda.synchronize()
+            return out, {k.__name__: k.launches for k in counted}
+
+        mesh = M.create_mesh()
+        out = {"mesh": dict(mesh.shape), "device": str(dev)}
+        # 1. the window-parallel request (8 windows: one forward of 4 here)
+        pred = Predictor(cfg.Config(model=cfg.ModelConfig(
+            ps2d_eval=True, ps2d_levels=2)), seed=0, device=dev)
+        pred.enable_window_parallel(mesh)
+        crop = np.load(os.path.join(tmp, "crop.npy"))
+        vol = np.load(os.path.join(tmp, "vol.npy"))
+        logits, out["wp_launches"] = counts(lambda: pred._sliding_window(crop))
+        if rank == 0:
+            np.save(os.path.join(tmp, "wp_logits.npy"), logits.cpu().numpy())
+        del logits
+        walls = []
+        for _ in range(3):
+            dist.barrier()
+            t = time.perf_counter()
+            (lab, _), c = counts(lambda: pred.segment_with_confidence(
+                vol, mode="cropped"))
+            walls.append(time.perf_counter() - t)
+        out["wp_request_s"], out["wp_request_launches"] = walls, c
+        out["wp_tumour_voxels"] = int((lab > 0).sum())
+        del pred
+        torch.cuda.empty_cache()
+        # 2. one data-parallel f32 train step (ps2d_train, dropout 0)
+        tconf = cfg.Config()
+        mc = tconf.model
+        model = models.UNet3D(features=mc.features, ps2d_train=True,
+                              remat=mc.remat, dropout_rate=0.0, seed=0,
+                              compute_dtype="float32", device=dev)
+        state = train_mod.create_train_state(model, tconf, steps_per_epoch=10)
+        seen = {}
+        apply = state.apply_gradients
+
+        def capture(grads, batch_stats=None):
+            seen["grads"] = grads
+            return apply(grads, batch_stats=batch_stats)
+        state.apply_gradients = capture
+        step = train_mod.make_train_step(tconf, mesh=mesh)
+        b = np.load(os.path.join(tmp, "batch.npz"))
+        rows = M.batch_sharding(mesh).rows(b["image"].shape[0])
+        batch = {"image": torch.from_numpy(b["image"][rows]).to(dev),
+                 "mask": torch.from_numpy(b["mask"][rows]).to(dev)}
+        gen = torch.Generator(device=dev).manual_seed(1)
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        t = time.perf_counter()
+        (_, m), out["train_launches"] = counts(lambda: step(state, batch, gen))
+        out["step_s"] = time.perf_counter() - t
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        grads, group = seen["grads"], mesh.group("data")
+        ar = []
+        for _ in range(3):      # the gradient buckets' all-reduce alone
+            dist.barrier()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            M.mean_over(grads, group)
+            torch.cuda.synchronize()
+            ar.append(1e3 * (time.perf_counter() - t))
+        out["allreduce_ms"] = ar
+        out["grad_bytes"] = sum(g.numel() * g.element_size() for g in grads)
+        h = hashlib.sha256()
+        names = []
+        for n, p in model.named_parameters():
+            names.append(n)
+            h.update(p.detach().cpu().numpy().tobytes())
+        out["params_sha256"] = h.hexdigest()
+        out["loss"] = float(m["loss"])
+        out["bn"] = (model.head_bn.mean.cpu().numpy(),
+                     model.head_bn.var.cpu().numpy())
+        if rank == 0:
+            torch.save({n: g.detach().cpu() for n, g in zip(names, grads)},
+                       os.path.join(tmp, "dp_grads.pt"))
+        del grads, seen["grads"]
+        dist.barrier()          # a second step: past the first call's costs
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step(state, batch, gen)
+        torch.cuda.synchronize()
+        out["step2_s"] = time.perf_counter() - t
+        q.put((rank, True, out))
+    except BaseException:
+        q.put((rank, False, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_ranks(fn, world: int, tmp: str, timeout: float) -> list:
+    """``fn(rank, world, rendezvous, tmp, queue)`` in ``world`` spawned
+    processes; their results in rank order. A rank that fails, dies or
+    passes ``timeout`` fails the phase, and every process is stopped."""
+    import multiprocessing as mp
+    import os
+    import queue
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    rdv = os.path.join(tmp, "rendezvous")
+    procs = [ctx.Process(target=fn, args=(r, world, rdv, tmp, q))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results, deadline = {}, time.monotonic() + timeout
+    try:
+        while len(results) < world:
+            try:
+                rank, ok, out = q.get(timeout=1.0)
+            except queue.Empty:
+                codes = [p.exitcode for p in procs]
+                check(not any(c not in (None, 0) for c in codes),
+                      f"a rank died (exit codes {codes})")
+                check(time.monotonic() < deadline,
+                      f"the ranks gave no result within {timeout:.0f} s")
+                continue
+            check(ok, f"rank {rank} failed:\n{out}")
+            results[rank] = out
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+    check(all(p.exitcode == 0 for p in procs),
+          f"rank exit codes {[p.exitcode for p in procs]}")
+    return [results[r] for r in range(world)]
+
+
 def main() -> int:
     import argparse
 
@@ -411,7 +597,8 @@ def main() -> int:
         for m in (".serve.app", ".data.nifti", ".ops.stats",
                   ".train.trainer", ".train.checkpoints", ".data.pipeline",
                   ".serve.jobs", ".data.native", ".inference.cli",
-                  ".inference.evaluate"):
+                  ".inference.evaluate", ".parallel", ".parallel.infer",
+                  ".parallel.spatial"):
             import_module(PKG + m)     # the later phases', in the JAX check
     except ImportError as e:
         print(f"chip_smoke: run from the root of a checkout ({e})",
@@ -2606,6 +2793,7 @@ def main() -> int:
                   f"holding the plain paths instead")
 
         tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+        kept = False
         try:
             # 2. the cohort: <case>/<case>_{modality}.nii.gz in int16 and
             # <case>_seg.nii.gz in uint8, as BraTS ships them
@@ -2827,14 +3015,331 @@ def main() -> int:
                 "launches": counts_b, "launches_a": counts_a,
                 "decode_ms": decode, "wall_a_s": wall_a, "wall_b_s": wall_b,
                 "rows_a": rows_a, "rows_b": rows_b, "eval_s": eval_s}
+            kept = True           # the cohort, for phase parallel
+            return tmp, root
         finally:
-            shutil.rmtree(tmp, ignore_errors=True)
+            if not kept:
+                shutil.rmtree(tmp, ignore_errors=True)
 
     run.phase("f32", f32)
     run.phase("trainer", trainer)
     run.phase("webtrain", webtrain)
     kernels_json += run.phase("f32region", f32region)
-    run.phase("cli", cli)
+    cli_tmp, cohort_root = run.phase("cli", cli)
+
+    # ---------------------------------------------------------------- 15
+    def parallel():
+        """``parallel/`` on the card: (a) world 1, the predict CLI's
+        ``--data_parallel`` over phase cli's cohort beside the sequential
+        whole_volume run; (b) two processes sharing the card over gloo:
+        the window-parallel cropped request and one data-parallel f32
+        train step, each held to one process."""
+        import logging
+        import os
+        import re
+        import shutil
+        import tempfile
+        from dataclasses import replace
+
+        CLI = import_module(PKG + ".inference.cli")
+        ds = import_module(PKG + ".data.dataset")
+        pre = import_module(PKG + ".data.preprocess")
+        whole_volume_logits = import_module(
+            PKG + ".inference.predictor").whole_volume_logits
+        out = {}
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+        try:
+            # (a) world 1: --data_parallel --batch_per_chip 3 against the
+            # sequential whole_volume run, same (seeded) weights
+            base = cfg.get_config("standard")
+            conf = base.replace(model=replace(base.model, ps2d_eval=True,
+                                              ps2d_levels=2))
+            check(conf.model.features == (32, 64, 128, 256, 512),
+                  "not the full-width model")
+            cids = sorted(os.listdir(cohort_root))
+            seg_ms = []
+
+            class Segment(logging.Handler):
+                def emit(self, record):
+                    m = re.fullmatch(r"case (\S+) segment: ([0-9.]+) ms",
+                                     record.getMessage())
+                    if m:
+                        seg_ms.append(float(m.group(2)))
+            log = logging.getLogger(CLI.__name__)
+            handler = Segment()
+            log.addHandler(handler)
+            log.setLevel(logging.INFO)
+
+            def predict(route):
+                dest = os.path.join(tmp, route)
+                argv = ["--input", cohort_root, "--output", dest,
+                        "--checkpoint", "none", "--mode", "whole_volume",
+                        "--save_confidence", "--format", "npy"]
+                if route == "dp":
+                    argv += ["--data_parallel", "--batch_per_chip", "3"]
+                seg_ms.clear()
+                t = time.perf_counter()
+                _, counts = request_counts(lambda: CLI._predict(
+                    CLI.build_parser().parse_args(argv), conf))
+                wall = time.perf_counter() - t
+                index = json.load(open(os.path.join(dest,
+                                                    "predictions.json")))
+                return {"counts": counts, "wall_s": wall,
+                        "segment_ms": list(seg_ms), "index": index,
+                        "labels": [np.load(os.path.join(dest, f"{c}_seg.npy"))
+                                   for c in cids],
+                        "conf": [np.load(os.path.join(dest, f"{c}_conf.npy"))
+                                 for c in cids]}
+            try:
+                runs = {"seq": [], "dp": []}
+                for route in ("seq", "dp", "dp", "seq"):
+                    runs[route].append(predict(route))
+            finally:
+                log.removeHandler(handler)
+            seq, dp = runs["seq"][-1], runs["dp"][-1]
+            wave = launches_of(conv3d_halo=7, up_k2s2_into_halo=2,
+                               pack_halo=2, pool_into_halo=1)
+            for r in runs["dp"]:
+                check(r["counts"] == wave, f"--data_parallel launches "
+                      f"{r['counts']} != one wave's {wave}")
+                check(r["index"].get("data_parallel_devices") == 1,
+                      f"index {r['index'].get('data_parallel_devices')}")
+            for r in runs["seq"]:
+                check(r["counts"] == {k: 3 * v for k, v in wave.items()},
+                      f"sequential launches {r['counts']}")
+            # the margin rule on the logits of the two routes' forwards
+            pred = Predictor(conf, seed=0)
+            norms = [pre.preprocess_multimodal(torch.from_numpy(np.stack(
+                [ds.load_any_volume(os.path.join(cohort_root, c,
+                                                 f"{c}_{mod}.nii.gz"))
+                 for mod in cfg.BRATS_MODALITIES], -1)).to(dev), None)
+                for c in cids]
+            size = conf.data.image_size
+            one = [whole_volume_logits(pred.seg_model, v[None], size)[0]
+                   for v in norms]
+            three = whole_volume_logits(pred.seg_model, torch.stack(norms),
+                                        size)
+            # where each route's time goes: one wave through
+            # segment_cohort_whole, and the three sequential cases
+            PI = import_module(PKG + ".parallel.infer")
+            PM = import_module(PKG + ".parallel.mesh")
+            host = [v.cpu().numpy() for v in norms]
+            device_profile(lambda: PI.segment_cohort_whole(
+                pred.seg_model, None, PM.create_mesh(), host, size,
+                batch_per_chip=3), "--data_parallel wave (3 cases)", top=8)
+            device_profile(lambda: [pred.segment_with_confidence(
+                v, mode="whole_volume") for v in host],
+                "sequential whole_volume (3 cases)", top=8)
+            del pred, norms, host
+            drift = max((a - b).abs().max().item()
+                        for a, b in zip(one, three))
+            scale = max(max(a.abs().max().item() for a in one), 1.0)
+            flips = wide = 0
+            dconf = 0.0
+            for i, lg in enumerate(one):
+                top2 = lg.topk(2, dim=-1).values
+                margin = (top2[..., 0] - top2[..., 1]).cpu().numpy()
+                differ = dp["labels"][i] != seq["labels"][i]
+                flips += int(differ.sum())
+                wide += int((differ & (margin > 2 * drift)).sum())
+                dconf = max(dconf, float(np.abs(dp["conf"][i]
+                                                - seq["conf"][i]).max()))
+            del one, three
+            print(f"parallel (a) --data_parallel --batch_per_chip 3 "
+                  f"(world 1, one wave of 3) vs sequential whole_volume: "
+                  f"max |d logit| {drift:.5f} (bound {2 ** -5 * scale:.5f}),"
+                  f" label flips {flips}, at margin > 2x max drift {wide}; "
+                  f"max |d confidence| {dconf:.6f} (bound "
+                  f"{2 ** -6 * scale:.5f}; half the drift {drift / 2:.5f});"
+                  f" launches a wave "
+                  f"{dp['counts']}")
+            check(drift <= 2 ** -5 * scale and wide == 0,
+                  "--data_parallel labels differ beyond the margin rule")
+            # the softmax moves its max by at most half the logits' max
+            # move: the logit bound's counterpart for the confidence
+            check(dconf <= 2 ** -6 * scale,
+                  f"confidence drift {dconf} > {2 ** -6 * scale}")
+            per_case = {r: [float(np.mean(x["segment_ms"])) for x in runs[r]]
+                        for r in runs}
+            print(f"parallel (a) segment wall per case (host clock, ms; "
+                  f"runs seq, dp, dp, seq): sequential "
+                  f"{[round(v, 2) for v in per_case['seq']]}, "
+                  f"--data_parallel {[round(v, 2) for v in per_case['dp']]};"
+                  f" CLI wall {[round(x['wall_s'], 3) for x in runs['seq']]}"
+                  f" s and {[round(x['wall_s'], 3) for x in runs['dp']]} s")
+            out["dp"] = {"launches": dp["counts"], "drift": drift,
+                         "flips": flips, "wide": wide, "dconf": dconf,
+                         "segment_ms_per_case": per_case,
+                         "cli_wall_s": {r: [x["wall_s"] for x in runs[r]]
+                                        for r in runs}}
+            del runs, seq, dp
+
+            # (b) the one-process references first, then two ranks
+            wconf = cfg.Config(model=cfg.ModelConfig(ps2d_eval=True,
+                                                     ps2d_levels=2))
+            ref = Predictor(wconf, seed=0)
+            ic = wconf.inference
+            offs, bucket = cropping.plan_crop(
+                vols[0], multiple=16, min_size=S,
+                ladder=ic.crop_bucket_ladder)
+            crop = cropping.extract_crop(vols[0], offs, bucket)
+            n_win = int(np.prod([len(sw.compute_patch_starts(d, S, 0.5))
+                                 for d in bucket]))
+            check(n_win == 8, f"bucket {bucket}: {n_win} windows, not 8")
+            ref_logits = ref._sliding_window(crop).cpu().numpy()
+            ref_s = []
+            for _ in range(3):
+                t = time.perf_counter()
+                ref.segment_with_confidence(vols[0], mode="cropped")
+                ref_s.append(time.perf_counter() - t)
+            del ref
+            np.save(os.path.join(tmp, "crop.npy"), crop)
+            np.save(os.path.join(tmp, "vol.npy"), vols[0])
+
+            tconf = cfg.Config()
+            mc = tconf.model
+            gen = torch.Generator(device=dev).manual_seed(1)
+            image = torch.randn((2, S, S, S, 4), device=dev, generator=gen)
+            mask = (torch.rand((2, S, S, S), device=dev, generator=gen)
+                    < 0.2).long() * 2
+            np.savez(os.path.join(tmp, "batch.npz"),
+                     image=image.cpu().numpy(), mask=mask.cpu().numpy())
+            model = models.UNet3D(features=mc.features, ps2d_train=True,
+                                  remat=mc.remat, dropout_rate=0.0, seed=0,
+                                  compute_dtype="float32")
+            state = train_mod.create_train_state(model, tconf,
+                                                 steps_per_epoch=10)
+            seen = {}
+            apply = state.apply_gradients
+
+            def capture(grads, batch_stats=None):
+                seen["grads"] = grads
+                return apply(grads, batch_stats=batch_stats)
+            state.apply_gradients = capture
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            (_, m), counts = request_counts(lambda: train_mod.make_train_step(
+                tconf)(state, {"image": image, "mask": mask},
+                       torch.Generator(device=dev).manual_seed(1)))
+            ref_step_s = time.perf_counter() - t
+            ref_peak = torch.cuda.max_memory_allocated()
+            check(counts == launches_of(conv3d_halo=7),
+                  f"one-process f32 step launches {counts}")
+            # the first step's results, before a second step is timed
+            ref_loss = float(m["loss"])
+            ref_grads = {n: g.detach().cpu() for (n, _), g in
+                         zip(model.named_parameters(), seen["grads"])}
+            ref_bn = (model.head_bn.mean.cpu().numpy(),
+                      model.head_bn.var.cpu().numpy())
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            train_mod.make_train_step(tconf)(
+                state, {"image": image, "mask": mask},
+                torch.Generator(device=dev).manual_seed(1))
+            torch.cuda.synchronize()
+            ref_step2_s = time.perf_counter() - t
+            del model, state, seen, image, mask, m
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()     # the card to the two ranks
+
+            t = time.perf_counter()
+            ranks = run_ranks(_parallel_rank, 2, tmp, timeout=600)
+            ranks_s = time.perf_counter() - t
+            per_fwd = {"conv3d_halo": 7, "up_k2s2_into_halo": 2,
+                       "pack_halo": 2, "pool_into_halo": 1}
+            for r, o in enumerate(ranks):
+                check(o["mesh"] == {"data": 2, "space": 1},
+                      f"rank {r} mesh {o['mesh']}")
+                check(o["wp_launches"] == per_fwd
+                      and o["wp_request_launches"] == per_fwd,
+                      f"rank {r} window-parallel launches "
+                      f"{o['wp_launches']}, {o['wp_request_launches']}")
+                check(o["train_launches"] == {**dict.fromkeys(per_fwd, 0),
+                                              "conv3d_halo": 7},
+                      f"rank {r} train launches {o['train_launches']}")
+            got = np.load(os.path.join(tmp, "wp_logits.npy"))
+            d = np.abs(got - ref_logits)
+            close = bool(np.all(d <= 1e-4 + 1e-3 * np.abs(ref_logits)))
+            top2 = np.sort(ref_logits, axis=-1)[..., -2:]
+            margin = top2[..., 1] - top2[..., 0]
+            differ = got.argmax(-1) != ref_logits.argmax(-1)
+            wwide = int((differ & (margin > 2 * d.max())).sum())
+            print(f"parallel (b) window-parallel cropped request, 2 ranks "
+                  f"on one card over gloo, bucket {bucket} ({n_win} windows,"
+                  f" one forward of 4 a rank): blended logits max |d| "
+                  f"{d.max():.3e} against one process (atol 1e-4, rtol "
+                  f"1e-3: {'within' if close else 'OUTSIDE'}), label flips "
+                  f"{int(differ.sum())}, at margin > 2x max drift {wwide};"
+                  f" launches a rank {ranks[0]['wp_launches']}")
+            check(close and wwide == 0,
+                  "window-parallel logits differ from one process")
+            print(f"parallel (b) request wall (host clock, s): rank 0 "
+                  f"{[round(v, 4) for v in ranks[0]['wp_request_s']]}, "
+                  f"rank 1 {[round(v, 4) for v in ranks[1]['wp_request_s']]}"
+                  f"; one process {[round(v, 4) for v in ref_s]}")
+
+            dp_grads = torch.load(os.path.join(tmp, "dp_grads.pt"))
+            cmin, n = 1.0, 0
+            for k, b in ref_grads.items():
+                a = dp_grads[k].float().reshape(-1)
+                b = b.float().reshape(-1)
+                check(bool(torch.isfinite(a).all()), f"non-finite {k}")
+                if k == "head_conv.bias":     # zero in exact arithmetic
+                    check(a.norm() <= 1e-2 * dp_grads[
+                        "head_conv.kernel"].norm(), "head_conv.bias not ~0")
+                    continue
+                if a.numel() < 8 or b.norm() < 1e-6:
+                    continue
+                c = float(a @ b) / float(a.norm() * b.norm())
+                cmin, n = min(cmin, c), n + 1
+                check(c >= 0.999, f"gradient {k}: cosine {c:.6f}")
+            losses = [o["loss"] for o in ranks]
+            bn_d = max(float(np.abs(o["bn"][i] - ref_bn[i]).max())
+                       for o in ranks for i in (0, 1))
+            same = ranks[0]["params_sha256"] == ranks[1]["params_sha256"]
+            print(f"parallel (b) data-parallel f32 train step (Config() "
+                  f"defaults, ps2d_train, dropout 0), world 2 x batch 1 vs "
+                  f"one process x batch 2: loss {losses} vs {ref_loss:.6f}, "
+                  f"least leaf cosine {cmin:.6f} over {n} leaves, head "
+                  f"BatchNorm statistics max |d| {bn_d:.2e}, parameters "
+                  f"after the step {'bit-identical' if same else 'DIFFER'} "
+                  f"across ranks")
+            check(all(abs(v - ref_loss) <= 1e-4 * abs(ref_loss)
+                      for v in losses), f"loss {losses} vs {ref_loss}")
+            check(bn_d <= 1e-5, f"BatchNorm statistics drift {bn_d}")
+            check(same, "parameters differ across ranks after the step")
+            print(f"parallel (b) train step wall (host clock, s): first "
+                  f"step ranks {[round(o['step_s'], 4) for o in ranks]}, one "
+                  f"process {ref_step_s:.4f}; second step ranks "
+                  f"{[round(o['step2_s'], 4) for o in ranks]}, one process "
+                  f"{ref_step2_s:.4f}; peak memory GiB ranks "
+                  f"{[round(o['peak_bytes'] / 2 ** 30, 2) for o in ranks]}, "
+                  f"one process {ref_peak / 2 ** 30:.2f}; gloo all-reduce of "
+                  f"the gradient buckets ({ranks[0]['grad_bytes'] / 2 ** 20:.1f}"
+                  f" MiB) ms: rank 0 "
+                  f"{[round(v, 2) for v in ranks[0]['allreduce_ms']]}, rank 1"
+                  f" {[round(v, 2) for v in ranks[1]['allreduce_ms']]}; the "
+                  f"two ranks' processes {ranks_s:.2f} s in all")
+            out["wp"] = {"bucket": list(bucket), "max_abs_d": float(d.max()),
+                         "request_s": [o["wp_request_s"] for o in ranks],
+                         "one_process_s": ref_s,
+                         "launches": ranks[0]["wp_launches"]}
+            out["train"] = {"loss": losses, "ref_loss": ref_loss,
+                            "cos_min": cmin, "bn_d": bn_d,
+                            "step_s": [o["step_s"] for o in ranks],
+                            "step2_s": [o["step2_s"] for o in ranks],
+                            "ref_step_s": ref_step_s,
+                            "ref_step2_s": ref_step2_s,
+                            "peak_bytes": [o["peak_bytes"] for o in ranks],
+                            "ref_peak_bytes": ref_peak,
+                            "allreduce_ms": [o["allreduce_ms"] for o in ranks],
+                            "launches": ranks[0]["train_launches"]}
+            report["parallel"] = out
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+            shutil.rmtree(cli_tmp, ignore_errors=True)
+    run.phase("parallel", parallel)
 
     # launches per path: the server requests' (K1-K4), the five
     # train steps' (K1, forwards and K6's data gradients), the
@@ -2849,6 +3354,7 @@ def main() -> int:
              "trainer_steps": report["trainer"]["step_launches"],
              "webtrain": report["webtrain"]["launches"],
              "cli": report["cli"]["launches"],
+             "parallel_dp_wave": report["parallel"]["dp"]["launches"],
              "groupnorm": report["groupnorm"]["launches"],
              "wtile": report["wtile"]["launches"]}
     paths32 = {"f32region": report["f32region"]["launches"],
@@ -2911,6 +3417,18 @@ def main() -> int:
           f" ms against the NumPy codec's "
           f"{np.median(cl['decode_ms']['numpy']):.2f} ms per file (median); "
           f"evaluate {cl['eval_s']:.2f} s")
+    pa = report["parallel"]
+    print(f"parallel (full width): --data_parallel segment "
+          f"{pa['dp']['segment_ms_per_case']['dp'][-1]:.2f} ms a case "
+          f"against sequential {pa['dp']['segment_ms_per_case']['seq'][-1]:.2f}"
+          f" ms (host clock, world 1); window-parallel request on 2 ranks "
+          f"sharing the card {[round(v[-1], 4) for v in pa['wp']['request_s']]}"
+          f" s against one process {pa['wp']['one_process_s'][-1]:.4f} s; f32 "
+          f"DP train step (the second) "
+          f"{[round(v, 4) for v in pa['train']['step2_s']]} s against "
+          f"{pa['train']['ref_step2_s']:.4f} s, "
+          f"gradient all-reduce (gloo) "
+          f"{[round(min(v), 2) for v in pa['train']['allreduce_ms']]} ms")
     print(f"total {time.perf_counter() - run.t0:.2f} s")
     print(json.dumps({"kernels": kernels_json}))
     print(smi)

@@ -7,3 +7,13 @@ JAX and no module of that package. Entry points run on the CUDA device
 unless the caller passes ``device="cpu"``; on the CPU each hand-written
 kernel (``csrc/``) is replaced by its plain PyTorch version.
 """
+
+from . import config
+from . import losses
+from . import metrics
+from . import models
+from . import ops
+
+__version__ = "0.1.0"
+
+__all__ = ["config", "losses", "metrics", "models", "ops", "__version__"]

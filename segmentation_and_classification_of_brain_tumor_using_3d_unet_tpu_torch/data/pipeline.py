@@ -13,6 +13,12 @@ are JAX's: the shuffle order is ``default_rng(seed + epoch)`` and a
 patch's ``default_rng(seed * 1_000_003 + epoch * 10_007 + idx)``, so
 the two packages train on the same voxels; the augmentation draws from
 a ``torch.Generator`` seeded with ``seed + 1000 * epoch``.
+
+With a ``sharding`` (``parallel.mesh.batch_sharding``, data-parallel
+training) every rank draws the same global batches and keeps its rows of
+each: only those are decoded, normalised, copied and augmented, and the
+other rows' augmentation draws are taken and dropped, so that each row
+is what one process would give it.
 """
 
 from __future__ import annotations
@@ -55,7 +61,12 @@ class DeviceDataLoader:
                  device="cuda", aug_cfg: AugmentConfig = AugmentConfig(),
                  norm_cache_size: int = 64,
                  patch_size: Optional[Tuple[int, int, int]] = None,
-                 fg_patch_prob: float = 0.5):
+                 fg_patch_prob: float = 0.5, sharding=None):
+        if sharding is not None and sharding.mesh.shape.get("space", 1) > 1:
+            raise NotImplementedError(
+                "a space-sharded batch (mesh space > 1) comes with the "
+                "spatial slice; shard the data axis only")
+        self.sharding = sharding
         self.dataset = dataset
         self.batch_size = batch_size
         self.image_size = tuple(image_size)
@@ -213,7 +224,8 @@ class DeviceDataLoader:
             ev[1].record()
         return dev, ev
 
-    def _ready(self, dev, ev, generator) -> Dict[str, torch.Tensor]:
+    def _ready(self, dev, ev, generator, rows=None, total=None
+               ) -> Dict[str, torch.Tensor]:
         """The batch, usable on the current stream: the stream waits for
         its copy, and the copy's memory is marked in use there so the
         allocator does not hand it out again before that stream is done
@@ -226,8 +238,14 @@ class DeviceDataLoader:
             self._events.append(ev)
         if self.augment:
             return augment_batch(dev["image"], dev["mask"], generator,
-                                 self.aug_cfg)
+                                 self.aug_cfg, rows, total)
         return dev
+
+    def _rows(self, indices) -> slice:
+        """This rank's rows of a global batch (all without a sharding)."""
+        if self.sharding is None:
+            return slice(0, len(indices))
+        return self.sharding.rows(len(indices))
 
     def h2d_ms(self) -> float:
         """Device ms of the last epoch's host -> device copies (0 on the
@@ -268,7 +286,8 @@ class DeviceDataLoader:
                 with ThreadPoolExecutor(self.num_workers) as pool:
                     alive = True
                     for b in batches:
-                        inflight.append(pool.submit(self._assemble, b))
+                        inflight.append(pool.submit(self._assemble,
+                                                    b[self._rows(b)]))
                         if len(inflight) >= window:
                             if not put(inflight.popleft().result()):
                                 alive = False
@@ -297,12 +316,13 @@ class DeviceDataLoader:
             return host
 
         try:
-            while True:
+            for b in batches:
                 host = get()
                 if host is _STOP:
                     break
                 # the copy overlaps the device's work on the step before
-                batch = self._ready(*self._to_device(host), generator)
+                batch = self._ready(*self._to_device(host), generator,
+                                    self._rows(b), len(b))
                 self.stats["batches"] += 1
                 yield batch
         finally:
@@ -317,24 +337,26 @@ def create_brats_data_loaders(data_dir: str, batch_size: int = 2,
                               aug_cfg: AugmentConfig = AugmentConfig(),
                               patch_size: Optional[
                                   Tuple[int, int, int]] = None,
-                              fg_patch_prob: float = 0.5
+                              fg_patch_prob: float = 0.5, sharding=None
                               ) -> Tuple[DeviceDataLoader,
                                          DeviceDataLoader]:
     """The train / val loader pair of a BraTS cohort directory. The
     train loader shuffles, drops the last short batch and augments; with
     ``patch_size`` it samples native-resolution patches. Validation is
-    whole-volume at ``image_size``, unshuffled, unaugmented."""
+    whole-volume at ``image_size``, unshuffled, unaugmented. Both keep
+    this rank's rows under ``sharding``."""
     train_ds = BraTS2024Dataset(data_dir, mode="train", augment=True)
     val_ds = BraTS2024Dataset(data_dir, mode="val", augment=False)
     train = DeviceDataLoader(
         train_ds, batch_size=batch_size, image_size=image_size,
         augment=True, shuffle=True, seed=seed, num_workers=num_workers,
         drop_last=True, device=device, aug_cfg=aug_cfg,
-        patch_size=patch_size, fg_patch_prob=fg_patch_prob)
+        patch_size=patch_size, fg_patch_prob=fg_patch_prob,
+        sharding=sharding)
     val = DeviceDataLoader(
         val_ds, batch_size=batch_size, image_size=image_size,
         augment=False, shuffle=False, seed=seed, num_workers=num_workers,
-        drop_last=False, device=device)
+        drop_last=False, device=device, sharding=sharding)
     return train, val
 
 

@@ -84,25 +84,30 @@ def draw_augment(generator: torch.Generator, shape: Sequence[int],
     its factor ~ U(range), the gamma curve on or off with gamma ~
     U(range). The unit noise field (N(0, 1), ``shape``) is drawn on
     ``device`` only when noise is on."""
-    g = generator
-    square = shape[1] == shape[2]
-    draws = {"rot": _bernoulli(g, cfg.rot90_prob),
-             "k": int(torch.randint(1, 4, (), generator=g)) if square else 2,
-             "flips": tuple(_bernoulli(g, cfg.flip_prob) for _ in range(3)),
-             "noise": _bernoulli(g, cfg.noise_prob),
-             "sigma": _uniform(g, 0.0, cfg.noise_sigma_max),
-             "noise_seed": int(torch.randint(2 ** 62, (), generator=g)),
-             "scale_on": _bernoulli(g, cfg.intensity_prob),
-             "scale": _uniform(g, *cfg.intensity_range),
-             "gamma_on": (cfg.gamma_prob > 0.0
-                          and _bernoulli(g, cfg.gamma_prob)),
-             "gamma": _uniform(g, *cfg.gamma_range),
-             "noise_field": None}
+    draws = _draw_decisions(generator, shape, cfg)
     if draws["noise"]:
         dg = torch.Generator(device=device).manual_seed(draws["noise_seed"])
         draws["noise_field"] = torch.randn(tuple(shape), generator=dg,
                                            device=device, dtype=dtype)
     return draws
+
+
+def _draw_decisions(g: torch.Generator, shape: Sequence[int],
+                    cfg: AugmentConfig) -> Dict:
+    """``draw_augment``'s draws from ``g`` without the noise field."""
+    square = shape[1] == shape[2]
+    return {"rot": _bernoulli(g, cfg.rot90_prob),
+            "k": int(torch.randint(1, 4, (), generator=g)) if square else 2,
+            "flips": tuple(_bernoulli(g, cfg.flip_prob) for _ in range(3)),
+            "noise": _bernoulli(g, cfg.noise_prob),
+            "sigma": _uniform(g, 0.0, cfg.noise_sigma_max),
+            "noise_seed": int(torch.randint(2 ** 62, (), generator=g)),
+            "scale_on": _bernoulli(g, cfg.intensity_prob),
+            "scale": _uniform(g, *cfg.intensity_range),
+            "gamma_on": (cfg.gamma_prob > 0.0
+                         and _bernoulli(g, cfg.gamma_prob)),
+            "gamma": _uniform(g, *cfg.gamma_range),
+            "noise_field": None}
 
 
 def apply_augment(image: torch.Tensor, seg: torch.Tensor, draws: Dict
@@ -155,11 +160,24 @@ def normalize_batch(images: torch.Tensor, segs: torch.Tensor,
 
 def augment_batch(images: torch.Tensor, segs: torch.Tensor,
                   generator: torch.Generator,
-                  aug_cfg: AugmentConfig = AugmentConfig()
+                  aug_cfg: AugmentConfig = AugmentConfig(),
+                  rows: slice = None, total: int = None
                   ) -> Dict[str, torch.Tensor]:
-    """The random half over a normalised batch, one draw per sample."""
+    """The random half over a normalised batch, one draw per sample.
+
+    ``rows`` / ``total``: ``images`` are rows ``rows`` of a batch of
+    ``total`` (a data-parallel rank's share); the other rows' draws are
+    taken from ``generator`` and dropped, so that each row gets the
+    draws it gets in the whole batch."""
+    lo = 0 if rows is None else rows.start
+    hi = images.shape[0] + lo if total is None else total
+    shape = tuple(images.shape[1:])
+    for _ in range(lo):
+        _draw_decisions(generator, shape, aug_cfg)
     pairs = [augment_pair(i, s, aug_cfg, generator)
              for i, s in zip(images, segs)]
+    for _ in range(lo + images.shape[0], hi):
+        _draw_decisions(generator, shape, aug_cfg)
     return {"image": torch.stack([p[0] for p in pairs]),
             "mask": torch.stack([p[1] for p in pairs])}
 

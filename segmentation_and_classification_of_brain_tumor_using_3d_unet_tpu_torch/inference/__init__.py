@@ -8,11 +8,12 @@ from .cropping import (bucket_shape, crop_offsets, extract_crop,
 from .evaluate import discover_pairs, evaluate_case, evaluate_main
 from .predictor import Predictor, preprocess_image
 from .sliding_window import (compute_patch_starts, gaussian_importance_map,
-                             sliding_window_inference)
+                             make_sw_predictor, sliding_window_inference)
 
 __all__ = ["Predictor", "preprocess_image",
            "discover_cases", "predict_main",
            "discover_pairs", "evaluate_case", "evaluate_main",
            "compute_patch_starts", "gaussian_importance_map",
-           "sliding_window_inference", "nonzero_bbox", "bucket_shape",
-           "crop_offsets", "extract_crop", "paste_full", "plan_crop"]
+           "make_sw_predictor", "sliding_window_inference",
+           "nonzero_bbox", "bucket_shape", "crop_offsets", "extract_crop",
+           "paste_full", "plan_crop"]

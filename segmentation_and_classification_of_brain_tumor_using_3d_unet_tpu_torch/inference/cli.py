@@ -16,9 +16,17 @@ Usage::
 models run; without a card the default raises. Cases with a ground-truth
 ``*seg*`` file get real quality metrics (Dice / IoU / HD95 against it) in
 their report; without one the report carries ``quality_estimated``, as
-serving does. ``--data_parallel`` and ``--window_parallel`` pass JAX's
-checks, then raise: multi-device is not ported. Each case logs its host
-ms by stage as ``case <id> <stage>: <ms> ms`` at INFO.
+serving does. Each case logs its host ms by stage as ``case <id>
+<stage>: <ms> ms`` at INFO.
+
+``--data_parallel`` (whole_volume) groups the cases by shape and segments
+each group in waves of ``--batch_per_chip`` volumes a device
+(``parallel.infer.segment_cohort_whole``); ``--window_parallel``
+(cropped / sliding_window) splits each volume's window grid over the
+devices. Both run in one process, and under ``torchrun`` with one
+process per device (rank i on ``cuda:i``, or on the CPU over gloo with
+``--device cpu``): every rank runs every case, and only rank 0 writes
+masks, confidences, reports and the index.
 """
 
 from __future__ import annotations
@@ -139,13 +147,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "probabilities over the 8 D/H/W flips (~8x "
                         "cost, better Dice)")
     p.add_argument("--data_parallel", action="store_true",
-                   help="shard cases over all devices (not ported: "
-                        "raises)")
+                   help="batch same-shape whole_volume cases and shard "
+                        "them over all devices")
     p.add_argument("--batch_per_chip", type=int, default=1,
                    help="volumes per device per wave in --data_parallel")
     p.add_argument("--window_parallel", action="store_true",
                    help="split each volume's sliding-window grid over "
-                        "all devices (not ported: raises)")
+                        "all devices")
     p.add_argument("--brats_labels", action="store_true",
                    help="write masks in the raw BraTS convention "
                         "(enhancing tumor = label 4, as on disk in "
@@ -195,12 +203,20 @@ def _predict(args: argparse.Namespace, cfg) -> List[Dict]:
     from ..data.dataset import _decode_pool, load_any_volume
     from ..data.preprocess import preprocess_multimodal
     from ..device import resolve_device
+    from ..parallel.mesh import is_primary
     from ..serve.reports import (calculate_medical_metrics,
                                  generate_clinical_report)
     from ..train.checkpoints import adopt_trained_weights
     from .predictor import Predictor
 
-    device = resolve_device(args.device)
+    if args.window_parallel or args.data_parallel:
+        # one process per device under torchrun; a no-op in one process
+        from ..parallel.mesh import create_mesh, initialize_distributed
+        device = initialize_distributed(
+            device=None if args.device == "cuda" else args.device)
+    else:
+        device = resolve_device(args.device)
+    primary = is_primary()
     cases = discover_cases(args.input, BRATS_MODALITIES)
     if not cases:
         raise SystemExit(f"no volumes found under {args.input}")
@@ -219,6 +235,32 @@ def _predict(args: argparse.Namespace, cfg) -> List[Dict]:
         if args.data_parallel:
             raise SystemExit("--window_parallel and --data_parallel "
                              "are different axes; pick one")
+        wp_mesh = create_mesh()     # every device on the data axis
+        logger.info("window-parallel over %d device(s)",
+                    wp_mesh.devices.size)
+        predictor.enable_window_parallel(wp_mesh)
+
+    stages: Dict[str, Dict[str, float]] = {}
+
+    def load(case):
+        """(raw, normalised) volume of a case; its decode and preprocess
+        ms recorded."""
+        row = stages.setdefault(case["case_id"], {})
+        t = time.perf_counter()
+        # the modalities decode concurrently (zlib releases the GIL)
+        raw = np.stack(list(_decode_pool().map(load_any_volume,
+                                               case["images"])), axis=-1)
+        row["decode"] = 1e3 * (time.perf_counter() - t)
+        t = time.perf_counter()
+        # normalised at the native resolution (whole_volume resizes
+        # inside the predictor)
+        norm = preprocess_multimodal(torch.from_numpy(raw).to(device),
+                                     out_size=None).cpu().numpy()
+        row["preprocess"] = 1e3 * (time.perf_counter() - t)
+        return raw, norm
+
+    loaded: Dict[str, tuple] = {}
+    dp_results: Dict[str, tuple] = {}
     if args.data_parallel:
         if args.mode != "whole_volume":
             raise SystemExit("--data_parallel batches the single-"
@@ -228,67 +270,58 @@ def _predict(args: argparse.Namespace, cfg) -> List[Dict]:
         if args.tta:
             raise SystemExit("--tta is per-volume; drop "
                              "--data_parallel to combine")
-    if args.window_parallel or args.data_parallel:
-        raise NotImplementedError(
-            "multi-device prediction (--data_parallel, --window_parallel) "
-            "is not ported yet: it comes with the multi-device slice")
+        from ..parallel.infer import segment_cohort_whole
+        mesh = create_mesh()        # every device on the data axis
+        logger.info("data-parallel over %d device(s)", mesh.devices.size)
+        # the whole cohort resident on the host, grouped by shape
+        groups: Dict[tuple, List] = {}
+        for case in cases:
+            loaded[case["case_id"]] = load(case)
+            canon = predictor._canon(loaded[case["case_id"]][1])
+            groups.setdefault(canon.shape, []).append(
+                (case["case_id"], canon))
+        t_dp = time.perf_counter()
+        for members in groups.values():
+            labs, confs = segment_cohort_whole(
+                predictor.seg_model, None, mesh, [c for _, c in members],
+                cfg.data.image_size, batch_per_chip=args.batch_per_chip)
+            for (cid, _), lab, conf in zip(members, labs, confs):
+                dp_results[cid] = (lab, conf)
+        # the batched segmentation amortised into per-case seconds
+        dp_seconds = (time.perf_counter() - t_dp) / max(len(cases), 1)
 
     summaries: List[Dict] = []
     for case in cases:
         cid = case["case_id"]
-        stages: Dict[str, float] = {}
-        t0 = clock = time.perf_counter()
+        row = stages.setdefault(cid, {})
+        t0 = time.perf_counter()
+        raw, norm = loaded.get(cid) or load(case)
+        clock = time.perf_counter()
 
         def lap(stage: str) -> None:
             nonlocal clock
             now = time.perf_counter()
-            stages[stage] = 1e3 * (now - clock)
+            row[stage] = 1e3 * (now - clock)
             clock = now
 
-        # the modalities decode concurrently (zlib releases the GIL)
-        raw = np.stack(list(_decode_pool().map(load_any_volume,
-                                               case["images"])), axis=-1)
-        lap("decode")
-        # normalised at the native resolution (whole_volume resizes
-        # inside the predictor)
-        norm = preprocess_multimodal(torch.from_numpy(raw).to(device),
-                                     out_size=None).cpu().numpy()
-        lap("preprocess")
-        labels, conf = predictor.segment_with_confidence(
-            norm, mode=args.mode, tta=args.tta)
-        lap("segment")
+        if cid in dp_results:
+            labels, conf = dp_results[cid]
+            row["segment"] = 1e3 * dp_seconds
+        else:
+            labels, conf = predictor.segment_with_confidence(
+                norm, mode=args.mode, tta=args.tta)
+            lap("segment")
         base = os.path.join(args.output, cid)
         mask_path = f"{base}_seg.{args.format}"
-        # --brats_labels: enhancing tumour back to its on-disk label 4 in
-        # the written mask only; reports and metrics keep labels 0..3
-        out_labels = (np.where(labels == 3, 4, labels)
-                      if args.brats_labels else labels)
-        # the scan's voxel->world affine carried into the outputs (a
-        # header-only read; .npy inputs have none -> identity)
-        try:
-            affine = nifti.load_affine(case["images"][0])
-        except (OSError, EOFError, ValueError):
-            affine = None
-        if args.format == "npy":
-            np.save(mask_path, out_labels)
-        else:
-            nifti.save(mask_path, out_labels.astype(np.uint8),
-                       affine=affine)
         summary = {"case_id": cid, "mask": mask_path,
                    "tumor_voxels": int((labels > 0).sum()),
-                   "shape": list(labels.shape),
-                   "seconds": round(time.perf_counter() - t0, 3)}
+                   "shape": list(labels.shape), "seconds": 0.0}
         if args.save_confidence:
-            conf_path = f"{base}_conf.{args.format}"
-            if args.format == "npy":
-                np.save(conf_path, conf)
-            else:
-                nifti.save(conf_path, conf.astype(np.float32),
-                           affine=affine)
-            summary["confidence"] = conf_path
-        lap("write")
-
-        if args.report:
+            summary["confidence"] = f"{base}_conf.{args.format}"
+        if primary:
+            affine = _write_outputs(args, summary, labels, conf, case)
+            lap("write")
+        if args.report and primary:
             gt = None
             if case["seg"]:
                 gt = load_any_volume(case["seg"]).astype(np.int32)
@@ -315,17 +348,52 @@ def _predict(args: argparse.Namespace, cfg) -> List[Dict]:
             summary["diagnosis"] = (
                 report["classification"]["primary_diagnosis"])
             lap("report")
+        secs = time.perf_counter() - t0
+        if cid in dp_results:
+            secs += dp_seconds
+        summary["seconds"] = round(secs, 3)
         summaries.append(summary)
-        for stage, ms in stages.items():
+        for stage, ms in row.items():
             logger.info("case %s %s: %.2f ms", cid, stage, ms)
         logger.info("%s: %d tumor voxels in %.2fs", cid,
                     summary["tumor_voxels"], summary["seconds"])
 
     index = {"weights": adopted or "random_init", "mode": args.mode,
              "cases": summaries}
-    with open(os.path.join(args.output, "predictions.json"), "w") as f:
-        json.dump(index, f, indent=1, default=float)
+    if args.data_parallel:
+        index["data_parallel_devices"] = int(mesh.devices.size)
+    if args.window_parallel:
+        index["window_parallel_devices"] = int(wp_mesh.devices.size)
+    if primary:
+        with open(os.path.join(args.output, "predictions.json"), "w") as f:
+            json.dump(index, f, indent=1, default=float)
     return summaries
+
+
+def _write_outputs(args: argparse.Namespace, summary: Dict,
+                   labels: np.ndarray, conf: np.ndarray, case: Dict):
+    """The case's mask (and, when asked, its confidence) at the paths
+    ``summary`` names, with the scan's voxel -> world affine; returns
+    that affine (None for an input without one)."""
+    from ..data import nifti
+    # --brats_labels: enhancing tumour back to its on-disk label 4 in
+    # the written mask only; reports and metrics keep labels 0..3
+    out_labels = (np.where(labels == 3, 4, labels)
+                  if args.brats_labels else labels)
+    # a header-only read; .npy inputs have none -> identity
+    try:
+        affine = nifti.load_affine(case["images"][0])
+    except (OSError, EOFError, ValueError):
+        affine = None
+    outputs = [(summary["mask"], out_labels, np.uint8)]
+    if "confidence" in summary:
+        outputs.append((summary["confidence"], conf, np.float32))
+    for path, data, dtype in outputs:
+        if args.format == "npy":
+            np.save(path, data)
+        else:
+            nifti.save(path, data.astype(dtype), affine=affine)
+    return affine
 
 
 def main() -> None:

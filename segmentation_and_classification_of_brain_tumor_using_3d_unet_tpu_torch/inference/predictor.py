@@ -39,6 +39,16 @@ from .sliding_window import sliding_window_inference
 logger = logging.getLogger(__name__)
 
 
+def whole_volume_logits(model: torch.nn.Module, vols: torch.Tensor,
+                        size) -> torch.Tensor:
+    """(B, D, H, W, C) f32 on the model's device -> the segmentation
+    logits at the input resolution: resize to ``size``, one forward,
+    resize back (JAX ``_whole_volume_logits``)."""
+    out = model(resize_trilinear(vols, tuple(size)))
+    logits = out["logits"] if isinstance(out, dict) else out
+    return resize_trilinear(logits, vols.shape[1:4])
+
+
 def _load(model: torch.nn.Module, variables: Mapping,
           optional=frozenset()) -> None:
     """Load a flax variable tree into ``model``; every key must match,
@@ -84,6 +94,22 @@ class Predictor:
         if cls_variables is not None:
             _load(self.cls_model, cls_variables)
         self.joint_model: Optional[UNet3DWithClassifier] = None
+        self.window_mesh = None
+        if self.config.inference.window_parallel:
+            from ..parallel.mesh import _world, create_mesh
+            if _world()[0] > 1:
+                self.enable_window_parallel(create_mesh())
+
+    def enable_window_parallel(self, mesh) -> None:
+        """Route the ``sliding_window`` and ``cropped`` modes through
+        ``parallel.infer.sliding_window_inference_mp``: the window grid
+        splits over the mesh's ``data`` axis and one all-reduce merges
+        the accumulators. Every rank calls with the same volume; the
+        weights are broadcast from the mesh's first rank now, and weights
+        adopted later (``load_seg_params``, on every rank) are used."""
+        from ..parallel.mesh import replicate_module
+        replicate_module(self.seg_model, mesh)
+        self.window_mesh = mesh
 
     # -------------------- segmentation --------------------
 
@@ -111,19 +137,22 @@ class Predictor:
 
     def _sliding_window(self, vol: np.ndarray) -> torch.Tensor:
         ic = self.config.inference
-        return sliding_window_inference(
-            self._to_device(vol), self.seg_model,
-            roi_size=tuple(ic.roi_size), overlap=ic.overlap,
-            sw_batch_size=ic.sw_batch_size, blend_mode=ic.blend_mode,
-            sigma_scale=ic.gaussian_sigma_scale,
-            out_channels=self.config.model.out_channels)
+        kw = dict(roi_size=tuple(ic.roi_size), overlap=ic.overlap,
+                  sw_batch_size=ic.sw_batch_size, blend_mode=ic.blend_mode,
+                  sigma_scale=ic.gaussian_sigma_scale,
+                  out_channels=self.config.model.out_channels)
+        if self.window_mesh is not None:
+            from ..parallel.infer import sliding_window_inference_mp
+            return sliding_window_inference_mp(
+                self._to_device(vol), self.seg_model, self.window_mesh, **kw)
+        return sliding_window_inference(self._to_device(vol),
+                                        self.seg_model, **kw)
 
     def _whole_volume_logits(self, vols: torch.Tensor) -> torch.Tensor:
         """(B, D, H, W, C) f32 on the device -> logits at the input
-        resolution: resize to the model size, one forward, resize back
-        (JAX ``_whole_volume_logits``)."""
-        x = resize_trilinear(vols, self.config.data.image_size)
-        return resize_trilinear(self.seg_model(x), vols.shape[1:4])
+        resolution (``whole_volume_logits`` at the model size)."""
+        return whole_volume_logits(self.seg_model, vols,
+                                   self.config.data.image_size)
 
     def _segment_logits(self, vol: np.ndarray, mode: str
                         ) -> Tuple[torch.Tensor, Optional[Tuple]]:

@@ -11,7 +11,8 @@ blend.
 
 from __future__ import annotations
 
-from typing import Callable, List, Sequence, Tuple
+from typing import (Callable, List, Mapping, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -105,3 +106,32 @@ def sliding_window_inference(volume: torch.Tensor,
             acc[w] += lg * imp
             wsum[w] += imp
     return (acc / wsum.clamp_min(1e-8))[crop]
+
+
+def make_sw_predictor(model: torch.nn.Module,
+                      variables: Optional[Mapping] = None,
+                      roi_size: Tuple[int, int, int] = (128, 128, 128),
+                      overlap: float = 0.5, sw_batch_size: int = 4,
+                      blend_mode: str = "gaussian",
+                      sigma_scale: float = 0.125) -> Callable:
+    """``predict(volume) -> logits``: ``sliding_window_inference`` bound
+    to ``model`` (JAX ``make_sw_predictor``). ``variables`` (a flax-layout
+    tree, optional) is loaded into the model; ``predict.set_variables(v)``
+    swaps the weights in place, through the weight bridge."""
+    from ..models.weights import load_flax_params
+
+    def set_variables(v: Mapping) -> None:
+        model.load_state_dict(load_flax_params(v))
+
+    if variables is not None:
+        set_variables(variables)
+
+    def predict(volume: torch.Tensor) -> torch.Tensor:
+        return sliding_window_inference(
+            volume, model, roi_size=tuple(roi_size), overlap=overlap,
+            sw_batch_size=sw_batch_size, blend_mode=blend_mode,
+            sigma_scale=sigma_scale,
+            out_channels=getattr(model, "out_channels", 4))
+
+    predict.set_variables = set_variables
+    return predict

@@ -54,14 +54,27 @@ def specificity(pred: torch.Tensor, target: torch.Tensor,
     return (tn + smooth) / (tn + fp + smooth)
 
 
-def per_class_dice(pred_labels: torch.Tensor, target_labels: torch.Tensor,
-                   num_classes: int = 4, eps: float = 1e-8) -> torch.Tensor:
-    """Hard Dice per class id, (num_classes,) (index 0 = background)."""
+def class_counts(pred_labels: torch.Tensor, target_labels: torch.Tensor,
+                 num_classes: int = 4) -> torch.Tensor:
+    """(3, num_classes) f32: per class id, the voxels of the intersection,
+    of the prediction and of the target. Counts of a batch split over
+    ranks add up to the whole batch's."""
     ids = torch.arange(num_classes, device=pred_labels.device)
     p = (pred_labels.reshape(-1, 1) == ids).float()
     t = (target_labels.reshape(-1, 1) == ids).float()
-    inter = (p * t).sum(0)
-    return (2.0 * inter) / (p.sum(0) + t.sum(0) + eps)
+    return torch.stack([(p * t).sum(0), p.sum(0), t.sum(0)])
+
+
+def dice_of_counts(counts: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """Hard Dice per class from ``class_counts``."""
+    return (2.0 * counts[0]) / (counts[1] + counts[2] + eps)
+
+
+def per_class_dice(pred_labels: torch.Tensor, target_labels: torch.Tensor,
+                   num_classes: int = 4, eps: float = 1e-8) -> torch.Tensor:
+    """Hard Dice per class id, (num_classes,) (index 0 = background)."""
+    return dice_of_counts(class_counts(pred_labels, target_labels,
+                                       num_classes), eps)
 
 
 def mean_foreground_dice(logits_or_labels: torch.Tensor,
@@ -75,19 +88,40 @@ def mean_foreground_dice(logits_or_labels: torch.Tensor,
     return per_class_dice(x, target_labels, num_classes)[1:].mean()
 
 
-def region_dice(pred_labels: torch.Tensor, target_labels: torch.Tensor,
-                regions: Mapping[str, Sequence[int]] = BRATS_REGIONS
-                ) -> Dict[str, torch.Tensor]:
-    """Composite region Dice (WT / TC / ET over the remapped labels)."""
+def region_counts(pred_labels: torch.Tensor, target_labels: torch.Tensor,
+                  regions: Mapping[str, Sequence[int]] = BRATS_REGIONS
+                  ) -> torch.Tensor:
+    """(3, len(regions)) f32: per composite region, the voxels of the
+    intersection, of the prediction and of the target."""
     def member(labels, ids):
         m = torch.zeros_like(labels, dtype=torch.bool)
         for i in ids:
             m |= labels == i
         return m.float()
 
-    return {name: dice_coefficient(member(pred_labels, ids),
-                                   member(target_labels, ids))
-            for name, ids in regions.items()}
+    cols = []
+    for ids in regions.values():
+        p, t = member(pred_labels, ids), member(target_labels, ids)
+        cols.append(torch.stack([(p * t).sum(), p.sum(), t.sum()]))
+    return torch.stack(cols, dim=1)
+
+
+def region_dice_of_counts(counts: torch.Tensor,
+                          regions: Mapping[str, Sequence[int]]
+                          = BRATS_REGIONS,
+                          smooth: float = 1e-6) -> Dict[str, torch.Tensor]:
+    """Region Dice from ``region_counts`` (``dice_coefficient``'s
+    smoothing)."""
+    dice = (2.0 * counts[0] + smooth) / (counts[1] + counts[2] + smooth)
+    return dict(zip(regions, dice))
+
+
+def region_dice(pred_labels: torch.Tensor, target_labels: torch.Tensor,
+                regions: Mapping[str, Sequence[int]] = BRATS_REGIONS
+                ) -> Dict[str, torch.Tensor]:
+    """Composite region Dice (WT / TC / ET over the remapped labels)."""
+    return region_dice_of_counts(
+        region_counts(pred_labels, target_labels, regions), regions)
 
 
 # ---------------------------------------------------------------------------
@@ -144,3 +178,58 @@ def compute_all_metrics(pred: torch.Tensor, target: torch.Tensor
         "specificity": float(specificity(pred, target)),
         "hausdorff": hausdorff_distance(pred, target),
     }
+
+
+class LossMetrics:
+    """Sigmoid-based binary loss variants (JAX ``LossMetrics``); logits
+    and one-hot targets are channels-last (B, D, H, W, C) arrays or
+    tensors."""
+
+    @staticmethod
+    def dice_loss(logits, targets, smooth: float = 1e-6) -> torch.Tensor:
+        p = torch.sigmoid(torch.as_tensor(logits).float())
+        t = torch.as_tensor(targets).float()
+        axes = tuple(range(1, p.ndim - 1))
+        inter = (p * t).sum(axes)
+        union = p.sum(axes) + t.sum(axes)
+        return 1.0 - ((2.0 * inter + smooth) / (union + smooth)).mean()
+
+    @staticmethod
+    def focal_loss(logits, targets, alpha: float = 0.25,
+                   gamma: float = 2.0) -> torch.Tensor:
+        from .losses import focal_loss
+        return focal_loss(torch.as_tensor(logits),
+                          torch.as_tensor(targets).long(), alpha, gamma)
+
+    @staticmethod
+    def combined_loss(logits, targets, dice_weight: float = 0.5,
+                      focal_weight: float = 0.5,
+                      focal_targets=None) -> torch.Tensor:
+        """dice_weight * sigmoid Dice + focal_weight * focal;
+        ``focal_targets`` (integer labels) defaults to the argmax of the
+        one-hot targets."""
+        d = LossMetrics.dice_loss(logits, targets)
+        ft = (torch.as_tensor(targets).argmax(-1) if focal_targets is None
+              else focal_targets)
+        return dice_weight * d + focal_weight * LossMetrics.focal_loss(
+            logits, ft)
+
+
+def _float_of(fn):
+    """A binary metric on arrays or tensors, as a Python float."""
+    return staticmethod(lambda pred, target, smooth=1e-6: float(fn(
+        torch.as_tensor(pred), torch.as_tensor(target), smooth)))
+
+
+class SegmentationMetrics:
+    """Static-method facade of the binary metrics (JAX
+    ``SegmentationMetrics``), each returning a Python float."""
+
+    dice_coefficient = _float_of(dice_coefficient)
+    iou_score = _float_of(iou_score)
+    sensitivity = _float_of(sensitivity)
+    specificity = _float_of(specificity)
+    hausdorff_distance = staticmethod(hausdorff_distance)
+    compute_all_metrics = staticmethod(
+        lambda pred, target: compute_all_metrics(torch.as_tensor(pred),
+                                                 torch.as_tensor(target)))

@@ -56,8 +56,9 @@ class UNet3DWithClassifier(nn.Module):
         return {"logits": logits, "grade_logits": grade}
 
     def forward_train(self, x: torch.Tensor, generator,
-                      batch_stats=None) -> Dict[str, torch.Tensor]:
-        out = self.unet.forward_train(x, generator, batch_stats)
+                      batch_stats=None, bn_group=None
+                      ) -> Dict[str, torch.Tensor]:
+        out = self.unet.forward_train(x, generator, batch_stats, bn_group)
         # the burden features read the logits without their gradient
         # (JAX stop_gradient): grade-CE reaches the trunk through the
         # pooled bottleneck only

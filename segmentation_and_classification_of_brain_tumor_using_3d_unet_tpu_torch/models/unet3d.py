@@ -100,13 +100,14 @@ class BatchNorm(nn.Module):
         return batch_norm_infer(x, self.scale, self.bias, self.mean,
                                 self.var, self.eps)
 
-    def train_stats(self, x, stats=None):
+    def train_stats(self, x, stats=None, group=None):
         """Train mode on batch statistics: (y f32, (new mean, new
         var)); ``stats`` = the running (mean, var) to advance, the
-        buffers when None (they are not written here)."""
+        buffers when None (they are not written here); ``group``: the
+        data-parallel ranks whose batches are one batch."""
         mean, var = stats if stats is not None else (self.mean, self.var)
         return batch_norm_train(x, self.scale, self.bias, mean, var,
-                                eps=self.eps)
+                                eps=self.eps, group=group)
 
 
 class DoubleConv3D(nn.Module):
@@ -350,7 +351,7 @@ class UNet3D(nn.Module):
         return out["logits"], out["bottleneck"]
 
     def forward_train(self, x: torch.Tensor, generator=None,
-                      batch_stats=None) -> dict:
+                      batch_stats=None, bn_group=None) -> dict:
         """The train forward, with gradients: {"logits": f32, "deep":
         [one head per encoder level but the last, in the compute dtype,
         at its level's scale, or full resolution with
@@ -358,10 +359,12 @@ class UNet3D(nn.Module):
         "batch_stats": the head BatchNorm's new
         running (mean, var)}. ``generator`` (on x's device) draws the
         dropout masks; ``batch_stats`` is the running (mean, var) to
-        advance, the buffers when None. Nothing of the module is
-        written: the train step stores the new statistics."""
+        advance, the buffers when None; ``bn_group``: the process group
+        of the data-parallel ranks, over which the head BatchNorm takes
+        its batch statistics. Nothing of the module is written: the
+        train step stores the new statistics."""
         return self._forward(x, train=True, generator=generator,
-                             bn_stats=batch_stats)
+                             bn_stats=batch_stats, bn_group=bn_group)
 
     def _block(self, block, x, train: bool):
         if train and self.remat:
@@ -375,7 +378,8 @@ class UNet3D(nn.Module):
         d = getattr(self, f"deep{i}")(x)
         return resize_trilinear(d, full) if self.deep_sup_full_res else d
 
-    def _forward(self, x, train: bool, generator=None, bn_stats=None):
+    def _forward(self, x, train: bool, generator=None, bn_stats=None,
+                 bn_group=None):
         feats = self.features
         n = len(feats)
         x = x.to(self.compute_dtype)
@@ -444,7 +448,7 @@ class UNet3D(nn.Module):
         new_stats = None
         if train:
             # f32 batch statistics (JAX: BatchNorm in f32 at train)
-            h, new_stats = self.head_bn.train_stats(h, bn_stats)
+            h, new_stats = self.head_bn.train_stats(h, bn_stats, bn_group)
             h = torch.relu(h).to(self.compute_dtype)
         else:
             h = torch.relu(self.head_bn(h))

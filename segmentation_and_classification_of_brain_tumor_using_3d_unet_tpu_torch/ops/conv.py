@@ -182,6 +182,31 @@ def conv3d_zcat(x: torch.Tensor, w: torch.Tensor,
     return y.contiguous()
 
 
+def conv3d_zsum(x: torch.Tensor, w: torch.Tensor,
+                bias: torch.Tensor = None,
+                dtype: torch.dtype = BF16) -> torch.Tensor:
+    """3x3x3 SAME conv as three 2-D convs over the z-windows of the
+    D-padded input, summed (JAX ``conv3d_zsum``): ``out[z] = sum_dz
+    conv2d(x[z - 1 + dz], w[dz])``, each 2-D conv rounded to ``dtype``
+    and the sum and bias taken in ``dtype``, as JAX sums them. x (B, D,
+    H, W, Cin), w (3, 3, 3, Cin, Cout)."""
+    if tuple(w.shape[:3]) != (3, 3, 3):
+        raise ValueError(f"conv3d_zsum expects 3x3x3 kernels, got "
+                         f"{tuple(w.shape)}")
+    b, d, h, wd, c = x.shape
+    xp = F.pad(x.to(dtype), (0, 0, 0, 0, 0, 0, 1, 1))
+    out = None
+    for dz in range(3):
+        x2 = xp[:, dz:dz + d].reshape(b * d, h, wd, c).permute(0, 3, 1, 2)
+        w2 = w[dz].to(dtype).permute(3, 2, 0, 1).contiguous()
+        y = accumulate(lambda a, k: F.conv2d(a, k, padding=1), x2, w2)
+        out = y if out is None else out + y
+    out = out.permute(0, 2, 3, 1).reshape(b, d, h, wd, -1)
+    if bias is not None:
+        out = out + bias.to(dtype)
+    return out.contiguous()
+
+
 def conv3d_ksplit(x: torch.Tensor, w: torch.Tensor,
                   bias: torch.Tensor = None,
                   dtype: torch.dtype = BF16) -> torch.Tensor:

@@ -79,7 +79,7 @@ def group_norm_s2d(x: torch.Tensor, gamma: torch.Tensor,
 def batch_norm_train(x: torch.Tensor, gamma: torch.Tensor,
                      beta: torch.Tensor, mean: torch.Tensor,
                      var: torch.Tensor, momentum: float = 0.9,
-                     eps: float = 1e-5):
+                     eps: float = 1e-5, group=None):
     """Train BatchNorm over (N, ..., C) as flax's ``BatchNorm`` with
     ``use_running_average=False`` computes it -> (y f32, (new_mean,
     new_var)).
@@ -90,11 +90,26 @@ def batch_norm_train(x: torch.Tensor, gamma: torch.Tensor,
     one, so it is not used). ``y = (x - mean) * (rsqrt(var + eps) *
     gamma) + beta`` in f32. The running statistics move as
     ``momentum * running + (1 - momentum) * batch`` (flax's momentum 0.9
-    is torch's 0.1) and carry no gradient."""
+    is torch's 0.1) and carry no gradient.
+
+    ``group`` (a process group, the data-parallel ranks): the statistics
+    are the whole batch's over the group, as JAX's single partitioned
+    program takes them: each rank's sums of x and x^2 and its count are
+    summed over the group by a differentiable all-reduce, whose backward
+    sums the cotangents of the moments over the group."""
     xf = x.float()
     axes = tuple(range(x.ndim - 1))
-    mu = xf.mean(axes)
-    v = torch.clamp(xf.square().mean(axes) - mu.square(), min=0.0)
+    if group is None:
+        mu = xf.mean(axes)
+        ex2 = xf.square().mean(axes)
+    else:
+        from ..parallel.mesh import all_reduce_sum
+        count = torch.full((x.shape[-1],), float(xf.numel() // x.shape[-1]),
+                           device=x.device)
+        s = all_reduce_sum(torch.stack([xf.sum(axes), xf.square().sum(axes),
+                                        count]), group)
+        mu, ex2 = s[0] / s[2], s[1] / s[2]
+    v = torch.clamp(ex2 - mu.square(), min=0.0)
     y = (xf - mu) * (torch.rsqrt(v + eps) * gamma.float()) + beta.float()
     with torch.no_grad():
         new_mean = momentum * mean.float() + (1.0 - momentum) * mu

@@ -22,7 +22,7 @@ CORE_MODULES = (
     "train.state", "train.loop", "train.trainer", "train.checkpoints",
     "data.native", "inference.sliding_window", "inference.predictor",
     "inference.cli", "inference.evaluate", "serve.app", "serve.jobs",
-    "serve.reports", "utils.visualization", "utils.mesh",
+    "serve.reports", "utils.visualization", "utils.mesh", "parallel.mesh",
 )
 
 GITIGNORE = """__pycache__/

@@ -6,9 +6,12 @@ Usage::
         --create_synthetic --num_samples 20 --epochs 5 [--device cpu]
 
 ``--device`` (default ``cuda``) is the one the model, the loader and
-the steps run on; without a card the default raises. ``--mesh_data`` /
-``--mesh_space`` above 1 raise (multi-device is not ported). Also
-callable as ``train_main(argv)``.
+the steps run on; without a card the default raises. ``--mesh_data``
+above 1 trains data-parallel, one process per device under ``torchrun``
+(``--nproc_per_node`` = ``--mesh_data``; rank i on ``cuda:i``, or on the
+CPU over gloo with ``--device cpu``); only rank 0 writes.
+``--mesh_space`` above 1 raises: spatial sharding comes with a later
+slice. Also callable as ``train_main(argv)``.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ import argparse
 import dataclasses
 import logging
 from typing import Optional, Sequence
+
+import torch
 
 logger = logging.getLogger(__name__)
 
@@ -57,9 +62,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--synthetic_shape", type=int, nargs=3, default=None,
                    help="native shape of generated synthetic volumes")
     p.add_argument("--mesh_data", type=int, default=1,
-                   help="data-parallel mesh axis (1 = one device; more "
-                        "is not ported)")
-    p.add_argument("--mesh_space", type=int, default=1)
+                   help="data-parallel mesh axis size (1 = one device; "
+                        "more: one process per device under torchrun)")
+    p.add_argument("--mesh_space", type=int, default=1,
+                   help="spatial mesh axis (1 only: spatial sharding "
+                        "comes with a later slice)")
     p.add_argument("--no_remat", action="store_true")
     p.add_argument("--dtype", type=str, default="bfloat16",
                    choices=["bfloat16", "float32"])
@@ -76,15 +83,27 @@ def train_main(argv: Optional[Sequence[str]] = None):
     from ..data.synthetic import create_enhanced_synthetic_data
     from ..device import resolve_device
     from ..models import UNet3D
+    from ..parallel.mesh import is_primary
     from .trainer import ModernBrainTumorTrainer
 
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
-    if args.mesh_data * args.mesh_space > 1:
-        raise NotImplementedError("multi-device training is not ported; "
-                                  "use --mesh_data 1 --mesh_space 1")
-    device = resolve_device(args.device)
+    if args.mesh_space > 1:
+        raise NotImplementedError(
+            "--mesh_space > 1 (spatial sharding) comes with the spatial "
+            "slice; use --mesh_space 1")
+    mesh = sharding = None
+    if args.mesh_data > 1:
+        from ..parallel.mesh import (batch_sharding, create_mesh,
+                                     initialize_distributed)
+        device = initialize_distributed(
+            device=None if args.device == "cuda" else args.device)
+        mesh = create_mesh(args.mesh_data, args.mesh_space)
+        sharding = batch_sharding(mesh)
+        logger.info("mesh: %s", mesh)
+    else:
+        device = resolve_device(args.device)
 
     cfg = get_config(args.preset)
     cfg = cfg.replace(epochs=args.epochs, batch_size=args.batch_size,
@@ -104,11 +123,18 @@ def train_main(argv: Optional[Sequence[str]] = None):
 
     shape = (tuple(args.synthetic_shape) if args.synthetic_shape
              else (240, 240, 155))
+
+    def synthesize(n):
+        """The cohort written by rank 0; the other ranks wait for it."""
+        if mesh is None or is_primary():
+            create_enhanced_synthetic_data(n, args.data_dir, shape=shape)
+        if mesh is not None:
+            torch.distributed.barrier()
+
     if args.create_synthetic:
         logger.info("generating %d synthetic samples at %s",
                     args.num_samples, shape)
-        create_enhanced_synthetic_data(args.num_samples, args.data_dir,
-                                       shape=shape)
+        synthesize(args.num_samples)
 
     def loaders():
         return create_brats_data_loaders(
@@ -116,14 +142,13 @@ def train_main(argv: Optional[Sequence[str]] = None):
             num_workers=args.num_workers, image_size=cfg.data.image_size,
             seed=cfg.seed, device=device, aug_cfg=cfg.augment,
             patch_size=tuple(args.patch_size) if args.patch_size else None,
-            fg_patch_prob=args.fg_patch_prob)
+            fg_patch_prob=args.fg_patch_prob, sharding=sharding)
 
     train_loader, val_loader = loaders()
     if len(train_loader.dataset) == 0:
         logger.warning("no training data found in %s: generating a "
                        "synthetic cohort", args.data_dir)
-        create_enhanced_synthetic_data(max(args.num_samples, 10),
-                                       args.data_dir, shape=shape)
+        synthesize(max(args.num_samples, 10))
         train_loader, val_loader = loaders()
 
     # the normal path, as JAX's CLI builds its model (no ps2d region)
@@ -135,7 +160,7 @@ def train_main(argv: Optional[Sequence[str]] = None):
                    seed=cfg.seed, device=device)
     trainer = ModernBrainTumorTrainer(
         model, learning_rate=args.lr,
-        experiment_name=args.experiment_name, config=cfg,
+        experiment_name=args.experiment_name, config=cfg, mesh=mesh,
         save_latest_every=args.save_latest_every)
     if args.resume:
         trainer.load_checkpoint(args.resume)

@@ -8,12 +8,25 @@ stay tensors on the device, so a step never waits on the host. JAX jits
 the step; here it runs eagerly, and on a CUDA model nothing of it
 touches the CPU. An f32 model's steps run with TF32 off, backward
 included (``ops.conv.full_f32``).
+
+With a ``mesh`` (``parallel.mesh``), each rank runs the step on its rows
+of the global batch, as JAX's partitioned program does on its shard:
+the weights are broadcast from the first rank when a step first sees a
+model; the head BatchNorm takes its statistics over the ``data`` group;
+the gradients are averaged over the group (a few flat buckets) before
+the clip, AdamW and EMA, so every rank applies the same update; and the
+metrics are the global batch's: every loss term is a per-sample mean and
+each rank holds an equal share, so the mean of the ranks' losses is the
+global loss, and the Dice scores come from voxel counts summed over the
+group. The eval step's labels and Hausdorff distances stay this rank's
+rows.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import weakref
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -21,7 +34,9 @@ import torch
 from ..config import Config
 from ..ops.conv import BF16, full_f32
 from ..losses import combined_loss, deep_supervision_loss
-from ..metrics import mean_foreground_dice, region_dice
+from ..metrics import (class_counts, dice_of_counts, region_counts,
+                       region_dice_of_counts)
+from ..parallel.mesh import all_reduce_, mean_over, replicated
 from .state import TrainState, global_norm
 
 
@@ -56,6 +71,47 @@ def precision(model: torch.nn.Module):
     return full_f32()
 
 
+def _data_parallel(mesh):
+    """(the ``data`` group or None, ``sync(state)``): ``sync`` broadcasts
+    the weights (and the EMA) of a state's model from the mesh's first
+    rank the first time it sees that model."""
+    group = None if mesh is None else mesh.group("data")
+    if group is None:
+        return None, lambda state: None
+    seen = weakref.WeakSet()
+
+    def sync(state: TrainState) -> None:
+        if state.model in seen:
+            return
+        with torch.no_grad():
+            replicated(mesh).place(
+                list(state.model.parameters()) + list(state.model.buffers())
+                + list((state.ema_params or {}).values()))
+        seen.add(state.model)
+
+    return group, sync
+
+
+def _reduce_metrics(group, means: Dict[str, torch.Tensor],
+                    counts: torch.Tensor):
+    """``means`` averaged and ``counts`` summed over ``group`` in one
+    collective (unchanged without a group)."""
+    if group is None:
+        return means, counts
+    keys = list(means)
+    flat = torch.cat([torch.stack([means[k].float() for k in keys]),
+                      counts.reshape(-1).float()])
+    all_reduce_(flat, group)
+    n = torch.distributed.get_world_size(group)
+    return ({k: flat[i] / n for i, k in enumerate(keys)},
+            flat[len(keys):].view_as(counts))
+
+
+def _foreground_dice(counts: torch.Tensor) -> torch.Tensor:
+    """Mean hard Dice over classes 1.. of ``class_counts``."""
+    return dice_of_counts(counts)[1:].mean()
+
+
 def _grads(loss: torch.Tensor, params) -> list:
     """d loss / d params, zeros for a parameter the loss does not reach
     (the last deep head: computed, unweighted), as JAX's gradient tree
@@ -66,7 +122,8 @@ def _grads(loss: torch.Tensor, params) -> list:
 
 
 def make_train_step(config: Config, num_classes: int = 4,
-                    grad_accum: Optional[int] = None) -> Callable:
+                    grad_accum: Optional[int] = None,
+                    mesh=None) -> Callable:
     """``step(state, batch, generator) -> (state, metrics)``; batch =
     {"image": (B, D, H, W, C), "mask": (B, D, H, W) int}, ``generator``
     on the model's device draws the dropout masks.
@@ -76,14 +133,19 @@ def make_train_step(config: Config, num_classes: int = 4,
     per-sample mean and GroupNorm is per sample, so the averaged gradient
     is the full batch's (up to the head BatchNorm's batch statistics,
     which are per microbatch); the BatchNorm statistics advance once per
-    microbatch. Activations are held for one microbatch at a time."""
+    microbatch. Activations are held for one microbatch at a time.
+
+    ``mesh``: ``batch`` is this rank's rows of the global batch (see the
+    module's docstring); with ``grad_accum`` each rank accumulates its
+    microbatches and the gradients are reduced once."""
     loss_fn = make_loss_fn(config)
     accum = config.grad_accum if grad_accum is None else grad_accum
+    group, sync = _data_parallel(mesh)
 
     def micro_grads(state, images, targets, generator, bn_stats):
         params = list(state.model.parameters())
         out = state.model.forward_train(images, generator,
-                                        batch_stats=bn_stats)
+                                        batch_stats=bn_stats, bn_group=group)
         loss = loss_fn(out, targets)
         return (loss.detach(), _grads(loss, params),
                 out["logits"].detach(), out["batch_stats"])
@@ -91,13 +153,14 @@ def make_train_step(config: Config, num_classes: int = 4,
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              generator: torch.Generator
              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        sync(state)
         images, targets = batch["image"], batch["mask"]
         b = images.shape[0]
         if b % accum:
             raise ValueError(f"batch {b} not divisible by grad_accum "
                              f"{accum}")
         mb = b // accum
-        bn_stats, gsum, lsum, dsum = None, None, 0.0, 0.0
+        bn_stats, gsum, lsum, counts = None, None, 0.0, []
         for i in range(accum):
             sl = slice(i * mb, (i + 1) * mb)
             with precision(state.model):
@@ -106,10 +169,14 @@ def make_train_step(config: Config, num_classes: int = 4,
             gsum = grads if gsum is None else [
                 a + g for a, g in zip(gsum, grads)]
             lsum = lsum + loss
-            dsum = dsum + mean_foreground_dice(logits, targets[sl],
-                                               num_classes)
-        grads = [g / accum for g in gsum] if accum > 1 else gsum
-        metrics = {"loss": lsum / accum, "dice": dsum / accum,
+            counts.append(class_counts(logits.argmax(-1), targets[sl],
+                                       num_classes))
+        grads = mean_over([g / accum for g in gsum] if accum > 1 else gsum,
+                          group)
+        means, counts = _reduce_metrics(group, {"loss": lsum / accum},
+                                        torch.stack(counts))
+        dsum = sum(_foreground_dice(c) for c in counts)
+        metrics = {"loss": means["loss"], "dice": dsum / accum,
                    "grad_norm": global_norm(grads)}
         state.apply_gradients(grads, batch_stats=bn_stats)
         return state, metrics
@@ -118,16 +185,18 @@ def make_train_step(config: Config, num_classes: int = 4,
 
 
 def make_joint_train_step(config: Config, num_classes: int = 4,
-                          cls_weight: float = 0.3) -> Callable:
+                          cls_weight: float = 0.3, mesh=None) -> Callable:
     """Train step of ``UNet3DWithClassifier``: ``step(state, batch,
     generator)``, the batch's integer ``grade`` labels taken from the
-    burden of its masks when absent."""
+    burden of its masks when absent; ``mesh`` as ``make_train_step``'s."""
     from ..models.joint import grade_from_volume, joint_loss
     seg_loss_fn = make_loss_fn(config)
+    group, sync = _data_parallel(mesh)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              generator: torch.Generator
              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        sync(state)
         images, targets = batch["image"], batch["mask"]
         if "grade" in batch:
             grades = batch["grade"]
@@ -136,19 +205,20 @@ def make_joint_train_step(config: Config, num_classes: int = 4,
                                        targets[0].numel())
         params = list(state.model.parameters())
         with precision(state.model):
-            out = state.model.forward_train(images, generator)
+            out = state.model.forward_train(images, generator,
+                                            bn_group=group)
             loss, parts = joint_loss(out, targets, grades, seg_loss_fn,
                                      cls_weight)
-            grads = _grads(loss, params)
+            grads = mean_over(_grads(loss, params), group)
         state.apply_gradients(grads, batch_stats=out["batch_stats"])
         grade_acc = (out["grade_logits"].detach().argmax(-1) == grades
                      ).float().mean()
-        metrics = {
+        metrics, counts = _reduce_metrics(group, {
             "loss": loss.detach(), "seg_loss": parts["seg_loss"].detach(),
             "grade_ce": parts["grade_ce"].detach(), "grade_acc": grade_acc,
-            "dice": mean_foreground_dice(out["logits"].detach(), targets,
-                                         num_classes),
-        }
+        }, class_counts(out["logits"].detach().argmax(-1), targets,
+                        num_classes))
+        metrics["dice"] = _foreground_dice(counts)
         return state, metrics
 
     return step
@@ -156,30 +226,36 @@ def make_joint_train_step(config: Config, num_classes: int = 4,
 
 def make_eval_step(config: Config, num_classes: int = 4,
                    with_hausdorff: bool = False,
-                   hd_percentile: float = 95.0) -> Callable:
+                   hd_percentile: float = 95.0, mesh=None) -> Callable:
     """``eval_step(state, batch) -> metrics``: the eval forward's loss
     (no deep heads), mean foreground Dice, WT/TC/ET region Dice, the
     argmax labels and, with ``with_hausdorff``, each sample's
     (percentile-)Hausdorff distance through the exact EDT
-    (``ops/edt.py``) — all on the device."""
+    (``ops/edt.py``) — all on the device. With a ``mesh`` the scalars
+    are the global batch's, the labels and distances this rank's rows."""
     from ..ops.edt import hausdorff_distance_device
     loss_fn = make_loss_fn(config)
+    group, sync = _data_parallel(mesh)
 
     @torch.no_grad()
     def step(state: TrainState, batch: Dict[str, torch.Tensor]
              ) -> Dict[str, torch.Tensor]:
+        sync(state)
         images, targets = batch["image"], batch["mask"]
         with precision(state.model):
             res = state.model(images)
         out = dict(res) if isinstance(res, dict) else {"logits": res}
         out["deep"] = []
         labels = out["logits"].argmax(-1)
-        metrics = {
-            "loss": loss_fn(out, targets),
-            "dice": mean_foreground_dice(labels, targets, num_classes),
-            "pred_labels": labels,
-        }
-        for name, val in region_dice(labels, targets).items():
+        cc = class_counts(labels, targets, num_classes)
+        means, counts = _reduce_metrics(
+            group, {"loss": loss_fn(out, targets)},
+            torch.cat([cc, region_counts(labels, targets)], dim=1))
+        metrics = {"loss": means["loss"],
+                   "dice": _foreground_dice(counts[:, :num_classes]),
+                   "pred_labels": labels}
+        for name, val in region_dice_of_counts(
+                counts[:, num_classes:]).items():
             metrics[f"dice_{name}"] = val
         if with_hausdorff:
             metrics["hausdorff"] = torch.stack([

@@ -19,6 +19,12 @@ save-on-best of the validation Dice, ``val_interval``,
     (the CLI seeds it with ``config.seed`` too).
   * ``timing`` records, per train step, the host seconds the step took
     to enqueue and the seconds the loop waited on the loader.
+  * With a ``mesh`` (data axis only; one process per device), the steps
+    are the data-parallel ones of ``loop``, the loaders give each rank
+    its rows, every rank reads the same global metrics and so takes the
+    same decisions, and only the first rank writes checkpoints,
+    TensorBoard, wandb and the report. Every rank loads for ``resume``.
+    The dropout masks of rank i draw from ``config.seed + i``.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ import torch
 
 from ..config import Config
 from ..metrics import hausdorff_distance, mean_foreground_dice
+from ..parallel.mesh import all_gather, is_primary
 from . import checkpoints
 from .loop import make_eval_step, make_train_step
 from .state import (TrainState, create_train_state, current_lr,
@@ -45,8 +52,8 @@ logger = logging.getLogger(__name__)
 class ModernBrainTumorTrainer:
     """The trainer of a built model (``UNet3D`` or
     ``UNet3DWithClassifier``'s trunk) on its device. ``device``, when
-    given, must be the model's; ``mesh`` (multi-device) is not ported
-    and must be None."""
+    given, must be the model's; ``mesh``: a data-parallel mesh
+    (``parallel.mesh.create_mesh``), its ``space`` axis of size 1."""
 
     def __init__(self, model, device=None, learning_rate: float = 1e-4,
                  experiment_name: Optional[str] = None,
@@ -54,9 +61,13 @@ class ModernBrainTumorTrainer:
                  mesh=None, use_wandb: Optional[bool] = None,
                  hausdorff_every: int = 1,
                  save_latest_every: int = 0):
-        if mesh is not None:
-            raise NotImplementedError("multi-device training is not "
-                                      "ported; pass mesh=None")
+        if mesh is not None and mesh.shape.get("space", 1) > 1:
+            raise NotImplementedError(
+                "spatial sharding (mesh space > 1) comes with the spatial "
+                "slice: halo exchange around every conv and GroupNorm "
+                "statistics over the space group; use space=1")
+        self.mesh = mesh
+        self.primary = is_primary()
         self.model = model
         self.device = next(model.parameters()).device
         want = None if device is None else torch.device(device)
@@ -79,8 +90,9 @@ class ModernBrainTumorTrainer:
         self._eval_step = None
         self._eval_step_hd = None
         self._steps_per_epoch = 1
+        rank = 0 if mesh is None else mesh.index("data")
         self._generator = torch.Generator(
-            device=self.device).manual_seed(self.config.seed)
+            device=self.device).manual_seed(self.config.seed + rank)
 
         self.best_dice = 0.0
         self.start_epoch = 0
@@ -97,7 +109,8 @@ class ModernBrainTumorTrainer:
         self._saved_any = False
         self._guarded_paths: set = set()
         self._setup_tracking(
-            self.config.use_wandb if use_wandb is None else use_wandb)
+            (self.config.use_wandb if use_wandb is None else use_wandb)
+            and self.primary)
 
     # ------------------------------------------------------------------
     # experiment tracking (both optional)
@@ -115,7 +128,7 @@ class ModernBrainTumorTrainer:
             except Exception as e:
                 logger.warning("wandb unavailable: %s", e)
         self.writer = None
-        if self.config.use_tensorboard:
+        if self.config.use_tensorboard and self.primary:
             try:
                 from torch.utils.tensorboard import SummaryWriter
                 self.writer = SummaryWriter(
@@ -135,11 +148,14 @@ class ModernBrainTumorTrainer:
         self.state = create_train_state(
             self.model, self.config, self._steps_per_epoch,
             self.learning_rate)
-        n = getattr(self.model, "out_channels", 4)
-        self._train_step = make_train_step(self.config, num_classes=n)
-        self._eval_step = make_eval_step(self.config, num_classes=n)
+        n = batch_num_classes(self.model)
+        self._train_step = make_train_step(self.config, num_classes=n,
+                                           mesh=self.mesh)
+        self._eval_step = make_eval_step(self.config, num_classes=n,
+                                         mesh=self.mesh)
         self._eval_step_hd = make_eval_step(self.config, num_classes=n,
-                                            with_hausdorff=True)
+                                            with_hausdorff=True,
+                                            mesh=self.mesh)
         if self._pending_resume:
             self.state, meta = checkpoints.restore_checkpoint(
                 self._pending_resume, self.state)
@@ -226,7 +242,12 @@ class ModernBrainTumorTrainer:
         out = dict(zip(names, means))
         hd_out = float("nan")
         if hds:
-            hd_all = torch.cat(hds).cpu().numpy()
+            hd_all = torch.cat(hds)
+            if self.mesh is not None:
+                # every rank's samples, as JAX reads its sharded output
+                hd_all = torch.cat(all_gather(hd_all,
+                                              self.mesh.group("data")))
+            hd_all = hd_all.cpu().numpy()
             fin = hd_all[np.isfinite(hd_all)]
             hd_out = float(fin.mean()) if fin.size else float("nan")
         out["hausdorff"] = hd_out
@@ -329,6 +350,8 @@ class ModernBrainTumorTrainer:
 
     def save_model(self, epoch: int = 0, path: Optional[str] = None) -> str:
         path = path or self._ckpt_path()
+        if not self.primary:
+            return path
         # the first save of this run at a path archives what an earlier
         # run left there (a resume continuing that checkpoint excepted)
         key = os.path.abspath(path)
@@ -362,7 +385,7 @@ class ModernBrainTumorTrainer:
     def generate_training_report(self) -> Optional[str]:
         """The JSON summary and, where matplotlib is installed, the
         dashboards (PNG and HTML); without it the JSON alone."""
-        if not self.metrics_history["train_loss"]:
+        if not self.metrics_history["train_loss"] or not self.primary:
             return None
         out_dir = os.path.join(self.config.results_dir, "reports")
         os.makedirs(out_dir, exist_ok=True)
@@ -391,3 +414,9 @@ class ModernBrainTumorTrainer:
         except Exception as e:
             logger.warning("dashboard generation failed: %s", e)
         return json_path
+
+
+def batch_num_classes(model) -> int:
+    """The model's segmentation classes (its ``out_channels``, 4 when it
+    has none)."""
+    return getattr(model, "out_channels", 4)

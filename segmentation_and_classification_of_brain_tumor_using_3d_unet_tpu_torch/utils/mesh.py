@@ -1,7 +1,7 @@
 """Isosurface extraction without scikit-image (the port's copy of the JAX
-package's ``utils/mesh.py``: the smooth surface area the reports use and
-the smooth mesh the 3D picture draws; the blocky voxel-face mesher is
-left out, as nothing in the port calls it).
+package's ``utils/mesh.py``: the smooth surface area the reports use,
+the smooth mesh the 3D picture draws, and the blocky voxel-face mesher
+with its triangle-area sum).
 
 The reference leans on ``skimage.measure.marching_cubes`` for 3D tumor
 meshes and surface area (``utils/visualization.py:155-169``,
@@ -15,6 +15,50 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+
+
+# the corners of each exposed voxel face, by (axis, direction), in the
+# winding JAX's mesher emits
+_FACE_CORNERS = {
+    (0, +1): [(1, 0, 0), (1, 1, 0), (1, 1, 1), (1, 0, 1)],
+    (0, -1): [(0, 0, 0), (0, 0, 1), (0, 1, 1), (0, 1, 0)],
+    (1, +1): [(0, 1, 0), (0, 1, 1), (1, 1, 1), (1, 1, 0)],
+    (1, -1): [(0, 0, 0), (1, 0, 0), (1, 0, 1), (0, 0, 1)],
+    (2, +1): [(0, 0, 1), (1, 0, 1), (1, 1, 1), (0, 1, 1)],
+    (2, -1): [(0, 0, 0), (0, 1, 0), (1, 1, 0), (1, 0, 0)],
+}
+
+
+def voxel_surface_mesh(mask: np.ndarray
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+    """Binary mask -> (verts (V, 3) float32, faces (F, 3) int32): two
+    triangles per exposed voxel face, the vertices deduplicated on the
+    integer corner grid."""
+    m = np.asarray(mask).astype(bool)
+    empty = (np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int32))
+    if not m.any():
+        return empty
+    mp = np.pad(m, 1)
+    chunks = []
+    for (axis, d), corners in _FACE_CORNERS.items():
+        exposed = mp & ~np.roll(mp, -d, axis=axis)
+        pos = np.argwhere(exposed) - 1          # unpad
+        if len(pos):
+            chunks.append(pos[:, None, :] + np.asarray(corners)[None])
+    quads = np.concatenate(chunks, axis=0)      # (Q, 4, 3)
+    verts, inverse = np.unique(quads.reshape(-1, 3), axis=0,
+                               return_inverse=True)
+    qi = inverse.reshape(-1, 4)
+    faces = np.concatenate([qi[:, [0, 1, 2]], qi[:, [0, 2, 3]]], axis=0)
+    return verts.astype(np.float32), faces.astype(np.int32)
+
+
+def mesh_surface_area(verts: np.ndarray, faces: np.ndarray) -> float:
+    """Sum of the triangles' areas."""
+    if len(faces) == 0:
+        return 0.0
+    a, b, c = (verts[faces[:, i]] for i in range(3))
+    return float(0.5 * np.linalg.norm(np.cross(b - a, c - a), axis=1).sum())
 
 
 def surface_area_voxel(mask: np.ndarray,

@@ -1,0 +1,288 @@
+"""Two-rank gloo worlds for the port's multi-device tests
+(tests/test_torch_parallel*.py), and the work each rank does in them.
+
+This module imports no JAX: the test files (and tests/conftest.py) import
+JAX, and a spawned child imports only the module of its target. Each
+world rendezvouses through a file under the test's ``tmp_path`` (no
+port, so parallel pytest workers never collide), and every wait has a
+timeout: a rank that hangs or dies fails the test.
+"""
+
+from __future__ import annotations
+
+import multiprocessing as mp
+import queue
+import time
+import traceback
+import uuid
+
+import numpy as np
+import torch
+
+PORT = "segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch"
+
+
+def _entry(rank, world, rdv, fn_name, args, q):
+    torch.set_num_threads(2)
+    import torch.distributed as dist
+    from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.parallel.mesh import (
+        initialize_distributed)
+    try:
+        initialize_distributed(f"file://{rdv}", world, rank,
+                               backend="gloo", device="cpu")
+        q.put((rank, True, globals()[fn_name](rank, world, *args)))
+    except BaseException:
+        q.put((rank, False, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_world(fn_name: str, args: tuple, tmp_path, world: int = 2,
+              timeout: float = 150.0) -> list:
+    """``fn_name(rank, world, *args)`` on each rank of a gloo world of
+    CPU processes; the ranks' results in rank order."""
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    rdv = tmp_path / f"rdv_{uuid.uuid4().hex}"
+    procs = [ctx.Process(target=_entry,
+                         args=(r, world, str(rdv), fn_name, args, q))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results, deadline = {}, time.monotonic() + timeout
+    try:
+        while len(results) < world:
+            try:
+                rank, ok, out = q.get(timeout=1.0)
+            except queue.Empty:
+                codes = [p.exitcode for p in procs]
+                if any(c not in (None, 0) for c in codes):
+                    raise AssertionError(f"{fn_name}: a rank died "
+                                         f"(exit codes {codes})")
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"{fn_name}: no result within "
+                                         f"{timeout} s (exit codes {codes})")
+                continue
+            if not ok:
+                raise AssertionError(f"{fn_name} rank {rank}:\n{out}")
+            results[rank] = out
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+    assert all(p.exitcode == 0 for p in procs), [p.exitcode for p in procs]
+    return [results[r] for r in range(world)]
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+def _unet(state, **kw):
+    from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.models import (
+        UNet3D)
+    model = UNet3D(device="cpu", **kw)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    model.eval()
+    return model
+
+
+def _ndhwc_conv(w: torch.Tensor, padding):
+    """An NDHWC conv with a DHWIO kernel, f32."""
+    wn = w.permute(4, 3, 0, 1, 2).contiguous()
+
+    def conv(v):
+        y = torch.nn.functional.conv3d(v.permute(0, 4, 1, 2, 3), wn,
+                                       padding=padding)
+        return y.permute(0, 2, 3, 4, 1)
+    return conv
+
+
+# ---------------------------------------------------------------- worlds
+
+def spatial(rank, world, x, w):
+    """The halo exchange and the two sharded convs on this rank's D
+    slab of ``x`` over a (1, 2) mesh."""
+    from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.parallel import (
+        mesh as M, spatial as S)
+    m = M.create_mesh(1, 2)
+    slab = M.shard_batch(torch.from_numpy(x), m)
+    g = m.group("space")
+    wt = torch.from_numpy(w)
+    out = {"shape": dict(m.shape), "coords": m.coords,
+           "grid": m.devices.tolist(),
+           "constrained": tuple(S.constrain_spatial(
+               slab, m, depth=x.shape[1]).shape)}
+    for b in ("edge", "zero"):
+        for h in (1, 2):
+            out[f"{b}{h}"] = _np(S.halo_exchange_d(slab, h, g, b))
+    out["sharded"] = _np(S.sharded_conv3d(m, _ndhwc_conv(wt, 1))(slab))
+    out["zero_boundary"] = _np(S.zero_boundary_halo_conv(
+        m, _ndhwc_conv(wt, (0, 1, 1)))(slab))
+    return out
+
+
+def inference(rank, world, plain_state, ps2d_state, vols, vol):
+    """DP cohort segmentation (N = 5, padded) and window-parallel
+    sliding windows, plain and through the ps2d region."""
+    from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.inference.sliding_window import (
+        sliding_window_inference)
+    from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.parallel import (
+        create_mesh, segment_cohort, segment_cohort_whole,
+        sliding_window_inference_mp)
+    mesh = create_mesh()
+    plain = _unet(plain_state, features=(8, 16), compute_dtype="float32")
+    out = {"mesh": dict(mesh.shape)}
+    out["cohort"] = segment_cohort(plain, None, mesh, vols)
+    out["whole"] = segment_cohort_whole(plain, None, mesh, vols,
+                                        (16, 16, 16), batch_per_chip=2)
+    sw = dict(roi_size=(16, 16, 16), overlap=0.5, sw_batch_size=2)
+    v = torch.from_numpy(vol)
+    with torch.no_grad():
+        out["window"] = _np(sliding_window_inference_mp(v, plain, mesh,
+                                                        **sw))
+        ps2d = _unet(ps2d_state, features=(32, 64), ps2d_eval=True,
+                     ps2d_levels=2, compute_dtype="float32")
+        out["halo_levels"] = ps2d.halo_levels((16, 16, 16))
+        # the level-1 region's pool (K4's wrapper), counted
+        from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.models import (
+            unet3d)
+        pool, calls = unet3d.pool_into_halo, []
+        unet3d.pool_into_halo = lambda x: calls.append(1) or pool(x)
+        out["window_ps2d"] = _np(sliding_window_inference_mp(v, ps2d, mesh,
+                                                             **sw))
+        unet3d.pool_into_halo = pool
+        out["pools"] = len(calls)
+        out["window_ps2d_one"] = _np(sliding_window_inference(v, ps2d, **sw))
+    return out
+
+
+def _train_config():
+    from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch import (
+        config as C)
+    return C.Config(model=C.ModelConfig(features=(8, 16),
+                                        compute_dtype="float32",
+                                        remat=False, dropout_rate=0.0),
+                    use_tensorboard=False)
+
+
+def dp_train_step(model, batch, mesh=None, grad_accum=None,
+                  joint=False):
+    """One train step of ``model`` on ``batch`` (this rank's rows when
+    ``mesh``): its metrics, the gradients handed to the optimizer (by
+    parameter name), the new BatchNorm statistics and the parameters
+    after the update, as numpy."""
+    from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.train import (
+        create_train_state, make_joint_train_step, make_train_step)
+    cfg = _train_config()
+    state = create_train_state(model, cfg)
+    seen = {}
+    apply = state.apply_gradients
+
+    def capture(grads, batch_stats=None):
+        seen["grads"] = [g.detach().clone() for g in grads]
+        return apply(grads, batch_stats=batch_stats)
+    state.apply_gradients = capture
+    make = make_joint_train_step if joint else make_train_step
+    kw = {} if joint else {"grad_accum": grad_accum}
+    step = make(cfg, mesh=mesh, **kw)
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    _, metrics = step(state, tb, torch.Generator().manual_seed(0))
+    names = [n for n, _ in model.named_parameters()]
+    bn = model.unet.head_bn if joint else model.head_bn
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": {n: _np(g) for n, g in zip(names, seen["grads"])},
+            "bn": (_np(bn.mean), _np(bn.var)),
+            "params": {n: _np(p) for n, p in model.named_parameters()}}
+
+
+def dp_eval_step(model, batch, mesh=None):
+    from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.train import (
+        create_train_state, make_eval_step)
+    cfg = _train_config()
+    state = create_train_state(model, cfg)
+    step = make_eval_step(cfg, with_hausdorff=True, mesh=mesh)
+    m = step(state, {k: torch.from_numpy(v) for k, v in batch.items()})
+    return {k: _np(v) for k, v in m.items()}
+
+
+def joint_model(state):
+    from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.models import (
+        UNet3DWithClassifier)
+    model = UNet3DWithClassifier(features=(8, 16), device="cpu",
+                                 dropout_rate=0.0, compute_dtype="float32")
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    model.grade_dropout = 0.0
+    return model
+
+
+def training(rank, world, state, joint_state, batch):
+    """The train step (and with ``grad_accum=2``), the joint step and the
+    eval step on this rank's rows of ``batch`` over a data mesh."""
+    from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.parallel import (
+        create_mesh, shard_batch)
+    mesh = create_mesh()
+    local = shard_batch(batch, mesh)
+    kw = dict(features=(8, 16), compute_dtype="float32", dropout_rate=0.0)
+    return {
+        "rows": local["image"].shape[0],
+        "step": dp_train_step(_unet(state, **kw), local, mesh),
+        "accum": dp_train_step(_unet(state, **kw), local, mesh,
+                               grad_accum=2),
+        "joint": dp_train_step(joint_model(joint_state), local, mesh,
+                               joint=True),
+        "eval": dp_eval_step(_unet(state, **kw), local, mesh),
+    }
+
+
+def trainer_and_cli(rank, world, root, conf_dirs, cli_args):
+    """The trainer for one epoch over a data mesh on the cohort at
+    ``root``, then the predict CLI with ``--window_parallel`` and with
+    ``--data_parallel`` in the same world; which rank wrote what."""
+    from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch import (
+        config as C)
+    from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.data.pipeline import (
+        create_brats_data_loaders)
+    from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.inference import (
+        cli)
+    from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.models import (
+        UNet3D)
+    from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.parallel import (
+        batch_sharding, create_mesh)
+    from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.train import (
+        checkpoints, trainer as T)
+    mesh = create_mesh()
+    train, val = create_brats_data_loaders(
+        root, batch_size=2, num_workers=1, image_size=(16, 16, 16),
+        device="cpu", sharding=batch_sharding(mesh))
+    saves, writes = [], []
+    save = checkpoints.save_checkpoint
+
+    def counted_save(*a, **k):
+        saves.append(a[0])
+        return save(*a, **k)
+    checkpoints.save_checkpoint = counted_save
+    conf = C.Config(use_tensorboard=False, **conf_dirs)
+    trainer = T.ModernBrainTumorTrainer(
+        UNet3D(features=(8, 16), seed=0, device="cpu", dropout_rate=0.0,
+               compute_dtype="float32"), config=conf,
+        mesh=mesh, experiment_name="dp")
+    hist = trainer.train(train, val, num_epochs=1)
+    write = cli._write_outputs
+
+    def counted_write(*a, **k):
+        writes.append(a[1]["mask"])
+        return write(*a, **k)
+    cli._write_outputs = counted_write
+    outs = {}
+    for flag in ("--window_parallel", "--data_parallel"):
+        mode = "cropped" if flag == "--window_parallel" else "whole_volume"
+        outs[flag] = cli.predict_main(
+            cli_args + [flag, "--mode", mode, "--output",
+                        f"{conf_dirs['results_dir']}/pred{flag}"])
+    return {"history": hist, "step": trainer.state.step, "saves": saves,
+            "writes": writes, "summaries": outs,
+            "rows": [int(b["image"].shape[0]) for b in train]}

@@ -17,8 +17,10 @@ package's:
   predictor's tests hold under the margin contract
   (tests/test_torch_predictor.py);
 * ``--brats_labels``, the input affine carried into the outputs, JAX's
-  argument checks for the parallel flags and then ``NotImplementedError``,
-  and ``--device`` (default cuda) raising without a card.
+  argument checks for the parallel flags and then a run of each flag in
+  one process (its device count in the index; held to JAX's CLI in
+  tests/test_torch_parallel_cli.py), and ``--device`` (default cuda)
+  raising without a card.
 """
 
 import json
@@ -308,14 +310,20 @@ def test_brats_labels_and_affine(cohort, tmp_path):
     (["--window_parallel", "--data_parallel"], SystemExit),
     (["--data_parallel", "--mode", "cropped"], SystemExit),
     (["--data_parallel", "--mode", "whole_volume", "--tta"], SystemExit),
-    (["--data_parallel", "--mode", "whole_volume"], NotImplementedError),
-    (["--window_parallel"], NotImplementedError),
+    (["--data_parallel", "--mode", "whole_volume"], None),
+    (["--window_parallel"], None),
 ])
 def test_parallel_flags(cohort, tmp_path, flags, exc):
+    argv = (["--input", str(cohort / "case_a"), "--output",
+             str(tmp_path / "x"), "--checkpoint", "none", "--device",
+             "cpu"] + TINY + flags)
+    if exc is None:         # runs, in one process
+        T.predict_main(argv)
+        index = json.load(open(tmp_path / "x" / "predictions.json"))
+        assert index[flags[0].lstrip("-") + "_devices"] == 1
+        return
     with pytest.raises(exc):
-        T.predict_main(["--input", str(cohort / "case_a"), "--output",
-                        str(tmp_path / "x"), "--checkpoint", "none",
-                        "--device", "cpu"] + TINY + flags)
+        T.predict_main(argv)
 
 
 def test_device_defaults_to_the_card(cohort, tmp_path):

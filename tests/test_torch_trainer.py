@@ -175,7 +175,7 @@ def test_cli_float32_on_the_cpu(tmp_path, monkeypatch):
     assert np.isfinite(hist["train_loss"][0])
     assert os.path.isdir(tmp_path / "results" / "models" / "best_cli")
     with pytest.raises(NotImplementedError):
-        train_main(["--mesh_data", "2", "--device", "cpu"])
+        train_main(["--mesh_space", "2", "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             train_main(["--epochs", "1"])
