@@ -170,6 +170,25 @@ Phase 14, after them all:
      rank's peak memory and the gloo all-reduce ms of the gradient
      buckets printed. A rank that fails, dies or hangs fails
      the phase;
+  16. spatial — the spatially sharded normal path (mesh data 1 x space
+     2, two spawned processes sharing the card over gloo as in phase
+     parallel (b)): the full-width model at Config() defaults
+     (ps2d_train off, remat on, dropout 0.2 from the same seeded
+     generator), each rank the 64-plane D slab of a batch 2 of 4x128^3.
+     One process takes the same steps first, on the same batch, weights
+     and generator, and is freed: three bf16 steps (the step wall the
+     median of steps 2-3), the first's loss within 1e-2 relative and its
+     least gradient-leaf cosine >= 0.99; a fourth step with each halo
+     exchange, in-graph all-reduce (GroupNorm moments, the gates'
+     pooling, the head BatchNorm), loss reduction and gradient
+     reduction timed on the host clock between synchronisations; one
+     f32 step (full_f32), loss within 1e-5 relative, least cosine >=
+     0.99999, parameters bit-identical across the ranks; the eval
+     forward of 4 windows of 128^3 through ``make_spatial_apply``, f32
+     logits within atol 1e-4, rtol 1e-3 of one process's, bf16 under
+     the ps2d logit bounds; no kernel launched. It prints each rank's
+     step walls, the collectives' ms and each rank's peak memory
+     against one process's;
 
 It prints the per-kernel JSON line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Any failure, or a run past
@@ -566,6 +585,375 @@ def run_ranks(fn, world: int, tmp: str, timeout: float) -> list:
     check(all(p.exitcode == 0 for p in procs),
           f"rank exit codes {[p.exitcode for p in procs]}")
     return [results[r] for r in range(world)]
+
+
+def _spatial_rank(rank: int, world: int, rdv: str, tmp: str, q) -> None:
+    """One rank of phase spatial's two-process world on the one card
+    (spawned; gloo as ``_parallel_rank``): mesh data 1 x space 2, this
+    rank's D slab of the batch the parent saved under ``tmp``, held to
+    the parent's one-process results saved there. Puts (rank, ok,
+    result)."""
+    import hashlib
+    import os
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")   # one host
+    import torch
+    import torch.distributed as dist
+    try:
+        from importlib import import_module
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        M = import_module(PKG + ".parallel.mesh")
+        SP = import_module(PKG + ".parallel.spatial")
+        L = import_module(PKG + ".train.loop")
+        T = import_module(PKG + ".ops.ps2d")
+        train_mod = import_module(PKG + ".train")
+        cfg = import_module(PKG + ".config")
+        dev = M.initialize_distributed(
+            f"file://{rdv}", world, rank, backend="gloo",
+            device=json.load(open(os.path.join(tmp, "spatial.json")))[
+                "device"])
+        mesh = M.create_mesh(1, 2)
+        sh = M.batch_sharding(mesh)
+        b = np.load(os.path.join(tmp, "batch.npz"))
+        batch = {k: torch.from_numpy(np.ascontiguousarray(sh.shard(b[k])))
+                 .to(dev) for k in ("image", "mask")}
+        counted = (T.conv3d_halo, T.up_k2s2_into_halo, T.pack_halo,
+                   T.pool_into_halo)
+        for k in counted:
+            k.launches = 0
+        out = {"mesh": dict(mesh.shape), "slab": tuple(batch["image"].shape)}
+        tconf = cfg.Config()
+
+        def sha(model):
+            h = hashlib.sha256()
+            for p in model.parameters():
+                h.update(p.detach().float().cpu().numpy().tobytes())
+            return h.hexdigest()
+
+        def train(dtype, steps):
+            """``steps`` steps from the seeded weights; the first's loss
+            and gradients, every step's wall, the parameters' hash."""
+            model = spatial_model(dtype, dev)
+            state = train_mod.create_train_state(model, tconf,
+                                                 steps_per_epoch=10)
+            seen = {}
+            apply = state.apply_gradients
+
+            def capture(grads, batch_stats=None):
+                if "grads" not in seen:      # the first step's
+                    seen["grads"] = [g.detach().cpu() for g in grads]
+                return apply(grads, batch_stats=batch_stats)
+            state.apply_gradients = capture
+            step = train_mod.make_train_step(tconf, mesh=mesh)
+            gen = torch.Generator(device=dev).manual_seed(1)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            walls, losses = [], []
+            for _ in range(steps):
+                dist.barrier()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                _, m = step(state, batch, gen)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t)
+                losses.append(float(m["loss"]))
+            names = [n for n, _ in model.named_parameters()]
+            return (model, state, step, gen, losses, walls,
+                    dict(zip(names, seen["grads"])))
+
+        def against(grads, name):
+            """(least leaf cosine of ``grads`` against the parent's, the
+            leaves compared, all finite, that leaf's name)."""
+            ref = torch.load(os.path.join(tmp, name))
+            cmin, n, ok, least = 1.0, 0, True, None
+            for k, r in ref.items():
+                a, r = grads[k].float().reshape(-1), r.float().reshape(-1)
+                ok &= bool(torch.isfinite(a).all())
+                if k == "head_conv.bias":     # zero in exact arithmetic
+                    ok &= bool(a.norm() <= 1e-2 * grads[
+                        "head_conv.kernel"].float().norm())
+                    continue
+                if a.numel() < 8 or r.norm() < 1e-6:
+                    continue
+                c = float(a @ r) / float(a.norm() * r.norm())
+                if c < cmin:
+                    cmin, least = c, k
+                n += 1
+            return cmin, n, ok, least
+
+        # 1. three bf16 steps, then one with its collectives timed
+        model, state, step, gen, losses, walls, grads = train("bfloat16", 3)
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        out["bf16"] = {"losses": losses, "walls": walls,
+                       "cos": against(grads, "sp_bf16_grads.pt")}
+        del grads
+        tim = {}
+
+        def timed(key, fn):
+            def wrapper(*a, **k):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                r = fn(*a, **k)
+                torch.cuda.synchronize()
+                ms, n = tim.get(key, (0.0, 0))
+                tim[key] = (ms + 1e3 * (time.perf_counter() - t), n + 1)
+                return r
+            return wrapper
+        saved = (SP._swap, M._AllReduceSum.forward, M._AllReduceSum.backward,
+                 M._ReplicaSum.forward, L.mean_over)
+        SP._swap = timed("halo", SP._swap)
+        M._AllReduceSum.forward = staticmethod(timed("norm", saved[1]))
+        M._AllReduceSum.backward = staticmethod(timed("norm", saved[2]))
+        M._ReplicaSum.forward = staticmethod(timed("loss", saved[3]))
+        L.mean_over = timed("grads", saved[4])
+        try:
+            dist.barrier()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step(state, batch, gen)
+            torch.cuda.synchronize()
+            out["timed_step_s"] = time.perf_counter() - t
+        finally:
+            (SP._swap, fwd, bwd, rfwd, L.mean_over) = saved
+            M._AllReduceSum.forward = staticmethod(fwd)
+            M._AllReduceSum.backward = staticmethod(bwd)
+            M._ReplicaSum.forward = staticmethod(rfwd)
+        out["collectives"] = tim
+        out["bf16"]["sha"] = sha(model)
+        del model, state, step
+        torch.cuda.empty_cache()
+        # 2. one f32 step
+        model, state, step, gen, losses, walls, grads = train("float32", 1)
+        out["f32"] = {"losses": losses, "walls": walls, "sha": sha(model),
+                      "cos": against(grads, "sp_f32_grads.pt")}
+        del model, state, step, grads
+        torch.cuda.empty_cache()
+        # 3. the eval forward of 4 windows through the spatial apply
+        wins = torch.from_numpy(np.load(os.path.join(tmp, "windows.npy"))
+                                ).to(dev)
+        out["eval"] = {}
+        for dtype in ("float32", "bfloat16"):
+            model = spatial_model(dtype, dev).eval()
+            apply = SP.make_spatial_apply(model, mesh)
+            with torch.no_grad():
+                dist.barrier()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                got = apply(wins)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+            ref = torch.from_numpy(np.load(os.path.join(
+                tmp, f"sp_logits_{dtype}.npy"))).to(dev)
+            d = (got - ref).abs()
+            scale = max(ref.abs().max().item(), 1.0)
+            top2 = ref.topk(2, dim=-1).values
+            margin = top2[..., 0] - top2[..., 1]
+            differ = got.argmax(-1) != ref.argmax(-1)
+            out["eval"][dtype] = {
+                "wall_s": wall, "max": d.max().item(),
+                "mean": d.mean().item(), "scale": scale,
+                "within": bool((d <= 1e-4 + 1e-3 * ref.abs()).all()),
+                "flips": int(differ.sum()),
+                "wide": int((differ & (margin > 2 * d.max())).sum())}
+            del model, got, ref
+        out["launches"] = {k.__name__: k.launches for k in counted}
+        q.put((rank, True, out))
+    except BaseException:
+        q.put((rank, False, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def spatial_model(dtype, dev):
+    """The spatial phase's model: ``Config()``'s at full width (remat on,
+    dropout 0.2), the ps2d region off, weights from seed 0."""
+    from importlib import import_module
+    cfg = import_module(PKG + ".config")
+    models = import_module(PKG + ".models")
+    mc = cfg.Config().model
+    check(mc.features == (32, 64, 128, 256, 512) and mc.remat,
+          "not the full-width remat model")
+    return models.UNet3D(features=mc.features, dropout_rate=mc.dropout_rate,
+                         remat=mc.remat, compute_dtype=dtype, seed=0,
+                         device=dev)
+
+
+# phase spatial's device and window size (the batch is 2 x SIZE^3, each
+# rank a SIZE / 2-plane slab)
+SPATIAL_DEVICE, SPATIAL_SIZE = "cuda:0", 128
+
+
+def spatial_phase() -> dict:
+    """Phase spatial (see the module's docstring): one process's results
+    first, saved for the ranks, then the two ranks; the gates."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    from importlib import import_module
+    train_mod = import_module(PKG + ".train")
+    cfg = import_module(PKG + ".config")
+    dev = torch.device(SPATIAL_DEVICE)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_spatial_")
+    out = {}
+    try:
+        S = SPATIAL_SIZE
+        json.dump({"device": SPATIAL_DEVICE},
+                  open(os.path.join(tmp, "spatial.json"), "w"))
+        gen = torch.Generator(device=dev).manual_seed(5)
+        image = torch.randn((2, S, S, S, 4), device=dev, generator=gen)
+        mask = (torch.rand((2, S, S, S), device=dev, generator=gen)
+                < 0.2).long() * 2
+        np.savez(os.path.join(tmp, "batch.npz"), image=image.cpu().numpy(),
+                 mask=mask.cpu().numpy())
+        wins = torch.randn((4, S, S, S, 4), device=dev, generator=gen)
+        np.save(os.path.join(tmp, "windows.npy"), wins.cpu().numpy())
+        tconf = cfg.Config()
+        ref = {}
+        for dtype, steps in (("bfloat16", 3), ("float32", 1)):
+            model = spatial_model(dtype, dev)
+            state = train_mod.create_train_state(model, tconf,
+                                                 steps_per_epoch=10)
+            seen = {}
+            apply = state.apply_gradients
+
+            def capture(grads, batch_stats=None):
+                if "grads" not in seen:      # the first step's
+                    seen["grads"] = [g.detach().cpu() for g in grads]
+                return apply(grads, batch_stats=batch_stats)
+            state.apply_gradients = capture
+            step = train_mod.make_train_step(tconf)
+            g = torch.Generator(device=dev).manual_seed(1)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            walls, losses = [], []
+            for _ in range(steps):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                _, m = step(state, {"image": image, "mask": mask}, g)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t)
+                losses.append(float(m["loss"]))
+            ref[dtype] = {"losses": losses, "walls": walls,
+                          "peak_bytes": torch.cuda.max_memory_allocated()}
+            short = {"bfloat16": "bf16", "float32": "f32"}[dtype]
+            torch.save({n: gr for (n, _), gr in zip(model.named_parameters(),
+                                                    seen["grads"])},
+                       os.path.join(tmp, f"sp_{short}_grads.pt"))
+            del model, state, step, seen
+            torch.cuda.empty_cache()
+        for dtype in ("float32", "bfloat16"):
+            model = spatial_model(dtype, dev).eval()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits = model(wins)
+            torch.cuda.synchronize()
+            ref[f"eval_{dtype}_s"] = time.perf_counter() - t
+            np.save(os.path.join(tmp, f"sp_logits_{dtype}.npy"),
+                    logits.cpu().numpy())
+            del model, logits
+        del image, mask, wins
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()     # the card to the two ranks
+
+        t = time.perf_counter()
+        ranks = run_ranks(_spatial_rank, 2, tmp, timeout=600)
+        ranks_s = time.perf_counter() - t
+        for r, o in enumerate(ranks):
+            check(o["mesh"] == {"data": 1, "space": 2}
+                  and o["slab"] == (2, S // 2, S, S, 4),
+                  f"rank {r}: mesh {o['mesh']}, slab {o['slab']}")
+            check(not any(o["launches"].values()),
+                  f"rank {r} launched kernels: {o['launches']}")
+        b0, b1 = ranks[0]["bf16"], ranks[1]["bf16"]
+        rl = ref["bfloat16"]["losses"][0]
+        cmin = min(o["bf16"]["cos"][0] for o in ranks)
+        print(f"spatial bf16 train step (Config() defaults, remat, dropout "
+              f"0.2, full width), data 1 x space 2 on one card (2 x 64-plane"
+              f" slabs of a batch 2 of 4x128^3) vs one process: first loss "
+              f"{[o['bf16']['losses'][0] for o in ranks]} vs {rl:.6f}, "
+              f"losses {b0['losses']} vs {ref['bfloat16']['losses']}, least "
+              f"leaf cosine {cmin:.6f} over {b0['cos'][1]} leaves "
+              f"({b0['cos'][3]}), "
+              f"parameters after 4 steps "
+              f"{'bit-identical' if b0['sha'] == b1['sha'] else 'DIFFER'} "
+              f"across ranks")
+        check(all(abs(o["bf16"]["losses"][0] - rl) <= 1e-2 * abs(rl)
+                  and o["bf16"]["cos"][2] for o in ranks),
+              f"bf16 spatial loss {[o['bf16']['losses'] for o in ranks]} "
+              f"vs {rl}")
+        check(cmin >= 0.99, f"bf16 spatial gradient cosine {cmin}")
+        check(b0["sha"] == b1["sha"], "bf16 parameters differ across ranks")
+        rl32 = ref["float32"]["losses"][0]
+        c32 = min(o["f32"]["cos"][0] for o in ranks)
+        same = ranks[0]["f32"]["sha"] == ranks[1]["f32"]["sha"]
+        print(f"spatial f32 train step (full_f32): loss "
+              f"{[o['f32']['losses'][0] for o in ranks]} vs {rl32:.7f}, "
+              f"least leaf cosine {c32:.7f} "
+              f"({ranks[0]['f32']['cos'][3]}), parameters "
+              f"{'bit-identical' if same else 'DIFFER'} across ranks; wall "
+              f"{[round(o['f32']['walls'][0], 4) for o in ranks]} s vs "
+              f"{ref['float32']['walls'][0]:.4f} s")
+        check(all(abs(o["f32"]["losses"][0] - rl32) <= 1e-5 * abs(rl32)
+                  and o["f32"]["cos"][2] for o in ranks),
+              f"f32 spatial loss {[o['f32']['losses'] for o in ranks]} vs "
+              f"{rl32}")
+        check(c32 >= 0.99999, f"f32 spatial gradient cosine {c32}")
+        check(same, "f32 parameters differ across ranks")
+        for dtype in ("float32", "bfloat16"):
+            e = [o["eval"][dtype] for o in ranks]
+            print(f"spatial eval forward ({dtype}, 4 windows of 128^3 "
+                  f"through make_spatial_apply) vs one process: max |d| "
+                  f"{[round(x['max'], 7) for x in e]}, mean |d| "
+                  f"{[x['mean'] for x in e]}, scale {e[0]['scale']:.4f}, "
+                  f"label flips {[x['flips'] for x in e]}, at margin > 2x "
+                  f"max drift {[x['wide'] for x in e]}; wall "
+                  f"{[round(x['wall_s'], 4) for x in e]} s vs "
+                  f"{ref[f'eval_{dtype}_s']:.4f} s")
+            for x in e:
+                if dtype == "float32":
+                    check(x["within"], f"f32 spatial logits off: {x}")
+                else:
+                    check(x["max"] <= 2 ** -5 * x["scale"]
+                          and x["mean"] <= 2 ** -9 * x["scale"]
+                          and x["wide"] == 0,
+                          f"bf16 spatial logits outside the ps2d bounds: "
+                          f"{x}")
+        steady = [float(np.median(o["bf16"]["walls"][1:3])) for o in ranks]
+        one = float(np.median(ref["bfloat16"]["walls"][1:3]))
+        print(f"spatial step wall (host clock, s; median of steps 2-3): "
+              f"ranks {[round(v, 4) for v in steady]} (all "
+              f"{[[round(w, 4) for w in o['bf16']['walls']] for o in ranks]})"
+              f" vs one process {one:.4f} "
+              f"({[round(w, 4) for w in ref['bfloat16']['walls']]}); the "
+              f"instrumented 4th step {[round(o['timed_step_s'], 4) for o in ranks]} s")
+        for r, o in enumerate(ranks):
+            c = o["collectives"]
+            print(f"spatial rank {r} collectives in one bf16 step (host "
+                  f"clock, ms, count): halo exchanges "
+                  f"{c.get('halo', (0, 0))[0]:.2f} ({c.get('halo', (0, 0))[1]}),"
+                  f" GroupNorm/pool/BatchNorm all-reduces "
+                  f"{c.get('norm', (0, 0))[0]:.2f} ({c.get('norm', (0, 0))[1]}),"
+                  f" loss sums {c.get('loss', (0, 0))[0]:.2f} "
+                  f"({c.get('loss', (0, 0))[1]}), gradient reduction "
+                  f"{c.get('grads', (0, 0))[0]:.2f} ({c.get('grads', (0, 0))[1]})"
+                  f"; peak memory {o['peak_bytes'] / 2 ** 30:.2f} GiB vs one "
+                  f"process {ref['bfloat16']['peak_bytes'] / 2 ** 30:.2f} GiB"
+                  f" ({o['peak_bytes'] / ref['bfloat16']['peak_bytes']:.3f}x)")
+        print(f"spatial: the two ranks' processes {ranks_s:.2f} s in all")
+        out = {"step_s": steady, "ref_step_s": one,
+               "walls": [o["bf16"]["walls"] for o in ranks],
+               "ref_walls": ref["bfloat16"]["walls"],
+               "peak_bytes": [o["peak_bytes"] for o in ranks],
+               "ref_peak_bytes": ref["bfloat16"]["peak_bytes"],
+               "collectives": [o["collectives"] for o in ranks],
+               "bf16_cos": cmin, "f32_cos": c32,
+               "eval": [o["eval"] for o in ranks]}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
 
 
 def main() -> int:
@@ -3340,6 +3728,7 @@ def main() -> int:
             shutil.rmtree(tmp, ignore_errors=True)
             shutil.rmtree(cli_tmp, ignore_errors=True)
     run.phase("parallel", parallel)
+    report["spatial"] = run.phase("spatial", spatial_phase)
 
     # launches per path: the server requests' (K1-K4), the five
     # train steps' (K1, forwards and K6's data gradients), the
@@ -3429,6 +3818,12 @@ def main() -> int:
           f"{pa['train']['ref_step2_s']:.4f} s, "
           f"gradient all-reduce (gloo) "
           f"{[round(min(v), 2) for v in pa['train']['allreduce_ms']]} ms")
+    sp = report["spatial"]
+    print(f"spatial (full width, data 1 x space 2 on one card): bf16 step "
+          f"{[round(v, 4) for v in sp['step_s']]} s a rank against "
+          f"{sp['ref_step_s']:.4f} s one process; peak "
+          f"{[round(v / 2 ** 30, 2) for v in sp['peak_bytes']]} GiB against "
+          f"{sp['ref_peak_bytes'] / 2 ** 30:.2f} GiB")
     print(f"total {time.perf_counter() - run.t0:.2f} s")
     print(json.dumps({"kernels": kernels_json}))
     print(smi)

@@ -18,7 +18,11 @@ With a ``sharding`` (``parallel.mesh.batch_sharding``, data-parallel
 training) every rank draws the same global batches and keeps its rows of
 each: only those are decoded, normalised, copied and augmented, and the
 other rows' augmentation draws are taken and dropped, so that each row
-is what one process would give it.
+is what one process would give it. When the mesh's ``space`` axis is
+longer than 1, each rank then keeps its D slab of its rows: the rows are
+augmented whole (a flip along D, the noise field and the gamma curve's
+range are the whole sample's), with the same draws on every rank of a
+``space`` group, and sliced after.
 """
 
 from __future__ import annotations
@@ -62,10 +66,6 @@ class DeviceDataLoader:
                  norm_cache_size: int = 64,
                  patch_size: Optional[Tuple[int, int, int]] = None,
                  fg_patch_prob: float = 0.5, sharding=None):
-        if sharding is not None and sharding.mesh.shape.get("space", 1) > 1:
-            raise NotImplementedError(
-                "a space-sharded batch (mesh space > 1) comes with the "
-                "spatial slice; shard the data axis only")
         self.sharding = sharding
         self.dataset = dataset
         self.batch_size = batch_size
@@ -229,7 +229,7 @@ class DeviceDataLoader:
         """The batch, usable on the current stream: the stream waits for
         its copy, and the copy's memory is marked in use there so the
         allocator does not hand it out again before that stream is done
-        with it; then the augmentation."""
+        with it; then the augmentation, and this rank's D slab."""
         if ev is not None:
             stream = torch.cuda.current_stream(self.device)
             stream.wait_event(ev[1])
@@ -237,8 +237,12 @@ class DeviceDataLoader:
                 t.record_stream(stream)
             self._events.append(ev)
         if self.augment:
-            return augment_batch(dev["image"], dev["mask"], generator,
-                                 self.aug_cfg, rows, total)
+            dev = augment_batch(dev["image"], dev["mask"], generator,
+                                self.aug_cfg, rows, total)
+        if self.sharding is not None and self.sharding.mesh.shape.get(
+                "space", 1) > 1:
+            dev = {k: self.sharding.slab(v).contiguous()
+                   for k, v in dev.items()}
         return dev
 
     def _rows(self, indices) -> slice:

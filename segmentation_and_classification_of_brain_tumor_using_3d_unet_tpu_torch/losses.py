@@ -5,6 +5,14 @@ computes in float32), targets integer ``(B, D, H, W)``. Every term
 reduces as a per-sample mean, so a loss over microbatches averages to
 the loss over their batch (train/loop.py's ``grad_accum``).
 
+``combined_loss`` and ``deep_supervision_loss`` take a ``group`` (the
+``space`` group of a mesh): the logits and targets are then this rank's
+D slabs, and the Dice sums, the cross-entropy and focal sums and the
+voxel count are summed over the group by ``parallel.mesh.replica_sum``,
+so every rank holds the whole volume's loss, and each rank's backward of
+it gives that rank's share of the gradient (summed over the group by the
+train step).
+
   * ``combined_loss`` — the trainer criterion, 0.5 dice + 0.3 CE + 0.2
     focal, all three from ONE log-softmax;
   * ``combined_loss3d`` — 0.5 dice + 0.3 focal(0.25, 2) + 0.2 boundary,
@@ -68,19 +76,30 @@ def focal_loss(logits: torch.Tensor, targets: torch.Tensor,
 def combined_loss(logits: torch.Tensor, targets: torch.Tensor,
                   weights: Sequence[float] = (0.5, 0.3, 0.2),
                   focal_alpha: float = 1.0,
-                  focal_gamma: float = 2.0) -> torch.Tensor:
+                  focal_gamma: float = 2.0, group=None) -> torch.Tensor:
     """w0 * dice + w1 * CE + w2 * focal from one log-softmax: the dice
-    probabilities are exp(logp), the focal term reuses the CE map."""
+    probabilities are exp(logp), the focal term reuses the CE map.
+    ``group``: over D slabs (the module's docstring)."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     probs = torch.exp(logp)
     onehot = _one_hot(targets, logits.shape[-1])
     inter = (probs * onehot).sum(SPATIAL)
     union = probs.sum(SPATIAL) + onehot.sum(SPATIAL)
-    dice = 1.0 - ((2.0 * inter + 1e-6) / (union + 1e-6)).mean()
     ce_map = _ce_map(logp, onehot)
-    ce = ce_map.mean()
     pt = torch.exp(-ce_map)
-    focal = (focal_alpha * (1.0 - pt) ** focal_gamma * ce_map).mean()
+    focal_map = focal_alpha * (1.0 - pt) ** focal_gamma * ce_map
+    if group is None:
+        ce, focal = ce_map.mean(), focal_map.mean()
+    else:
+        from .parallel.mesh import replica_sum
+        n = inter.numel()
+        count = torch.full((1,), float(ce_map.numel()), device=ce_map.device)
+        s = replica_sum(torch.cat([inter.reshape(-1), union.reshape(-1),
+                                   ce_map.sum()[None], focal_map.sum()[None],
+                                   count]), group)
+        inter, union = s[:n].view_as(inter), s[n:2 * n].view_as(union)
+        ce, focal = s[2 * n] / s[-1], s[2 * n + 1] / s[-1]
+    dice = 1.0 - ((2.0 * inter + 1e-6) / (union + 1e-6)).mean()
     return weights[0] * dice + weights[1] * ce + weights[2] * focal
 
 
@@ -140,7 +159,11 @@ def deep_supervision_loss(logits: torch.Tensor, deep_logits,
     deep head i's; heads past the weights get none (the fourth head of
     a five-level net is computed but unweighted). A head whose spatial
     shape is not the targets' is held against the targets
-    nearest-resized to it."""
+    nearest-resized to it. On D slabs (``loss_fn`` reducing over a
+    ``space`` group) the slab's targets are resized: a halving resize
+    picks, for each output plane, a plane of its own pair, so the
+    resized slab is the slab of the resized targets while every slab's
+    depth is even."""
     total = weights[0] * loss_fn(logits, targets)
     for i, d in enumerate(deep_logits):
         if i + 1 >= len(weights):

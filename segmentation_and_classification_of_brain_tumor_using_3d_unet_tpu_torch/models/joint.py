@@ -5,7 +5,9 @@ predicted tumour burden; ``joint_loss`` and ``grade_from_volume``.
 
 The trunk runs the normal path, as the JAX joint model's does (it sets
 no ps2d flag); ``compute_dtype`` is the trunk's and the head's (JAX's
-``dtype``).
+``dtype``). With a ``space_group`` the trunk runs on this rank's D slab
+and the head's pooling and burden features are the whole volume's, the
+same on every rank of the group.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from ..device import resolve_device
 from ..ops.conv import BF16, set_compute_dtype
 from ..ops.dropout import dropout
 from ..ops.pool import global_avg_pool
+from ..parallel.mesh import all_reduce_
 from .classifier import Dense
 from .unet3d import UNet3D
 
@@ -50,29 +53,44 @@ class UNet3DWithClassifier(nn.Module):
         self.to(dev)
 
     @torch.no_grad()
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        logits, bottleneck = self.unet.forward_with_bottleneck(x)
-        grade = self._grade(logits, bottleneck)
+    def forward(self, x: torch.Tensor, space_group=None
+                ) -> Dict[str, torch.Tensor]:
+        logits, bottleneck = self.unet.forward_with_bottleneck(x,
+                                                               space_group)
+        grade = self._grade(logits, bottleneck, space_group=space_group)
         return {"logits": logits, "grade_logits": grade}
 
     def forward_train(self, x: torch.Tensor, generator,
-                      batch_stats=None, bn_group=None
+                      batch_stats=None, bn_group=None, space_group=None
                       ) -> Dict[str, torch.Tensor]:
-        out = self.unet.forward_train(x, generator, batch_stats, bn_group)
+        out = self.unet.forward_train(x, generator, batch_stats, bn_group,
+                                      space_group)
         # the burden features read the logits without their gradient
         # (JAX stop_gradient): grade-CE reaches the trunk through the
         # pooled bottleneck only
         out["grade_logits"] = self._grade(out["logits"].detach(),
-                                          out["bottleneck"], True, generator)
+                                          out["bottleneck"], True, generator,
+                                          space_group)
         return out
 
-    def _grade(self, logits, bottleneck, train=False, generator=None):
+    def _grade(self, logits, bottleneck, train=False, generator=None,
+               space_group=None):
         """Grade logits f32; at train, dropout on the hidden layer."""
-        h = global_avg_pool(bottleneck).reshape(logits.shape[0], -1)
+        h = global_avg_pool(bottleneck, space_group).reshape(
+            logits.shape[0], -1)
         probs = torch.softmax(logits, dim=-1)
-        burden = probs[..., 1:].mean((1, 2, 3))                   # (B, C-1)
         # foreground fraction of the trunk's own argmax mask
-        hard = (logits.argmax(-1) > 0).float().mean((1, 2, 3))[:, None]
+        fg = (logits.argmax(-1) > 0).float()
+        if space_group is None:
+            burden = probs[..., 1:].mean((1, 2, 3))               # (B, C-1)
+            hard = fg.mean((1, 2, 3))[:, None]
+        else:
+            s = torch.cat([probs[..., 1:].sum((1, 2, 3)),
+                           fg.sum((1, 2, 3))[:, None]], dim=-1)
+            count = float(fg[0].numel()
+                          * torch.distributed.get_world_size(space_group))
+            s = all_reduce_(s, space_group) / count
+            burden, hard = s[:, :-1], s[:, -1:]
         feats = torch.log(torch.cat([burden, hard], dim=-1) + 1e-6)
         h = torch.cat([h, feats.to(h.dtype)], dim=-1)
         h = torch.relu(self.grade_fc1(h))

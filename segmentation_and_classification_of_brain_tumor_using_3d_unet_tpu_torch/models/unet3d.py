@@ -29,6 +29,15 @@ conv2 and the dec0 stage's two convs; the glue between them stays plain
 differentiable ops (no eval-only folds), as in JAX. Both regions run in
 the compute dtype, on the kernels' bf16 or f32 forms, as JAX's kernels
 compute in their input's dtype.
+
+With a ``space_group`` (the ``space`` axis of a mesh, JAX's GSPMD
+partition of D) every forward runs the normal path on this rank's D slab
+of each activation: every 3x3x3 conv on the slab extended by one plane
+of each neighbour (``ops/conv.py::conv3d_slab``), every GroupNorm's
+statistics and the gates' pooling summed over the group; the transposed
+convs, the pools and the 1x1 convs need no neighbour while each slab's
+depth is even at every level. The train step passes the whole mesh's
+group as ``bn_group``.
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
@@ -63,9 +73,11 @@ class GroupNorm(nn.Module):
         self.scale = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x):
-        """The normal path (JAX ``group_norm``)."""
-        return group_norm(x, self.scale, self.bias, self.num_groups, self.eps)
+    def forward(self, x, space_group=None):
+        """The normal path (JAX ``group_norm``), on a D slab with
+        ``space_group``."""
+        return group_norm(x, self.scale, self.bias, self.num_groups,
+                          self.eps, space_group)
 
     def s2d(self, x):
         """The arithmetic of the JAX ``group_norm_s2d``."""
@@ -126,12 +138,13 @@ class DoubleConv3D(nn.Module):
                                 generator=generator)
             self.gn_proj = GroupNorm(out_ch, 8)
 
-    def forward(self, x):
-        out = torch.relu(self.gn1(self.conv1(x)))
-        out = torch.relu(self.gn2(self.conv2(out)))
+    def forward(self, x, space_group=None):
+        g = space_group
+        out = torch.relu(self.gn1(self.conv1(x, g), g))
+        out = torch.relu(self.gn2(self.conv2(out, g), g))
         if self.in_ch == self.out_ch:
             return out + x
-        return out + self.gn_proj(self.proj(x))
+        return out + self.gn_proj(self.proj(x), g)
 
     def forward_entry(self, x):
         """The region's entry block (enc0; JAX ``_ps2d_entry``): conv1
@@ -218,13 +231,14 @@ class AttentionGate3D(nn.Module):
     def _se(self, pooled):
         return torch.sigmoid(self.se_up(torch.relu(self.se_down(pooled))))
 
-    def forward(self, g, x):
-        g1 = self.gn_g(self.w_g(g))
-        x1 = self.gn_x(self.w_x(x))
+    def forward(self, g, x, space_group=None):
+        sg = space_group
+        g1 = self.gn_g(self.w_g(g), sg)
+        x1 = self.gn_x(self.w_x(x), sg)
         if g1.shape[1:4] != x1.shape[1:4]:
             g1 = resize_trilinear(g1, x1.shape[1:4])
-        psi = torch.sigmoid(self.gn_psi(self.psi(torch.relu(g1 + x1))))
-        return x * psi * self._se(global_avg_pool(x))
+        psi = torch.sigmoid(self.gn_psi(self.psi(torch.relu(g1 + x1)), sg))
+        return x * psi * self._se(global_avg_pool(x, sg))
 
     def fold_halo(self, g, x):
         """On halo tensors, returning the factors instead of the gated
@@ -340,18 +354,20 @@ class UNet3D(nn.Module):
         return 1
 
     @torch.no_grad()
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.forward_with_bottleneck(x)[0]
+    def forward(self, x: torch.Tensor, space_group=None) -> torch.Tensor:
+        return self.forward_with_bottleneck(x, space_group)[0]
 
     @torch.no_grad()
-    def forward_with_bottleneck(self, x: torch.Tensor):
+    def forward_with_bottleneck(self, x: torch.Tensor, space_group=None):
         """(logits f32, bottleneck output in the compute dtype (B, ...,
-        2 * features[-1]))."""
-        out = self._forward(x, train=False)
+        2 * features[-1])); with ``space_group``, of this rank's D slab
+        ``x``."""
+        out = self._forward(x, train=False, space_group=space_group)
         return out["logits"], out["bottleneck"]
 
     def forward_train(self, x: torch.Tensor, generator=None,
-                      batch_stats=None, bn_group=None) -> dict:
+                      batch_stats=None, bn_group=None,
+                      space_group=None) -> dict:
         """The train forward, with gradients: {"logits": f32, "deep":
         [one head per encoder level but the last, in the compute dtype,
         at its level's scale, or full resolution with
@@ -361,16 +377,44 @@ class UNet3D(nn.Module):
         dropout masks; ``batch_stats`` is the running (mean, var) to
         advance, the buffers when None; ``bn_group``: the process group
         of the data-parallel ranks, over which the head BatchNorm takes
-        its batch statistics. Nothing of the module is written: the
-        train step stores the new statistics."""
+        its batch statistics (on a ``space`` mesh, the whole mesh's
+        group); ``space_group``: ``x`` is this rank's D slab of the
+        batch sharded over that group, every output this slab's (the
+        dropout masks, one value per (sample, channel), must then be
+        drawn alike on every rank of the group). Nothing of the module is
+        written: the train step stores the new statistics."""
         return self._forward(x, train=True, generator=generator,
-                             bn_stats=batch_stats, bn_group=bn_group)
+                             bn_stats=batch_stats, bn_group=bn_group,
+                             space_group=space_group)
 
-    def _block(self, block, x, train: bool):
+    def _block(self, block, x, train: bool, space_group=None):
         if train and self.remat:
-            # activation checkpointing (JAX nn.remat on each DoubleConv)
-            return checkpoint(block, x, use_reentrant=False)
-        return block(x)
+            # activation checkpointing (JAX nn.remat on each DoubleConv);
+            # on a slab the backward replays the block's exchanges and
+            # all-reduces, in the same order on every rank
+            return checkpoint(block, x, space_group, use_reentrant=False)
+        return block(x, space_group)
+
+    def check_slab(self, depth: int, ranks: int, train: bool) -> None:
+        """Refuse what the slab forward cannot run: a slab ``depth`` whose
+        pools would leave an odd depth before the bottleneck (the global
+        depth must be a multiple of ``ranks * 2^len(features)``), the
+        ps2d region, and deep heads at full resolution."""
+        n = len(self.features)
+        if self.ps2d_train if train else self.ps2d_eval:
+            raise NotImplementedError(
+                "the ps2d region on D slabs (mesh space > 1) comes with "
+                "the next spatial slice; build the model without "
+                "ps2d_train / ps2d_eval")
+        if train and self.deep_sup_full_res:
+            raise NotImplementedError(
+                "deep_sup_full_res on D slabs (its trilinear resize reads "
+                "the D neighbours) is left for a later spatial slice")
+        if depth % 2 ** n:
+            raise ValueError(
+                f"a D slab of {depth} planes over {ranks} ranks: the global "
+                f"depth {depth * ranks} must be a multiple of space * "
+                f"2^{n} = {ranks * 2 ** n}")
 
     def _deep(self, i: int, x, full):
         """Deep-supervision head i (train only), at its level's scale or
@@ -379,11 +423,16 @@ class UNet3D(nn.Module):
         return resize_trilinear(d, full) if self.deep_sup_full_res else d
 
     def _forward(self, x, train: bool, generator=None, bn_stats=None,
-                 bn_group=None):
+                 bn_group=None, space_group=None):
         feats = self.features
         n = len(feats)
+        sg = space_group
         x = x.to(self.compute_dtype)
         full = tuple(x.shape[1:4])
+        if sg is not None:
+            k = dist.get_world_size(sg)
+            self.check_slab(full[0], k, train)
+            full = (full[0] * k,) + full[1:]
         if min(full) < 2 ** n:
             raise ValueError(f"input spatial dims {full} too small for {n} "
                              f"encoder levels (need >= {2 ** n})")
@@ -413,7 +462,7 @@ class UNet3D(nn.Module):
                 x = (pool_into_halo(x) if i + 1 < halo
                      else max_pool3d_from_halo(x))
             else:
-                x = self._block(block, x, train)
+                x = self._block(block, x, train, sg)
                 skips.append(x)
                 if train and i < n - 1:
                     deep.append(self._deep(i, x, full))
@@ -421,7 +470,7 @@ class UNet3D(nn.Module):
             if train:
                 # channel dropout: one mask value per (batch, channel)
                 x = dropout(x, self.dropout_rate, generator, (1, 2, 3))
-        x = self._block(self.bottleneck, x, train)
+        x = self._block(self.bottleneck, x, train, sg)
         bottleneck = x
         for i in range(n):
             skip = skips[-(i + 1)]
@@ -440,11 +489,12 @@ class UNet3D(nn.Module):
                 x = halo_to_normal(dec.forward_halo((skip, up_h), gate))
             else:
                 x = up(x)
-                x_att = att(g=x, x=skip)
+                x_att = att(g=x, x=skip, space_group=sg)
                 if x.shape[1:4] != skip.shape[1:4]:
                     x = resize_trilinear(x, skip.shape[1:4])
-                x = self._block(dec, torch.cat([x_att, x], dim=-1), train)
-        h = self.head_conv(x)
+                x = self._block(dec, torch.cat([x_att, x], dim=-1), train,
+                                sg)
+        h = self.head_conv(x, sg)
         new_stats = None
         if train:
             # f32 batch statistics (JAX: BatchNorm in f32 at train)

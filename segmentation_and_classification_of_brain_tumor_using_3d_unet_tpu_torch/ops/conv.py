@@ -170,13 +170,16 @@ def conv3d_split6(x: torch.Tensor, w: torch.Tensor,
 
 def conv3d_zcat(x: torch.Tensor, w: torch.Tensor,
                 bias: torch.Tensor = None,
-                dtype: torch.dtype = BF16) -> torch.Tensor:
+                dtype: torch.dtype = BF16,
+                valid_d: bool = False) -> torch.Tensor:
     """3x3x3 SAME conv (JAX ``conv3d_zcat``): x (B, D, H, W, Cin),
-    w (3, 3, 3, Cin, Cout); out in ``dtype``, bias added in ``dtype``."""
+    w (3, 3, 3, Cin, Cout); out in ``dtype``, bias added in ``dtype``.
+    ``valid_d``: VALID in D (D - 2 output planes; a slab extended by one
+    plane of each neighbour), SAME in H and W."""
     if tuple(w.shape[:3]) != (3, 3, 3):
         raise ValueError(f"conv3d_zcat expects 3x3x3 kernels, got "
                          f"{tuple(w.shape)}")
-    y = _conv3d(x, w, 1, dtype)
+    y = _conv3d(x, w, (0, 1, 1) if valid_d else 1, dtype)
     if bias is not None:
         y = y + bias.to(dtype)
     return y.contiguous()
@@ -209,16 +212,18 @@ def conv3d_zsum(x: torch.Tensor, w: torch.Tensor,
 
 def conv3d_ksplit(x: torch.Tensor, w: torch.Tensor,
                   bias: torch.Tensor = None,
-                  dtype: torch.dtype = BF16) -> torch.Tensor:
+                  dtype: torch.dtype = BF16,
+                  valid_d: bool = False) -> torch.Tensor:
     """3x3x3 SAME conv as the JAX ``conv3d_ksplit``: one 2-D conv per
     depth tap, each rounded to ``dtype``, then a shifted three-slice sum
-    in ``dtype``."""
-    B, D, H, W, _ = x.shape
+    in ``dtype``. ``valid_d`` as ``conv3d_zcat``'s: the taps' planes of
+    the extended slab stand where the zero pad stands otherwise."""
     co = w.shape[-1]
     # (1, 3, 3, ci, 3*co): output block kz holds depth tap kz's 2-D kernel
     w2 = w.permute(1, 2, 3, 0, 4).reshape(1, 3, 3, w.shape[3], 3 * co)
     y = _conv3d(x, w2, (0, 1, 1), dtype)          # (B, D, H, W, 3co)
-    yp = F.pad(y, (0, 0, 0, 0, 0, 0, 1, 1))
+    yp = y if valid_d else F.pad(y, (0, 0, 0, 0, 0, 0, 1, 1))
+    D = yp.shape[1] - 2
     out = (yp[:, 0:D, ..., 0:co] + yp[:, 1:1 + D, ..., co:2 * co]
            + yp[:, 2:2 + D, ..., 2 * co:3 * co])
     if bias is not None:
@@ -228,11 +233,25 @@ def conv3d_ksplit(x: torch.Tensor, w: torch.Tensor,
 
 def conv3d_3x3x3(x: torch.Tensor, w: torch.Tensor,
                  bias: torch.Tensor = None,
-                 dtype: torch.dtype = BF16) -> torch.Tensor:
-    """The formulation the JAX ``conv3d_3x3x3`` picks for this shape."""
+                 dtype: torch.dtype = BF16,
+                 valid_d: bool = False) -> torch.Tensor:
+    """The formulation the JAX ``conv3d_3x3x3`` picks for this shape;
+    ``valid_d``: VALID in D (``conv3d_zcat``'s)."""
     if w.shape[-1] <= KSPLIT_MAX_CO:
-        return conv3d_ksplit(x, w, bias, dtype)
-    return conv3d_zcat(x, w, bias, dtype)
+        return conv3d_ksplit(x, w, bias, dtype, valid_d)
+    return conv3d_zcat(x, w, bias, dtype, valid_d)
+
+
+def conv3d_slab(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                dtype: torch.dtype, group) -> torch.Tensor:
+    """``conv3d_3x3x3`` of a volume D-sharded over ``group`` (the
+    ``space`` group), on this rank's slab: the slab extended by one
+    plane of each neighbour (zeros at the volume's ends) through the
+    same formulation, VALID in D, so that the slab gets the unsharded
+    conv's planes. The exchange carries the gradient back."""
+    from ..parallel.spatial import halo_exchange_d
+    return conv3d_3x3x3(halo_exchange_d(x.to(dtype), 1, group, "zero"), w,
+                        bias, dtype, valid_d=True)
 
 
 def conv_transpose3d_k2s2(x: torch.Tensor, w: torch.Tensor,
@@ -338,7 +357,12 @@ class FastConv3D(_ConvParams):
                  generator=None):
         super().__init__((3, 3, 3, cin, features), use_bias, generator)
 
-    def forward(self, x):
+    def forward(self, x, space_group=None):
+        """``space_group``: ``x`` is this rank's D slab of a volume
+        sharded over that group (``conv3d_slab``)."""
+        if space_group is not None:
+            return conv3d_slab(x, self.kernel, self.bias,
+                               self.compute_dtype, space_group)
         return conv3d_3x3x3(x, self.kernel, self.bias, self.compute_dtype)
 
 

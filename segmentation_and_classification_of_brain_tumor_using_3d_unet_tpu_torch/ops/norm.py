@@ -33,14 +33,34 @@ def group_affine(s1: torch.Tensor, s2: torch.Tensor, gamma: torch.Tensor,
     return rstd_c * gm, beta.float() - mean_c * rstd_c * gm
 
 
+def sharded_moments(xf: torch.Tensor, group):
+    """Per-(sample, channel) means of f32 (N, ..., C) ``xf`` and of its
+    square over a volume whose slabs lie on the ranks of ``group``: the
+    slab's sums and voxel count, summed over the group by one
+    differentiable all-reduce (its backward sums the moments' cotangents
+    over the group), then divided."""
+    from ..parallel.mesh import all_reduce_sum
+    axes = tuple(range(1, xf.ndim - 1))
+    count = torch.full((xf.shape[0], xf.shape[-1]),
+                       float(xf[0, ..., 0].numel()), device=xf.device)
+    s = all_reduce_sum(torch.stack([xf.sum(axes), xf.square().sum(axes),
+                                    count]), group)
+    return s[0] / s[2], s[1] / s[2]
+
+
 def group_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-               num_groups: int, eps: float = 1e-5) -> torch.Tensor:
+               num_groups: int, eps: float = 1e-5,
+               group=None) -> torch.Tensor:
     """GroupNorm over (N, ..., C) as the JAX ``group_norm``: statistics
-    and the affine in f32, one rounding to ``x.dtype`` at the end."""
+    and the affine in f32, one rounding to ``x.dtype`` at the end.
+    ``group``: ``x`` is this rank's D slab of a volume sharded over that
+    process group (the ``space`` group); the statistics are the whole
+    volume's (``sharded_moments``)."""
     axes = tuple(range(1, x.ndim - 1))
     xf = x.float()
-    scale, shift = group_affine(xf.mean(axes), xf.square().mean(axes),
-                                gamma, beta, num_groups, eps)
+    moments = ((xf.mean(axes), xf.square().mean(axes)) if group is None
+               else sharded_moments(xf, group))
+    scale, shift = group_affine(*moments, gamma, beta, num_groups, eps)
     shape = (x.shape[0],) + (1,) * (x.ndim - 2) + (x.shape[-1],)
     return (xf * scale.reshape(shape) + shift.reshape(shape)).to(x.dtype)
 

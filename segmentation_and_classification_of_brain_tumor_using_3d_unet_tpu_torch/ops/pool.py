@@ -14,8 +14,17 @@ def max_pool3d(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(B, d2, 2, h2, 2, w2, 2, C).amax(dim=(2, 4, 6))
 
 
-def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+def global_avg_pool(x: torch.Tensor, group=None) -> torch.Tensor:
     """Mean over the spatial dims of (B, ..., C) with f32 accumulation,
-    returned as (B, 1, 1, 1, C) in ``x.dtype``."""
+    returned as (B, 1, 1, 1, C) in ``x.dtype``. ``group``: ``x`` is this
+    rank's D slab of a volume sharded over that process group; the mean
+    is the f32 sum over the group (a differentiable all-reduce) over the
+    volume's voxel count."""
     axes = tuple(range(1, x.ndim - 1))
-    return x.mean(axes, keepdim=True, dtype=torch.float32).to(x.dtype)
+    if group is None:
+        return x.mean(axes, keepdim=True, dtype=torch.float32).to(x.dtype)
+    from ..parallel.mesh import all_reduce_sum
+    s = x.sum(axes, keepdim=True, dtype=torch.float32)
+    count = torch.full_like(s, float(x[0, ..., 0].numel()))
+    s = all_reduce_sum(torch.stack([s, count]), group)
+    return (s[0] / s[1]).to(x.dtype)

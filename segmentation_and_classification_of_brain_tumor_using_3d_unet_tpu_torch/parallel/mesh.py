@@ -41,12 +41,14 @@ class Mesh:
     (``devices.size`` ranks); ``coords`` this process's (data, space)
     index, None when it is not in the grid; ``groups`` the process group
     of this process's row along each axis (None where that axis has size
-    1 or no process group exists: the collective is then the identity)."""
+    1 or no process group exists: the collective is then the identity);
+    ``whole`` the group of every rank of the grid (the row's group when
+    the other axis has size 1; None for one rank)."""
 
     def __init__(self, grid: np.ndarray,
                  axis_names: Tuple[str, str] = AXES,
                  groups: Optional[Mapping[str, object]] = None,
-                 rank: Optional[int] = None):
+                 rank: Optional[int] = None, whole=None):
         self.devices = np.asarray(grid)
         self.axis_names = tuple(axis_names)
         self.shape: Dict[str, int] = dict(zip(self.axis_names,
@@ -55,6 +57,7 @@ class Mesh:
         hit = np.argwhere(self.devices == rank) if rank is not None else []
         self.coords = tuple(int(c) for c in hit[0]) if len(hit) else None
         self.groups = dict(groups or {})
+        self.whole = whole
 
     def index(self, axis: str) -> int:
         """This process's index along ``axis`` (0 outside the grid)."""
@@ -84,8 +87,9 @@ def create_mesh(data: int = -1, space: int = 1,
 
     ``devices``: the ranks to lay out (default: every rank of the
     process group, or the one process). With a process group, one group
-    per grid column (the ``data`` axis) and per row (``space``) is made
-    by every rank, in the same order, as ``dist.new_group`` requires."""
+    per grid column (the ``data`` axis) and per row (``space``), and one
+    of the whole grid when both axes are longer than 1, are made by
+    every rank, in the same order, as ``dist.new_group`` requires."""
     world, rank = _world()
     ranks = list(devices) if devices is not None else list(range(world))
     n = len(ranks)
@@ -97,18 +101,28 @@ def create_mesh(data: int = -1, space: int = 1,
         raise ValueError(
             f"mesh {data}x{space} needs {data * space} devices, have {n}")
     grid = np.asarray(ranks[: data * space]).reshape(data, space)
-    groups = {}
+    groups, whole = {}, None
+
+    def group_of(members):
+        return (dist.group.WORLD if members == list(range(world))
+                else dist.new_group(members))
+
     if world > 1:
         for axis, lines in ((axis_names[0], grid.T), (axis_names[1], grid)):
             for line in lines:
                 members = [int(r) for r in line]
                 if len(members) == 1:
                     continue            # a line of one rank: identity
-                g = (dist.group.WORLD if members == list(range(world))
-                     else dist.new_group(members))
+                g = group_of(members)
                 if rank in members:
                     groups[axis] = g
-    return Mesh(grid, axis_names, groups, rank)
+        if data > 1 and space > 1:
+            members = [int(r) for r in grid.reshape(-1)]
+            g = group_of(members)
+            whole = g if rank in members else None
+        else:
+            whole = groups.get(axis_names[0 if space == 1 else 1])
+    return Mesh(grid, axis_names, groups, rank, whole)
 
 
 def mesh_from_config(cfg: MeshConfig,
@@ -136,12 +150,16 @@ class BatchSharding:
         """This rank's rows of a global batch of ``n``."""
         return self._part(n, "data", "batch")
 
-    def shard(self, x):
-        """This rank's rows (and D slab, when ``space`` > 1) of ``x``."""
-        x = x[self.rows(x.shape[0])]
+    def slab(self, x):
+        """This rank's D slab of (B, D, ...) ``x`` (``x`` itself when
+        ``space`` is 1)."""
         if self.mesh.shape.get("space", 1) > 1:
             x = x[:, self._part(x.shape[1], "space", "depth")]
         return x
+
+    def shard(self, x):
+        """This rank's rows (and D slab, when ``space`` > 1) of ``x``."""
+        return self.slab(x[self.rows(x.shape[0])])
 
 
 @dataclass(frozen=True)
@@ -325,18 +343,45 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     return _AllReduceSum.apply(x, group)
 
 
+class _ReplicaSum(torch.autograd.Function):
+    """Sum over a group whose backward is the identity."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def replica_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum of ``x`` over ``group`` for a loss that every rank then holds
+    a replica of (identity on None). Its backward hands each rank's
+    cotangent back unchanged: every rank differentiates its replica, and
+    its backward then gives that rank's own share of the gradient (the
+    shares summed over the group are the gradient). ``all_reduce_sum``'s
+    backward would sum the group's equal cotangents instead: a gradient
+    as many times too large as the group has ranks."""
+    if group is None:
+        return x
+    return _ReplicaSum.apply(x, group)
+
+
 # the most bytes of one flat gradient bucket of ``mean_over``
 BUCKET_BYTES = 64 << 20
 
 
-def mean_over(tensors: Sequence[torch.Tensor], group) -> List[torch.Tensor]:
-    """The element-wise mean of each tensor over ``group``, through a few
-    flat buffers of at most ``BUCKET_BYTES`` (one collective per bucket,
-    not per tensor). Every rank gets the same bits."""
+def mean_over(tensors: Sequence[torch.Tensor], group,
+              n: Optional[int] = None) -> List[torch.Tensor]:
+    """The element-wise sum of each tensor over ``group`` divided by
+    ``n`` (default: the group's size, the mean), through a few flat
+    buffers of at most ``BUCKET_BYTES`` (one collective per bucket, not
+    per tensor). Every rank gets the same bits."""
     tensors = list(tensors)
     if group is None:
         return tensors
-    n = dist.get_world_size(group)
+    n = dist.get_world_size(group) if n is None else n
     out: List[Optional[torch.Tensor]] = [None] * len(tensors)
     bucket: List[int] = []
 

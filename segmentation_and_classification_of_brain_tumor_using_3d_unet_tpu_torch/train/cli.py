@@ -7,11 +7,13 @@ Usage::
 
 ``--device`` (default ``cuda``) is the one the model, the loader and
 the steps run on; without a card the default raises. ``--mesh_data``
-above 1 trains data-parallel, one process per device under ``torchrun``
-(``--nproc_per_node`` = ``--mesh_data``; rank i on ``cuda:i``, or on the
-CPU over gloo with ``--device cpu``); only rank 0 writes.
-``--mesh_space`` above 1 raises: spatial sharding comes with a later
-slice. Also callable as ``train_main(argv)``.
+and ``--mesh_space`` lay out a (data, space) mesh, one process per
+device under ``torchrun`` (``--nproc_per_node`` = their product; rank i
+on ``cuda:i``, or on the CPU over gloo with ``--device cpu``): the
+batch's rows over ``data`` and, above 1, each volume's D slabs over
+``space`` (the global depth a multiple of ``mesh_space * 2^len(
+features)``); only rank 0 writes. Also callable as
+``train_main(argv)``.
 """
 
 from __future__ import annotations
@@ -65,8 +67,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="data-parallel mesh axis size (1 = one device; "
                         "more: one process per device under torchrun)")
     p.add_argument("--mesh_space", type=int, default=1,
-                   help="spatial mesh axis (1 only: spatial sharding "
-                        "comes with a later slice)")
+                   help="spatial mesh axis: each volume split along D "
+                        "over this many devices (1 = no split)")
     p.add_argument("--no_remat", action="store_true")
     p.add_argument("--dtype", type=str, default="bfloat16",
                    choices=["bfloat16", "float32"])
@@ -89,12 +91,8 @@ def train_main(argv: Optional[Sequence[str]] = None):
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
-    if args.mesh_space > 1:
-        raise NotImplementedError(
-            "--mesh_space > 1 (spatial sharding) comes with the spatial "
-            "slice; use --mesh_space 1")
     mesh = sharding = None
-    if args.mesh_data > 1:
+    if args.mesh_data * args.mesh_space > 1:
         from ..parallel.mesh import (batch_sharding, create_mesh,
                                      initialize_distributed)
         device = initialize_distributed(

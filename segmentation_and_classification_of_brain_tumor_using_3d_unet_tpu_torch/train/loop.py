@@ -20,6 +20,18 @@ each rank holds an equal share, so the mean of the ranks' losses is the
 global loss, and the Dice scores come from voxel counts summed over the
 group. The eval step's labels and Hausdorff distances stay this rank's
 rows.
+
+On a mesh whose ``space`` axis is longer than 1 (JAX's
+``P("data", "space")``), each rank holds its rows' D slab: the model runs
+its slab forward over the ``space`` group, and the losses reduce over
+that group (``losses.combined_loss``), so every rank of a ``space``
+group holds its rows' whole loss and its backward gives its slab's share
+of the gradient. The shares are summed over ``space`` and averaged over
+``data`` (one reduction over the whole mesh, divided by the ``data``
+size); the head BatchNorm takes its statistics over the whole mesh; the
+metrics' counts are summed and the losses averaged over it. The eval
+step's Hausdorff distances are the whole volumes' (labels and targets
+gathered along D over ``space``); its labels stay this rank's slab.
 """
 
 from __future__ import annotations
@@ -27,6 +39,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import weakref
+from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -36,19 +49,20 @@ from ..ops.conv import BF16, full_f32
 from ..losses import combined_loss, deep_supervision_loss
 from ..metrics import (class_counts, dice_of_counts, region_counts,
                        region_dice_of_counts)
-from ..parallel.mesh import all_reduce_, mean_over, replicated
+from ..parallel.mesh import all_gather, all_reduce_, mean_over, replicated
 from .state import TrainState, global_norm
 
 
-def make_loss_fn(config: Config) -> Callable:
+def make_loss_fn(config: Config, group=None) -> Callable:
     """``loss_fn(out, targets)``: the combined loss of ``out["logits"]``,
     with deep supervision over ``out["deep"]`` when configured and
-    present."""
+    present; ``group``: the ``space`` group of D slabs, over which every
+    term reduces."""
     lw = (config.loss.dice_weight, config.loss.ce_weight,
           config.loss.focal_weight)
     base = functools.partial(
         combined_loss, weights=lw, focal_alpha=config.loss.focal_alpha,
-        focal_gamma=config.loss.focal_gamma)
+        focal_gamma=config.loss.focal_gamma, group=group)
 
     def loss_fn(out: Dict, targets: torch.Tensor) -> torch.Tensor:
         if config.loss.use_deep_supervision and out["deep"]:
@@ -71,13 +85,38 @@ def precision(model: torch.nn.Module):
     return full_f32()
 
 
+@dataclass(frozen=True)
+class _Groups:
+    """A step's groups on a mesh: ``reduce``, the group over which the
+    gradients, the metrics and the head BatchNorm's statistics reduce
+    (the ``data`` group, or the whole mesh when ``space`` > 1);
+    ``space``, the group of a row's D slabs; ``data``, the number of
+    data-parallel replicas, which the gradients' sum is divided by."""
+
+    reduce: object = None
+    space: object = None
+    data: int = 1
+
+    @property
+    def replicas(self) -> int:
+        """The ranks that hold a replica of each row's loss."""
+        return (1 if self.space is None
+                else torch.distributed.get_world_size(self.space))
+
+    @property
+    def slab(self) -> dict:
+        """The model's keyword for the slab forward (none without one)."""
+        return {} if self.space is None else {"space_group": self.space}
+
+
 def _data_parallel(mesh):
-    """(the ``data`` group or None, ``sync(state)``): ``sync`` broadcasts
-    the weights (and the EMA) of a state's model from the mesh's first
-    rank the first time it sees that model."""
-    group = None if mesh is None else mesh.group("data")
-    if group is None:
-        return None, lambda state: None
+    """(``_Groups``, ``sync(state)``): ``sync`` broadcasts the weights
+    (and the EMA) of a state's model from the mesh's first rank the first
+    time it sees that model."""
+    if mesh is None or mesh.whole is None:
+        return _Groups(), lambda state: None
+    groups = _Groups(mesh.whole, mesh.group("space"),
+                     mesh.shape.get("data", 1))
     seen = weakref.WeakSet()
 
     def sync(state: TrainState) -> None:
@@ -89,7 +128,7 @@ def _data_parallel(mesh):
                 + list((state.ema_params or {}).values()))
         seen.add(state.model)
 
-    return group, sync
+    return groups, sync
 
 
 def _reduce_metrics(group, means: Dict[str, torch.Tensor],
@@ -138,14 +177,16 @@ def make_train_step(config: Config, num_classes: int = 4,
     ``mesh``: ``batch`` is this rank's rows of the global batch (see the
     module's docstring); with ``grad_accum`` each rank accumulates its
     microbatches and the gradients are reduced once."""
-    loss_fn = make_loss_fn(config)
+    groups, sync = _data_parallel(mesh)
+    group = groups.reduce
+    loss_fn = make_loss_fn(config, groups.space)
     accum = config.grad_accum if grad_accum is None else grad_accum
-    group, sync = _data_parallel(mesh)
 
     def micro_grads(state, images, targets, generator, bn_stats):
         params = list(state.model.parameters())
         out = state.model.forward_train(images, generator,
-                                        batch_stats=bn_stats, bn_group=group)
+                                        batch_stats=bn_stats, bn_group=group,
+                                        **groups.slab)
         loss = loss_fn(out, targets)
         return (loss.detach(), _grads(loss, params),
                 out["logits"].detach(), out["batch_stats"])
@@ -172,7 +213,7 @@ def make_train_step(config: Config, num_classes: int = 4,
             counts.append(class_counts(logits.argmax(-1), targets[sl],
                                        num_classes))
         grads = mean_over([g / accum for g in gsum] if accum > 1 else gsum,
-                          group)
+                          group, groups.data)
         means, counts = _reduce_metrics(group, {"loss": lsum / accum},
                                         torch.stack(counts))
         dsum = sum(_foreground_dice(c) for c in counts)
@@ -190,8 +231,9 @@ def make_joint_train_step(config: Config, num_classes: int = 4,
     generator)``, the batch's integer ``grade`` labels taken from the
     burden of its masks when absent; ``mesh`` as ``make_train_step``'s."""
     from ..models.joint import grade_from_volume, joint_loss
-    seg_loss_fn = make_loss_fn(config)
-    group, sync = _data_parallel(mesh)
+    groups, sync = _data_parallel(mesh)
+    group, k = groups.reduce, groups.replicas
+    seg_loss_fn = make_loss_fn(config, groups.space)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              generator: torch.Generator
@@ -201,15 +243,20 @@ def make_joint_train_step(config: Config, num_classes: int = 4,
         if "grade" in batch:
             grades = batch["grade"]
         else:
-            grades = grade_from_volume((targets > 0).sum((1, 2, 3)),
-                                       targets[0].numel())
+            tumour = all_reduce_((targets > 0).sum((1, 2, 3)), groups.space)
+            grades = grade_from_volume(tumour, targets[0].numel() * k)
         params = list(state.model.parameters())
         with precision(state.model):
             out = state.model.forward_train(images, generator,
-                                            bn_group=group)
+                                            bn_group=group, **groups.slab)
             loss, parts = joint_loss(out, targets, grades, seg_loss_fn,
                                      cls_weight)
-            grads = mean_over(_grads(loss, params), group)
+            # on slabs the grade head runs alike on the k ranks of a row
+            # from the pooled bottleneck (whose all-reduce sums their k
+            # equal cotangents): its term is differentiated once
+            grad_loss = (loss if k == 1 else parts["seg_loss"]
+                         + cls_weight * parts["grade_ce"] / k)
+            grads = mean_over(_grads(grad_loss, params), group, groups.data)
         state.apply_gradients(grads, batch_stats=out["batch_stats"])
         grade_acc = (out["grade_logits"].detach().argmax(-1) == grades
                      ).float().mean()
@@ -234,8 +281,9 @@ def make_eval_step(config: Config, num_classes: int = 4,
     (``ops/edt.py``) — all on the device. With a ``mesh`` the scalars
     are the global batch's, the labels and distances this rank's rows."""
     from ..ops.edt import hausdorff_distance_device
-    loss_fn = make_loss_fn(config)
-    group, sync = _data_parallel(mesh)
+    groups, sync = _data_parallel(mesh)
+    group = groups.reduce
+    loss_fn = make_loss_fn(config, groups.space)
 
     @torch.no_grad()
     def step(state: TrainState, batch: Dict[str, torch.Tensor]
@@ -243,7 +291,7 @@ def make_eval_step(config: Config, num_classes: int = 4,
         sync(state)
         images, targets = batch["image"], batch["mask"]
         with precision(state.model):
-            res = state.model(images)
+            res = state.model(images, **groups.slab)
         out = dict(res) if isinstance(res, dict) else {"logits": res}
         out["deep"] = []
         labels = out["logits"].argmax(-1)
@@ -258,6 +306,11 @@ def make_eval_step(config: Config, num_classes: int = 4,
                 counts[:, num_classes:]).items():
             metrics[f"dice_{name}"] = val
         if with_hausdorff:
+            if groups.space is not None:
+                # whole volumes: every rank of a row computes its rows'
+                labels, targets = (torch.cat(all_gather(t.contiguous(),
+                                                        groups.space), 1)
+                                   for t in (labels, targets))
             metrics["hausdorff"] = torch.stack([
                 hausdorff_distance_device(p > 0, t > 0,
                                           percentile=hd_percentile)

@@ -19,12 +19,14 @@ save-on-best of the validation Dice, ``val_interval``,
     (the CLI seeds it with ``config.seed`` too).
   * ``timing`` records, per train step, the host seconds the step took
     to enqueue and the seconds the loop waited on the loader.
-  * With a ``mesh`` (data axis only; one process per device), the steps
-    are the data-parallel ones of ``loop``, the loaders give each rank
-    its rows, every rank reads the same global metrics and so takes the
-    same decisions, and only the first rank writes checkpoints,
-    TensorBoard, wandb and the report. Every rank loads for ``resume``.
-    The dropout masks of rank i draw from ``config.seed + i``.
+  * With a ``mesh`` (one process per device), the steps are the
+    sharded ones of ``loop``, the loaders give each rank its rows (and,
+    when the ``space`` axis is longer than 1, its D slab of them), every
+    rank reads the same global metrics and so takes the same decisions,
+    and only the first rank writes checkpoints, TensorBoard, wandb and
+    the report. Every rank loads for ``resume``. The dropout masks of
+    the ranks at data coordinate i draw from ``config.seed + i``: the
+    slabs of one sample share its (sample, channel) mask.
 """
 
 from __future__ import annotations
@@ -52,8 +54,9 @@ logger = logging.getLogger(__name__)
 class ModernBrainTumorTrainer:
     """The trainer of a built model (``UNet3D`` or
     ``UNet3DWithClassifier``'s trunk) on its device. ``device``, when
-    given, must be the model's; ``mesh``: a data-parallel mesh
-    (``parallel.mesh.create_mesh``), its ``space`` axis of size 1."""
+    given, must be the model's; ``mesh``: a (data, space) mesh
+    (``parallel.mesh.create_mesh``); on a ``space`` axis longer than 1
+    the model runs its slab forward, which has no ps2d region yet."""
 
     def __init__(self, model, device=None, learning_rate: float = 1e-4,
                  experiment_name: Optional[str] = None,
@@ -61,11 +64,12 @@ class ModernBrainTumorTrainer:
                  mesh=None, use_wandb: Optional[bool] = None,
                  hausdorff_every: int = 1,
                  save_latest_every: int = 0):
-        if mesh is not None and mesh.shape.get("space", 1) > 1:
+        if (mesh is not None and mesh.shape.get("space", 1) > 1
+                and getattr(model, "ps2d_train", False)):
             raise NotImplementedError(
-                "spatial sharding (mesh space > 1) comes with the spatial "
-                "slice: halo exchange around every conv and GroupNorm "
-                "statistics over the space group; use space=1")
+                "the ps2d region on D slabs (mesh space > 1) comes with "
+                "the next spatial slice; train the normal path "
+                "(ps2d_train=False)")
         self.mesh = mesh
         self.primary = is_primary()
         self.model = model
@@ -90,9 +94,9 @@ class ModernBrainTumorTrainer:
         self._eval_step = None
         self._eval_step_hd = None
         self._steps_per_epoch = 1
-        rank = 0 if mesh is None else mesh.index("data")
+        row = 0 if mesh is None else mesh.index("data")
         self._generator = torch.Generator(
-            device=self.device).manual_seed(self.config.seed + rank)
+            device=self.device).manual_seed(self.config.seed + row)
 
         self.best_dice = 0.0
         self.start_epoch = 0

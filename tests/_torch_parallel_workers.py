@@ -1,5 +1,6 @@
-"""Two-rank gloo worlds for the port's multi-device tests
-(tests/test_torch_parallel*.py), and the work each rank does in them.
+"""Gloo worlds of CPU processes for the port's multi-device tests
+(tests/test_torch_parallel*.py, tests/test_torch_spatial*.py), and the
+work each rank does in them.
 
 This module imports no JAX: the test files (and tests/conftest.py) import
 JAX, and a spawned child imports only the module of its target. Each
@@ -22,8 +23,8 @@ import torch
 PORT = "segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch"
 
 
-def _entry(rank, world, rdv, fn_name, args, q):
-    torch.set_num_threads(2)
+def _entry(rank, world, rdv, fn_name, args, q, threads=2):
+    torch.set_num_threads(threads)
     import torch.distributed as dist
     from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.parallel.mesh import (
         initialize_distributed)
@@ -38,43 +39,65 @@ def _entry(rank, world, rdv, fn_name, args, q):
             dist.destroy_process_group()
 
 
+class World:
+    """A gloo world of ``world`` CPU processes running ``fn_name(rank,
+    world, *args)`` on ``threads`` torch threads each, started at
+    construction; ``results()`` waits for it (bounded by ``timeout``
+    from the start), so the caller can work while the ranks run."""
+
+    def __init__(self, fn_name: str, args: tuple, tmp_path, world: int = 2,
+                 timeout: float = 150.0, threads: int = 2):
+        ctx = mp.get_context("spawn")
+        self.fn_name, self.world = fn_name, world
+        self.q = ctx.Queue()
+        rdv = tmp_path / f"rdv_{uuid.uuid4().hex}"
+        self.procs = [ctx.Process(target=_entry,
+                                  args=(r, world, str(rdv), fn_name, args,
+                                        self.q, threads))
+                      for r in range(world)]
+        for p in self.procs:
+            p.start()
+        self.deadline = time.monotonic() + timeout
+        self.timeout = timeout
+
+    def results(self) -> list:
+        """The ranks' results in rank order; a rank that fails, dies or
+        passes the timeout fails the caller, and every process is
+        stopped."""
+        fn_name, procs, results = self.fn_name, self.procs, {}
+        try:
+            while len(results) < self.world:
+                try:
+                    rank, ok, out = self.q.get(timeout=1.0)
+                except queue.Empty:
+                    codes = [p.exitcode for p in procs]
+                    if any(c not in (None, 0) for c in codes):
+                        raise AssertionError(f"{fn_name}: a rank died "
+                                             f"(exit codes {codes})")
+                    if time.monotonic() > self.deadline:
+                        raise AssertionError(
+                            f"{fn_name}: no result within {self.timeout} s "
+                            f"(exit codes {codes})")
+                    continue
+                if not ok:
+                    raise AssertionError(f"{fn_name} rank {rank}:\n{out}")
+                results[rank] = out
+        finally:
+            for p in procs:
+                p.join(timeout=30)
+                if p.is_alive():
+                    p.kill()
+                    p.join(timeout=10)
+        assert all(p.exitcode == 0 for p in procs), [p.exitcode
+                                                     for p in procs]
+        return [results[r] for r in range(self.world)]
+
+
 def run_world(fn_name: str, args: tuple, tmp_path, world: int = 2,
               timeout: float = 150.0) -> list:
     """``fn_name(rank, world, *args)`` on each rank of a gloo world of
     CPU processes; the ranks' results in rank order."""
-    ctx = mp.get_context("spawn")
-    q = ctx.Queue()
-    rdv = tmp_path / f"rdv_{uuid.uuid4().hex}"
-    procs = [ctx.Process(target=_entry,
-                         args=(r, world, str(rdv), fn_name, args, q))
-             for r in range(world)]
-    for p in procs:
-        p.start()
-    results, deadline = {}, time.monotonic() + timeout
-    try:
-        while len(results) < world:
-            try:
-                rank, ok, out = q.get(timeout=1.0)
-            except queue.Empty:
-                codes = [p.exitcode for p in procs]
-                if any(c not in (None, 0) for c in codes):
-                    raise AssertionError(f"{fn_name}: a rank died "
-                                         f"(exit codes {codes})")
-                if time.monotonic() > deadline:
-                    raise AssertionError(f"{fn_name}: no result within "
-                                         f"{timeout} s (exit codes {codes})")
-                continue
-            if not ok:
-                raise AssertionError(f"{fn_name} rank {rank}:\n{out}")
-            results[rank] = out
-    finally:
-        for p in procs:
-            p.join(timeout=30)
-            if p.is_alive():
-                p.kill()
-                p.join(timeout=10)
-    assert all(p.exitcode == 0 for p in procs), [p.exitcode for p in procs]
-    return [results[r] for r in range(world)]
+    return World(fn_name, args, tmp_path, world, timeout).results()
 
 
 def _np(t):
@@ -160,24 +183,25 @@ def inference(rank, world, plain_state, ps2d_state, vols, vol):
     return out
 
 
-def _train_config():
+def _train_config(remat=False):
     from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch import (
         config as C)
     return C.Config(model=C.ModelConfig(features=(8, 16),
                                         compute_dtype="float32",
-                                        remat=False, dropout_rate=0.0),
+                                        remat=remat, dropout_rate=0.0),
                     use_tensorboard=False)
 
 
 def dp_train_step(model, batch, mesh=None, grad_accum=None,
-                  joint=False):
+                  joint=False, config=None):
     """One train step of ``model`` on ``batch`` (this rank's rows when
-    ``mesh``): its metrics, the gradients handed to the optimizer (by
-    parameter name), the new BatchNorm statistics and the parameters
-    after the update, as numpy."""
+    ``mesh``; its D slab too on a ``space`` mesh): its metrics, the
+    gradients handed to the optimizer (by parameter name), the new
+    BatchNorm statistics and the parameters after the update, as
+    numpy."""
     from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.train import (
         create_train_state, make_joint_train_step, make_train_step)
-    cfg = _train_config()
+    cfg = config or _train_config()
     state = create_train_state(model, cfg)
     seen = {}
     apply = state.apply_gradients
@@ -286,3 +310,151 @@ def trainer_and_cli(rank, world, root, conf_dirs, cli_args):
     return {"history": hist, "step": trainer.state.step, "saves": saves,
             "writes": writes, "summaries": outs,
             "rows": [int(b["image"].shape[0]) for b in train]}
+
+
+# ---------------------------------------------------------------- space
+
+def exchange_grads(rank, world, x, ws, cs):
+    """The gradient with respect to this rank's D slab of ``x`` (float64)
+    of ``sum(f(slab) * c_slab)`` over a (1, 2) mesh: ``f`` =
+    ``sharded_conv3d`` of the 3x3x3 SAME conv (key "sharded"), and for
+    each halo h and boundary b the VALID-in-D conv of
+    ``halo_exchange_d(slab, h, group, b)`` (key f"{b}{h}")."""
+    from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.parallel import (
+        mesh as M, spatial as S)
+    m = M.create_mesh(1, 2)
+    g = m.group("space")
+    out = {}
+
+    def grad(f, c):
+        slab = M.shard_batch(torch.from_numpy(x), m).clone().requires_grad_()
+        y = f(slab)
+        (y * M.shard_batch(torch.from_numpy(c), m)).sum().backward()
+        return _np(slab.grad)
+
+    out["sharded"] = grad(S.sharded_conv3d(
+        m, _ndhwc_conv(torch.from_numpy(ws[1]), 1)), cs["sharded"])
+    for b in ("edge", "zero"):
+        for h in (1, 2):
+            # D extent 2h + 1, VALID in D: the slab extended by h planes
+            conv = _ndhwc_conv(torch.from_numpy(ws[h]), (0, 1, 1))
+            out[f"{b}{h}"] = grad(
+                lambda s, h=h, b=b, conv=conv: conv(
+                    S.halo_exchange_d(s, h, g, b)), cs[f"{b}{h}"])
+    return out
+
+
+def _refused(fn):
+    """The exception ``fn()`` raises: (type name, message)."""
+    try:
+        fn()
+    except (ValueError, NotImplementedError) as e:
+        return type(e).__name__, str(e)
+    return None
+
+
+def spatial_model(rank, world, state, joint_state, batch, vol):
+    """On a (1, 2) mesh (this rank's D slab of ``batch``): the f32 train
+    step (and with remat), the joint step, the eval step, the spatial
+    sliding window, the slab forward's refusals."""
+    from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.inference.sliding_window import (
+        sliding_window_inference)
+    from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.models import (
+        UNet3D)
+    from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.parallel import (
+        create_mesh, make_spatial_apply, shard_batch)
+    mesh = create_mesh(1, 2)
+    g = mesh.group("space")
+    local = shard_batch(batch, mesh)
+    kw = dict(features=(8, 16), compute_dtype="float32", dropout_rate=0.0)
+    out = {"mesh": dict(mesh.shape), "depth": local["image"].shape[1],
+           "step": dp_train_step(_unet(state, **kw), local, mesh),
+           "remat": dp_train_step(_unet(state, remat=True, **kw), local,
+                                  mesh, config=_train_config(remat=True)),
+           "joint": dp_train_step(joint_model(joint_state), local, mesh,
+                                  joint=True),
+           "eval": dp_eval_step(_unet(state, **kw), local, mesh)}
+    with torch.no_grad():
+        out["window"] = _np(sliding_window_inference(
+            torch.from_numpy(vol), make_spatial_apply(_unet(state, **kw),
+                                                      mesh),
+            roi_size=(16, 16, 16), overlap=0.5, sw_batch_size=2))
+    x = torch.from_numpy(local["image"])
+    gen = torch.Generator().manual_seed(0)
+    out["refusals"] = {
+        "odd_depth": _refused(lambda: _unet(state, **kw).forward_train(
+            x[:, :6], gen, space_group=g)),
+        "deep_sup_full_res": _refused(lambda: UNet3D(
+            device="cpu", deep_sup_full_res=True, **kw).forward_train(
+                x, gen, space_group=g)),
+        "ps2d_train": _refused(lambda: UNet3D(
+            device="cpu", ps2d_train=True, **kw).forward_train(
+                x, gen, space_group=g)),
+        "ps2d_eval": _refused(lambda: UNet3D(
+            device="cpu", ps2d_eval=True, **kw)(x, space_group=g))}
+    return out
+
+
+def spatial_dp(rank, world, state, batch):
+    """The f32 train step on a (2, 2) mesh: this rank's row and D slab."""
+    from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.parallel import (
+        create_mesh, shard_batch)
+    mesh = create_mesh(2, 2)
+    local = shard_batch(batch, mesh)
+    kw = dict(features=(8, 16), compute_dtype="float32", dropout_rate=0.0)
+    return {"mesh": dict(mesh.shape), "coords": mesh.coords,
+            "shape": tuple(local["image"].shape),
+            "step": dp_train_step(_unet(state, **kw), local, mesh)}
+
+
+def spatial_cli(rank, world, cwd, args, odd_args):
+    """``train_main(args)`` (a ``--mesh_space 2`` run) in the working
+    directory ``cwd``, then ``train_main(odd_args)``, whose slabs leave
+    an odd depth: the first run's history, mesh and batch depth, and
+    what the second raises."""
+    import os
+    os.chdir(cwd)
+    from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.train.cli import (
+        train_main)
+    trainer, hist = train_main(args)
+    return {"history": hist, "mesh": dict(trainer.mesh.shape),
+            "step": trainer.state.step,
+            "odd": _refused(lambda: train_main(odd_args))}
+
+
+def spatial_trainer(rank, world, root, conf_dirs):
+    """The trainer for one epoch over a (1, 2) mesh on the cohort at
+    ``root`` (each rank its D slab of every batch): its history, steps,
+    checkpoint saves, final parameters and the batches' shapes."""
+    from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch import (
+        config as C)
+    from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.data.pipeline import (
+        create_brats_data_loaders)
+    from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.models import (
+        UNet3D)
+    from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.parallel import (
+        batch_sharding, create_mesh)
+    from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.train import (
+        checkpoints, trainer as T)
+    mesh = create_mesh(1, 2)
+    train, val = create_brats_data_loaders(
+        root, batch_size=2, num_workers=1, image_size=(16, 16, 16),
+        device="cpu", sharding=batch_sharding(mesh))
+    saves = []
+    save = checkpoints.save_checkpoint
+
+    def counted_save(*a, **k):
+        saves.append(a[0])
+        return save(*a, **k)
+    checkpoints.save_checkpoint = counted_save
+    trainer = T.ModernBrainTumorTrainer(
+        UNet3D(features=(8, 16), seed=0, device="cpu", dropout_rate=0.0,
+               compute_dtype="float32"),
+        config=C.Config(use_tensorboard=False, **conf_dirs), mesh=mesh,
+        experiment_name="sp")
+    hist = trainer.train(train, val, num_epochs=1)
+    return {"history": hist, "step": trainer.state.step, "saves": saves,
+            "params": {n: _np(p) for n, p in
+                       trainer.state.model.named_parameters()},
+            "shapes": [tuple(b["image"].shape) for b in train]
+            + [tuple(b["mask"].shape) for b in val]}

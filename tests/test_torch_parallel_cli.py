@@ -6,9 +6,11 @@
   checkpoint, both in float32: masks equal, confidences within 1.8e-5,
   and the index's device count;
 * ``Predictor(config.inference.window_parallel)``: a no-op at world 1;
-* the trainer and the train CLI refusing ``space > 1`` with a message
-  that names the spatial slice, and ``--mesh_data 2`` in a world of one
-  refused as JAX's mesh refuses it.
+* what stays refused with ``space > 1`` (a ``ps2d_train`` model in the
+  trainer, naming the next spatial slice; a slab depth that pools to an
+  odd depth), ``--mesh_data 2`` in a world of one refused as JAX's mesh
+  refuses it, and the train CLI with ``--mesh_space 2`` for one epoch on
+  a two-rank world of CPU processes.
 
 The trainer and the CLIs on two ranks are in
 tests/test_torch_parallel_trainer.py.
@@ -22,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 from _torch_threads import two_torch_threads  # noqa: F401
+from _torch_parallel_workers import run_world
 from test_torch_inference_cli import (  # noqa: F401  (fixtures)
     TINY, checkpoints, cohort, float32_presets)
 
@@ -90,16 +93,36 @@ def test_predictor_window_parallel_config_at_world_one():
     np.testing.assert_allclose(a[1], b[1], rtol=0, atol=1e-6)
 
 
-def test_space_sharding_is_refused():
+def test_space_sharding_is_refused(tmp_path):
+    """What stays refused with ``space`` > 1, and the train CLI with
+    ``--mesh_space 2`` for one epoch on a two-rank world of CPU
+    processes, which then refuses an image depth whose slabs pool to an
+    odd depth."""
     mesh = M.Mesh(np.arange(2).reshape(1, 2), rank=0)
-    with pytest.raises(NotImplementedError, match="spatial slice"):
-        ModernBrainTumorTrainer(UNet3D(features=(8, 16), device="cpu"),
+    with pytest.raises(NotImplementedError, match="next spatial slice"):
+        ModernBrainTumorTrainer(UNet3D(features=(8, 16), device="cpu",
+                                       ps2d_train=True),
                                 config=tcfg.Config(use_tensorboard=False),
                                 mesh=mesh)
-    with pytest.raises(NotImplementedError, match="spatial slice"):
-        train_main(["--mesh_space", "2", "--device", "cpu"])
     with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         train_main(["--mesh_data", "2", "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             train_main(["--mesh_data", "2"])
+    args = ["--epochs", "1", "--synthetic_shape", "20", "20", "16",
+            "--features", "8", "16", "--batch_size", "2", "--num_workers",
+            "1", "--dtype", "float32", "--device", "cpu", "--data_dir",
+            "data/syn", "--mesh_space", "2"]
+    ranks = run_world("spatial_cli", (
+        str(tmp_path), args + ["--create_synthetic", "--num_samples", "4",
+                               "--image_size", "16", "16", "16",
+                               "--experiment_name", "sp"],
+        args + ["--image_size", "12", "16", "16", "--experiment_name",
+                "odd"]), tmp_path)
+    for r in ranks:
+        assert r["mesh"] == {"data": 1, "space": 2} and r["step"] >= 1
+        assert np.isfinite(r["history"]["train_loss"][0])
+        kind, msg = r["odd"]
+        assert kind == "ValueError" and "multiple of space * 2^2 = 8" in msg
+    np.testing.assert_equal(ranks[0]["history"], ranks[1]["history"])
+    assert (tmp_path / "results" / "models" / "best_sp").is_dir()

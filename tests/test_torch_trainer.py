@@ -174,7 +174,7 @@ def test_cli_float32_on_the_cpu(tmp_path, monkeypatch):
     assert trainer.config.model.compute_dtype == "float32"
     assert np.isfinite(hist["train_loss"][0])
     assert os.path.isdir(tmp_path / "results" / "models" / "best_cli")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         train_main(["--mesh_space", "2", "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
