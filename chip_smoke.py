@@ -186,9 +186,26 @@ Phase 14, after them all:
      0.99999, parameters bit-identical across the ranks; the eval
      forward of 4 windows of 128^3 through ``make_spatial_apply``, f32
      logits within atol 1e-4, rtol 1e-3 of one process's, bf16 under
-     the ps2d logit bounds; no kernel launched. It prints each rank's
-     step walls, the collectives' ms and each rank's peak memory
-     against one process's;
+     the ps2d logit bounds; no kernel launched. Then the ps2d region on
+     the slabs: first, in the parent, K1 (bf16 and f32) on a
+     level-0 slab (2, 66, 130, 130, 32) with both D halo planes live,
+     affine + ReLU + mask + statistics, against its plain version at
+     K1's gates, two runs bit-identical, its interior bit-equal to the
+     whole volume's K1 and the same slab without live planes equal but
+     on its two edge planes; K6 (bf16) on that slab against its plain
+     version, the data gradient holding the live planes' cotangents;
+     each timed beside its form without live planes, its plain version
+     and the library's conv (the kernels line's ``slab_forms``). On the
+     ranks: three bf16 ``ps2d_train`` steps (Config() defaults) against
+     one process's (loss within 1e-2 relative, least leaf cosine >=
+     0.99, K1 7 launches a step and rank, parameters bit-identical
+     across the ranks), a fourth with the halo-layout exchanges timed
+     apart from the rest; the eval of the 4 windows at ``ps2d_eval,
+     ps2d_levels=2`` through ``make_spatial_apply`` (K1 7 / K2 2 / K3 2
+     / K4 1 a rank; f32 within atol 1e-4, rtol 1e-3 of one process,
+     bf16 under the ps2d logit bounds and the margin rule). It prints
+     each rank's step walls, the collectives' ms and counts and each
+     rank's peak memory against one process's, for both paths;
 
 It prints the per-kernel JSON line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Any failure, or a run past
@@ -198,6 +215,7 @@ its own time budget, exits non-zero without that last line.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import subprocess
 import sys
@@ -593,6 +611,7 @@ def _spatial_rank(rank: int, world: int, rdv: str, tmp: str, q) -> None:
     rank's D slab of the batch the parent saved under ``tmp``, held to
     the parent's one-process results saved there. Puts (rank, ok,
     result)."""
+    import gc
     import hashlib
     import os
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")   # one host
@@ -624,16 +643,24 @@ def _spatial_rank(rank: int, world: int, rdv: str, tmp: str, q) -> None:
         out = {"mesh": dict(mesh.shape), "slab": tuple(batch["image"].shape)}
         tconf = cfg.Config()
 
+        def free():
+            """Drop what the last part left: a train state and its
+            capturing ``apply_gradients`` form a reference cycle, which
+            only the cyclic collector frees."""
+            gc.collect()
+            torch.cuda.empty_cache()
+
         def sha(model):
             h = hashlib.sha256()
             for p in model.parameters():
                 h.update(p.detach().float().cpu().numpy().tobytes())
             return h.hexdigest()
 
-        def train(dtype, steps):
-            """``steps`` steps from the seeded weights; the first's loss
-            and gradients, every step's wall, the parameters' hash."""
-            model = spatial_model(dtype, dev)
+        def train(dtype, steps, **region):
+            """``steps`` steps from the seeded weights (``region``: the
+            ps2d region's switches); the first's loss and gradients,
+            every step's wall and launches, the parameters' hash."""
+            model = spatial_model(dtype, dev, **region)
             state = train_mod.create_train_state(model, tconf,
                                                  steps_per_epoch=10)
             seen = {}
@@ -648,18 +675,38 @@ def _spatial_rank(rank: int, world: int, rdv: str, tmp: str, q) -> None:
             gen = torch.Generator(device=dev).manual_seed(1)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            walls, losses = [], []
+            walls, losses, launches, peaks = [], [], [], []
             for _ in range(steps):
                 dist.barrier()
                 torch.cuda.synchronize()
+                for k in counted:
+                    k.launches = 0
                 t = time.perf_counter()
                 _, m = step(state, batch, gen)
                 torch.cuda.synchronize()
                 walls.append(time.perf_counter() - t)
+                launches.append({k.__name__: k.launches for k in counted})
                 losses.append(float(m["loss"]))
+                peaks.append(torch.cuda.max_memory_allocated())
+                torch.cuda.reset_peak_memory_stats()
+            out["step_peaks"] = peaks    # each step's own peak
             names = [n for n, _ in model.named_parameters()]
             return (model, state, step, gen, losses, walls,
-                    dict(zip(names, seen["grads"])))
+                    dict(zip(names, seen["grads"])), launches)
+
+        def compare(got, ref):
+            """Logits against one process's: max and mean |d|, the scale,
+            whether all lie within atol 1e-4, rtol 1e-3, the label flips
+            and those above twice the max drift's margin."""
+            d = (got - ref).abs()
+            top2 = ref.topk(2, dim=-1).values
+            margin = top2[..., 0] - top2[..., 1]
+            differ = got.argmax(-1) != ref.argmax(-1)
+            return {"max": d.max().item(), "mean": d.mean().item(),
+                    "scale": max(ref.abs().max().item(), 1.0),
+                    "within": bool((d <= 1e-4 + 1e-3 * ref.abs()).all()),
+                    "flips": int(differ.sum()),
+                    "wide": int((differ & (margin > 2 * d.max())).sum())}
 
         def against(grads, name):
             """(least leaf cosine of ``grads`` against the parent's, the
@@ -681,53 +728,68 @@ def _spatial_rank(rank: int, world: int, rdv: str, tmp: str, q) -> None:
                 n += 1
             return cmin, n, ok, least
 
+        def timed_step(state, step, gen):
+            """One more step with each collective timed on the host clock
+            between synchronisations: (its wall, {kind: (ms, count)}):
+            the halo exchanges of the normal path's slabs ("halo") and of
+            the region's halo tensors ("planes"), the in-graph
+            all-reduces, the loss sums and the gradient reduction."""
+            tim = {}
+
+            def timed(key, fn):
+                def wrapper(*a, **k):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    r = fn(*a, **k)
+                    torch.cuda.synchronize()
+                    ms, n = tim.get(key, (0.0, 0))
+                    tim[key] = (ms + 1e3 * (time.perf_counter() - t), n + 1)
+                    return r
+                return wrapper
+            fns = [(SP._HaloExchange, "forward", "halo"),
+                   (SP._HaloExchange, "backward", "halo"),
+                   (SP._HaloPlanes, "forward", "planes"),
+                   (SP._HaloPlanes, "backward", "planes"),
+                   (M._AllReduceSum, "forward", "norm"),
+                   (M._AllReduceSum, "backward", "norm"),
+                   (M._ReplicaSum, "forward", "loss")]
+            saved = [getattr(c, a) for c, a, _ in fns]
+            for (c, a, key), fn in zip(fns, saved):
+                setattr(c, a, staticmethod(timed(key, fn)))
+            mean_over = L.mean_over
+            L.mean_over = timed("grads", mean_over)
+            try:
+                dist.barrier()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                step(state, batch, gen)
+                torch.cuda.synchronize()
+                return time.perf_counter() - t, tim
+            finally:
+                for (c, a, _), fn in zip(fns, saved):
+                    setattr(c, a, staticmethod(fn))
+                L.mean_over = mean_over
+
         # 1. three bf16 steps, then one with its collectives timed
-        model, state, step, gen, losses, walls, grads = train("bfloat16", 3)
-        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        (model, state, step, gen, losses, walls, grads,
+         _) = train("bfloat16", 3)
+        out["peak_bytes"] = max(out["step_peaks"])
+        out["bf16_step_peaks"] = out["step_peaks"]
         out["bf16"] = {"losses": losses, "walls": walls,
                        "cos": against(grads, "sp_bf16_grads.pt")}
         del grads
-        tim = {}
-
-        def timed(key, fn):
-            def wrapper(*a, **k):
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                r = fn(*a, **k)
-                torch.cuda.synchronize()
-                ms, n = tim.get(key, (0.0, 0))
-                tim[key] = (ms + 1e3 * (time.perf_counter() - t), n + 1)
-                return r
-            return wrapper
-        saved = (SP._swap, M._AllReduceSum.forward, M._AllReduceSum.backward,
-                 M._ReplicaSum.forward, L.mean_over)
-        SP._swap = timed("halo", SP._swap)
-        M._AllReduceSum.forward = staticmethod(timed("norm", saved[1]))
-        M._AllReduceSum.backward = staticmethod(timed("norm", saved[2]))
-        M._ReplicaSum.forward = staticmethod(timed("loss", saved[3]))
-        L.mean_over = timed("grads", saved[4])
-        try:
-            dist.barrier()
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            step(state, batch, gen)
-            torch.cuda.synchronize()
-            out["timed_step_s"] = time.perf_counter() - t
-        finally:
-            (SP._swap, fwd, bwd, rfwd, L.mean_over) = saved
-            M._AllReduceSum.forward = staticmethod(fwd)
-            M._AllReduceSum.backward = staticmethod(bwd)
-            M._ReplicaSum.forward = staticmethod(rfwd)
-        out["collectives"] = tim
+        out["timed_step_s"], out["collectives"] = timed_step(state, step,
+                                                             gen)
         out["bf16"]["sha"] = sha(model)
         del model, state, step
-        torch.cuda.empty_cache()
+        free()
         # 2. one f32 step
-        model, state, step, gen, losses, walls, grads = train("float32", 1)
+        (model, state, step, gen, losses, walls, grads,
+         _) = train("float32", 1)
         out["f32"] = {"losses": losses, "walls": walls, "sha": sha(model),
                       "cos": against(grads, "sp_f32_grads.pt")}
         del model, state, step, grads
-        torch.cuda.empty_cache()
+        free()
         # 3. the eval forward of 4 windows through the spatial apply
         wins = torch.from_numpy(np.load(os.path.join(tmp, "windows.npy"))
                                 ).to(dev)
@@ -744,19 +806,46 @@ def _spatial_rank(rank: int, world: int, rdv: str, tmp: str, q) -> None:
                 wall = time.perf_counter() - t
             ref = torch.from_numpy(np.load(os.path.join(
                 tmp, f"sp_logits_{dtype}.npy"))).to(dev)
-            d = (got - ref).abs()
-            scale = max(ref.abs().max().item(), 1.0)
-            top2 = ref.topk(2, dim=-1).values
-            margin = top2[..., 0] - top2[..., 1]
-            differ = got.argmax(-1) != ref.argmax(-1)
-            out["eval"][dtype] = {
-                "wall_s": wall, "max": d.max().item(),
-                "mean": d.mean().item(), "scale": scale,
-                "within": bool((d <= 1e-4 + 1e-3 * ref.abs()).all()),
-                "flips": int(differ.sum()),
-                "wide": int((differ & (margin > 2 * d.max())).sum())}
-            del model, got, ref
+            out["eval"][dtype] = dict(compare(got, ref), wall_s=wall)
+            del model, apply, got, ref
         out["launches"] = {k.__name__: k.launches for k in counted}
+        free()
+        # 4. the ps2d region on the slabs: three bf16 ps2d_train steps,
+        # one more with its collectives timed, then the eval forward at
+        # ps2d_eval, ps2d_levels=2, each of them counted
+        (model, state, step, gen, losses, walls, grads,
+         launches) = train("bfloat16", 3, ps2d_train=True)
+        out["region"] = {
+            "peak_bytes": max(out["step_peaks"]),
+            "step_peaks": out["step_peaks"],
+            "losses": losses, "walls": walls, "launches": launches,
+            "cos": against(grads, "sp_ps2d_bf16_grads.pt")}
+        del grads
+        wall, tim = timed_step(state, step, gen)
+        out["region"].update(timed_step_s=wall, collectives=tim,
+                             sha=sha(model))
+        del model, state, step
+        free()
+        out["region_eval"] = {}
+        for dtype in ("float32", "bfloat16"):
+            model = spatial_model(dtype, dev, ps2d_eval=True,
+                                  ps2d_levels=2).eval()
+            apply = SP.make_spatial_apply(model, mesh)
+            with torch.no_grad():
+                dist.barrier()
+                torch.cuda.synchronize()
+                for k in counted:
+                    k.launches = 0
+                t = time.perf_counter()
+                got = apply(wins)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+            ref = torch.from_numpy(np.load(os.path.join(
+                tmp, f"sp_ps2d_logits_{dtype}.npy"))).to(dev)
+            out["region_eval"][dtype] = dict(
+                compare(got, ref), wall_s=wall,
+                launches={k.__name__: k.launches for k in counted})
+            del model, got, ref
         q.put((rank, True, out))
     except BaseException:
         q.put((rank, False, traceback.format_exc()))
@@ -765,9 +854,11 @@ def _spatial_rank(rank: int, world: int, rdv: str, tmp: str, q) -> None:
             dist.destroy_process_group()
 
 
-def spatial_model(dtype, dev):
+def spatial_model(dtype, dev, **region):
     """The spatial phase's model: ``Config()``'s at full width (remat on,
-    dropout 0.2), the ps2d region off, weights from seed 0."""
+    dropout 0.2), weights from seed 0; the ps2d region off, or as
+    ``region`` switches it on (``ps2d_train``, or ``ps2d_eval`` with
+    ``ps2d_levels``)."""
     from importlib import import_module
     cfg = import_module(PKG + ".config")
     models = import_module(PKG + ".models")
@@ -776,7 +867,7 @@ def spatial_model(dtype, dev):
           "not the full-width remat model")
     return models.UNet3D(features=mc.features, dropout_rate=mc.dropout_rate,
                          remat=mc.remat, compute_dtype=dtype, seed=0,
-                         device=dev)
+                         device=dev, **region)
 
 
 # phase spatial's device and window size (the batch is 2 x SIZE^3, each
@@ -784,9 +875,256 @@ def spatial_model(dtype, dev):
 SPATIAL_DEVICE, SPATIAL_SIZE = "cuda:0", 128
 
 
+def slab_kernels() -> dict:
+    """K1 (bf16 and f32) and K6 (bf16) on the level-0 D slab of phase
+    spatial's region, (2, SIZE/2 + 2, SIZE + 2, SIZE + 2, 32) with both
+    D halo planes live (a middle slab of a (2, SIZE^3) volume): K1 with
+    affine + ReLU + mask + statistics against its plain version (K1's
+    gates: 2^-7 / 1e-3 in bf16, 1e-5 / 1e-5 in f32), two runs
+    bit-identical, its interior bit-equal to the whole volume's K1 there
+    and its halo zero, and the same slab without live planes equal but
+    on the two edge planes; K6 (forward, data and weight gradients, a
+    cotangent with garbage on its halo) against its plain version, the
+    data gradient holding the live planes' cotangents. Then each timed
+    (CUDA events) beside the same form without live planes, its plain
+    version and the library's conv; rows for the kernels line."""
+    import torch
+    import torch.nn.functional as F
+    from importlib import import_module
+    T = import_module(PKG + ".ops.ps2d")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(SPATIAL_DEVICE)
+    g = torch.Generator(device=dev).manual_seed(7)
+    B, S, C = 2, SPATIAL_SIZE, 32
+    D, LO, live = S // 2, S // 4, (True, True)
+    label = f"({B},{D + 2},{S + 2},{S + 2},{C}) d_live=(1,1)"
+    rows = {}
+    for dtype, name, tol_y, tol_s, passes in (
+            (torch.bfloat16, "conv3d_halo", 2 ** -7, 1e-3, 1),
+            (torch.float32, "conv3d_halo_f32", 1e-5, 1e-5, 3)):
+        def rnd(shape, scale=1.0):
+            return (torch.randn(shape, device=dev, generator=g)
+                    * scale).to(dtype)
+        whole_x = T.pack_halo_plain(rnd((B, S, S, S, C)))
+        whole_m = T.pack_halo_plain(torch.rand(
+            (B, S, S, S, C), device=dev, generator=g).to(dtype))
+        w = rnd((3, 3, 3, C, C), (2 / (27 * C)) ** 0.5)
+        kw = dict(w=w, in_scale=1 + rnd((B, C), 0.3),
+                  in_shift=rnd((B, C), 0.3), in_relu=True, emit_stats=True)
+        x = whole_x[:, LO:LO + D + 2].contiguous()
+        m = whole_m[:, LO:LO + D + 2].contiguous()
+        slab = dict(xs=(x,), in_mul0=m, **kw)
+        y, (s1, s2) = T.conv3d_halo(d_live=live, **slab)
+        y2, (t1, t2) = T.conv3d_halo(d_live=live, **slab)
+        yr, (r1, r2) = T.conv3d_halo_plain(d_live=live, **slab)
+        whole = T.conv3d_halo((whole_x,), in_mul0=whole_m, **kw)[0]
+        y0 = T.conv3d_halo(**slab)[0]
+        torch.cuda.synchronize()
+        err = (y.float() - yr.float()).abs().max().item()
+        tol = tol_y * yr.float().abs().max().item()
+        serr = max(((a - b).abs().max() / b.abs().max()).item()
+                   for a, b in ((s1, r1), (s2, r2)))
+        same = (torch.equal(y, y2) and torch.equal(s1, t1)
+                and torch.equal(s2, t2))
+        exact = torch.equal(y[:, 1:-1], whole[:, LO + 1:LO + D + 1])
+        edges = (torch.equal(y0[:, 2:-2], y[:, 2:-2])
+                 and not torch.equal(y0[:, 1], y[:, 1])
+                 and not torch.equal(y0[:, -2], y[:, -2]))
+        zero = (y.float() * (1 - T.halo_mask(y).float())).abs().max().item()
+        print(f"{name} slab {label}, affine+ReLU+mask, stats: max_abs_err "
+              f"{err} (tolerance {tol}), stats rel err {serr} (tolerance "
+              f"{tol_s}); two runs bit-identical: {same}; interior equal to "
+              f"the whole volume's K1 bit for bit: {exact}; without live "
+              f"planes equal but the edge planes: {edges}; halo max "
+              f"{zero}")
+        check(err <= tol and serr <= tol_s,
+              f"{name} with live planes differs from its plain version")
+        check(same, f"{name} with live planes: two runs differ")
+        check(exact, f"{name} with live planes is not the whole volume's")
+        check(edges and zero == 0, f"{name}: the live planes' reach")
+        del whole, whole_x, whole_m, y2, yr, y0
+        xn = x[:, :, 1:-1, 1:-1].permute(0, 4, 1, 2, 3)   # channels-last
+        wn = w.permute(4, 3, 0, 1, 2).contiguous()
+        bms, by = bound_ms(nbytes(x, m, w, kw["in_scale"], kw["in_shift"],
+                                  y),
+                           passes * 2.0 * 27 * C * C * B * D * S * S)
+        fn = lambda: T.conv3d_halo(d_live=live, **slab)        # noqa: E731
+        row = {"shape": label + ", affine+ReLU+mask, stats",
+               "ms": event_ms(fn, 20),
+               "ms_d_live_00": event_ms(lambda: T.conv3d_halo(**slab), 20),
+               "plain_ms": event_ms(
+                   lambda: T.conv3d_halo_plain(d_live=live, **slab), 5),
+               "library_ms": event_ms(
+                   lambda: F.conv3d(xn, wn, padding=(0, 1, 1)), 20),
+               "ms_again": event_ms(fn, 20),
+               "bound_ms": bms, "bound_by": by, "max_abs_err": err,
+               "stats_rel_err": serr, "bit_equal_to_whole_volume": exact}
+        print(f"{name} slab {row['shape']}: kernel {row['ms']:.4f} / "
+              f"{row['ms_again']:.4f} ms, without live planes "
+              f"{row['ms_d_live_00']:.4f} ms, plain {row['plain_ms']:.4f} "
+              f"ms, library (F.conv3d) {row['library_ms']:.4f} ms, bound "
+              f"{bms:.4f} ms ({by})")
+        rows[name] = [row]
+        if dtype != torch.bfloat16:
+            continue
+        # K6 on the slab (bf16): the forward and both gradients
+        dy = T.pack_halo_plain(rnd((B, D, S, S, C)))
+        dy = dy + 100 * rnd(dy.shape) * (1 - T.halo_mask(dy))
+        x6 = x * T.halo_mask(x, live)     # zero H / W halo, live D planes
+
+        def run(fn, lv):
+            xr, wr = x6.clone().requires_grad_(), w.clone().requires_grad_()
+            yy = fn((xr,), wr, lv)
+            return [yy.detach(), *torch.autograd.grad(yy, [wr, xr], dy)]
+        got, ref = run(T.conv3d_halo_train, live), run(
+            T.conv3d_halo_train_plain, live)
+        torch.cuda.synchronize()
+        errs, worst = [], 0.0
+        for lab, a, b, t in zip(("y", "dw", "dx"), got, ref,
+                                (2 ** -7, 2 ** -5, 2 ** -5)):
+            e = (a.float() - b.float()).abs().max().item()
+            mx = b.float().abs().max().item()
+            worst = max(worst, e)
+            errs.append(f"{lab} {e:.5f} (tolerance {t * mx:.5f})")
+            check(e <= t * mx, f"K6 on the slab: {lab} differs from the "
+                  f"plain version ({e} > {t} * {mx})")
+        dx = got[2].float()
+        hw = (dx * (1 - T.halo_mask(got[2], live).float())).abs().max()
+        planes = min(dx[:, 0].abs().max().item(), dx[:, -1].abs().max().item())
+        print(f"conv3d_halo_train slab {label}: max_abs_err "
+              + ", ".join(errs) + f"; dx off the live planes' halo "
+              f"{hw.item()}, least live plane max|dx| {planes:.4f}")
+        check(hw.item() == 0 and planes > 0,
+              "K6 on the slab: the data gradient's halo")
+        xr6, wr6 = x6.clone().requires_grad_(), w.clone().requires_grad_()
+
+        def fwd_bwd(fn):
+            return lambda: torch.autograd.grad(fn((xr6,), wr6, live),
+                                               [wr6, xr6], dy)
+        dyn = T.halo_to_normal(dy).permute(0, 4, 1, 2, 3)
+        xn6 = x6[:, :, 1:-1, 1:-1].permute(0, 4, 1, 2, 3)
+
+        def library():
+            F.conv3d(xn6, wn, padding=(0, 1, 1))
+            torch.ops.aten.convolution_backward(
+                dyn, xn6, wn, None, [1, 1, 1], [0, 1, 1], [1, 1, 1], False,
+                [0, 0, 0], 1, [True, True, False])
+        bms, by = bound_ms(2 * nbytes(x6, w) + 2 * nbytes(dy),
+                           3 * 2.0 * 27 * C * C * B * D * S * S)
+        row = {"shape": label + ": fwd + data grad + weight grad",
+               "ms": event_ms(fwd_bwd(T.conv3d_halo_train), 10),
+               "plain_ms": event_ms(fwd_bwd(T.conv3d_halo_train_plain), 3),
+               "library_ms": event_ms(library, 10),
+               "bound_ms": bms, "bound_by": by, "max_abs_err": worst}
+        for piece, f in (
+                ("forward", lambda: T.conv3d_halo((x6,), w, d_live=live)),
+                ("data_grad", lambda: T.conv3d_halo_dgrad(dy, w, 0, [C],
+                                                          live)),
+                ("data_grad_d_live_00", lambda: T.conv3d_halo_dgrad(
+                    dy, w, 0, [C])),
+                ("weight_grad", lambda: T.conv3d_halo_wgrad((x6,), dy))):
+            row[f"{piece}_ms"] = event_ms(f, 10)
+        print(f"conv3d_halo_train slab {row['shape']}: {row['ms']:.4f} ms "
+              f"(forward {row['forward_ms']:.4f}, data grad "
+              f"{row['data_grad_ms']:.4f} [without live planes "
+              f"{row['data_grad_d_live_00_ms']:.4f}], weight grad "
+              f"{row['weight_grad_ms']:.4f}), plain {row['plain_ms']:.4f} "
+              f"ms, library {row['library_ms']:.4f} ms, bound {bms:.4f} "
+              f"ms ({by})")
+        rows["conv3d_halo_train"] = [row]
+        del got, ref, xr6, wr6, dy, x6
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def region_checks(ranks, ref, S) -> None:
+    """Phase spatial's region gates and prints: the bf16 ps2d_train step
+    on the slabs against one process's (loss within 1e-2 relative, least
+    leaf cosine >= 0.99, K1 7 launches a step and rank, the parameters
+    bit-identical across the ranks), the eval at ps2d_levels=2 (K1 7 /
+    K2 2 / K3 2 / K4 1 a rank; f32 within atol 1e-4, rtol 1e-3 of one
+    process, bf16 under the ps2d logit bounds and the margin rule); the
+    walls, the exchanges and the peaks."""
+    rr = ref["ps2d_bf16"]
+    rl = rr["losses"][0]
+    cmin = min(o["region"]["cos"][0] for o in ranks)
+    same = ranks[0]["region"]["sha"] == ranks[1]["region"]["sha"]
+    print(f"spatial region bf16 ps2d_train step (Config() defaults, remat, "
+          f"dropout 0.2), data 1 x space 2 (2 x {S // 2}-plane slabs) vs one"
+          f" process: first loss "
+          f"{[o['region']['losses'][0] for o in ranks]} vs {rl:.6f}, losses "
+          f"{[o['region']['losses'] for o in ranks]} vs {rr['losses']}, "
+          f"least leaf cosine {cmin:.6f} over "
+          f"{ranks[0]['region']['cos'][1]} leaves "
+          f"({ranks[0]['region']['cos'][3]}), launches a step "
+          f"{ranks[0]['region']['launches']}, parameters after 4 steps "
+          f"{'bit-identical' if same else 'DIFFER'} across ranks")
+    for r, o in enumerate(ranks):
+        g = o["region"]
+        check(abs(g["losses"][0] - rl) <= 1e-2 * abs(rl) and g["cos"][2],
+              f"rank {r}: region loss {g['losses']} vs {rl}")
+        check(all(c["conv3d_halo"] == 7 and sum(c.values()) == 7
+                  for c in g["launches"]),
+              f"rank {r}: region step launches {g['launches']}")
+    check(cmin >= 0.99, f"region gradient cosine {cmin}")
+    check(same, "region parameters differ across ranks")
+    want = {"conv3d_halo": 7, "up_k2s2_into_halo": 2, "pack_halo": 2,
+            "pool_into_halo": 1}
+    for dtype in ("float32", "bfloat16"):
+        e = [o["region_eval"][dtype] for o in ranks]
+        print(f"spatial region eval ({dtype}, 4 windows of {S}^3, "
+              f"ps2d_levels=2, through make_spatial_apply) vs one process: "
+              f"max |d| {[x['max'] for x in e]}, mean |d| "
+              f"{[x['mean'] for x in e]}, scale {e[0]['scale']:.4f}, label "
+              f"flips {[x['flips'] for x in e]}, at margin > 2x max drift "
+              f"{[x['wide'] for x in e]}; launches a rank "
+              f"{[x['launches'] for x in e]}; wall "
+              f"{[round(x['wall_s'], 4) for x in e]} s vs "
+              f"{ref[f'ps2d_eval_{dtype}_s']:.4f} s")
+        for x in e:
+            check(x["launches"] == want,
+                  f"region eval launches {x['launches']}")
+            if dtype == "float32":
+                check(x["within"], f"f32 region logits off: {x}")
+            else:
+                check(x["max"] <= 2 ** -5 * x["scale"]
+                      and x["mean"] <= 2 ** -9 * x["scale"]
+                      and x["wide"] == 0,
+                      f"bf16 region logits outside the ps2d bounds: {x}")
+    steady = [round(float(np.median(o["region"]["walls"][1:3])), 4)
+              for o in ranks]
+    print(f"spatial region step wall (host clock, s; median of steps 2-3): "
+          f"ranks {steady} (all "
+          f"{[[round(w, 4) for w in o['region']['walls']] for o in ranks]}) "
+          f"vs one process {float(np.median(rr['walls'][1:3])):.4f} "
+          f"({[round(w, 4) for w in rr['walls']]}); the instrumented 4th "
+          f"step {[round(o['region']['timed_step_s'], 4) for o in ranks]} s")
+    def gib(v):
+        return [round(x / 2 ** 30, 3) for x in v]
+    for r, o in enumerate(ranks):
+        c = o["region"]["collectives"]
+        peak = o["region"]["peak_bytes"]
+        later = max(o["region"]["step_peaks"][1:])
+        print(f"spatial region rank {r} collectives in one bf16 step (host "
+              f"clock, ms, count): " + ", ".join(
+                  f"{k} {c.get(k, (0, 0))[0]:.2f} ({c.get(k, (0, 0))[1]})"
+                  for k in ("planes", "halo", "norm", "loss", "grads"))
+              + f"; peak memory {peak / 2 ** 30:.2f} GiB vs one process "
+              f"{rr['peak_bytes'] / 2 ** 30:.2f} GiB "
+              f"({peak / rr['peak_bytes']:.3f}x); each step's own peak "
+              f"{gib(o['region']['step_peaks'])} GiB vs "
+              f"{gib(rr['step_peaks'])} (steps 2-3: "
+              f"{later / max(rr['step_peaks'][1:]):.3f}x); the normal "
+              f"path's {gib(o['bf16_step_peaks'])} vs "
+              f"{gib(ref['bf16']['step_peaks'])}")
+
+
 def spatial_phase() -> dict:
     """Phase spatial (see the module's docstring): one process's results
     first, saved for the ranks, then the two ranks; the gates."""
+    import gc
     import os
     import shutil
     import tempfile
@@ -796,6 +1134,7 @@ def spatial_phase() -> dict:
     train_mod = import_module(PKG + ".train")
     cfg = import_module(PKG + ".config")
     dev = torch.device(SPATIAL_DEVICE)
+    slab = slab_kernels()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_spatial_")
     out = {}
     try:
@@ -812,8 +1151,10 @@ def spatial_phase() -> dict:
         np.save(os.path.join(tmp, "windows.npy"), wins.cpu().numpy())
         tconf = cfg.Config()
         ref = {}
-        for dtype, steps in (("bfloat16", 3), ("float32", 1)):
-            model = spatial_model(dtype, dev)
+        runs = (("bfloat16", 3, {}), ("float32", 1, {}),
+                ("bfloat16", 3, {"ps2d_train": True}))
+        for dtype, steps, region in runs:
+            model = spatial_model(dtype, dev, **region)
             state = train_mod.create_train_state(model, tconf,
                                                  steps_per_epoch=10)
             seen = {}
@@ -828,7 +1169,7 @@ def spatial_phase() -> dict:
             g = torch.Generator(device=dev).manual_seed(1)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            walls, losses = [], []
+            walls, losses, peaks = [], [], []
             for _ in range(steps):
                 torch.cuda.synchronize()
                 t = time.perf_counter()
@@ -836,22 +1177,28 @@ def spatial_phase() -> dict:
                 torch.cuda.synchronize()
                 walls.append(time.perf_counter() - t)
                 losses.append(float(m["loss"]))
-            ref[dtype] = {"losses": losses, "walls": walls,
-                          "peak_bytes": torch.cuda.max_memory_allocated()}
-            short = {"bfloat16": "bf16", "float32": "f32"}[dtype]
+                peaks.append(torch.cuda.max_memory_allocated())
+                torch.cuda.reset_peak_memory_stats()
+            key = "ps2d_" * bool(region) + {"bfloat16": "bf16",
+                                            "float32": "f32"}[dtype]
+            ref[key] = {"losses": losses, "walls": walls,
+                        "peak_bytes": max(peaks), "step_peaks": peaks}
             torch.save({n: gr for (n, _), gr in zip(model.named_parameters(),
                                                     seen["grads"])},
-                       os.path.join(tmp, f"sp_{short}_grads.pt"))
+                       os.path.join(tmp, f"sp_{key}_grads.pt"))
             del model, state, step, seen
+            gc.collect()       # the state and its capture form a cycle
             torch.cuda.empty_cache()
-        for dtype in ("float32", "bfloat16"):
-            model = spatial_model(dtype, dev).eval()
+        evals = (("", {}), ("ps2d_", {"ps2d_eval": True, "ps2d_levels": 2}))
+        for (key, region), dtype in itertools.product(
+                evals, ("float32", "bfloat16")):
+            model = spatial_model(dtype, dev, **region).eval()
             torch.cuda.synchronize()
             t = time.perf_counter()
             logits = model(wins)
             torch.cuda.synchronize()
-            ref[f"eval_{dtype}_s"] = time.perf_counter() - t
-            np.save(os.path.join(tmp, f"sp_logits_{dtype}.npy"),
+            ref[f"{key}eval_{dtype}_s"] = time.perf_counter() - t
+            np.save(os.path.join(tmp, f"sp_{key}logits_{dtype}.npy"),
                     logits.cpu().numpy())
             del model, logits
         del image, mask, wins
@@ -868,13 +1215,13 @@ def spatial_phase() -> dict:
             check(not any(o["launches"].values()),
                   f"rank {r} launched kernels: {o['launches']}")
         b0, b1 = ranks[0]["bf16"], ranks[1]["bf16"]
-        rl = ref["bfloat16"]["losses"][0]
+        rl = ref["bf16"]["losses"][0]
         cmin = min(o["bf16"]["cos"][0] for o in ranks)
         print(f"spatial bf16 train step (Config() defaults, remat, dropout "
               f"0.2, full width), data 1 x space 2 on one card (2 x 64-plane"
               f" slabs of a batch 2 of 4x128^3) vs one process: first loss "
               f"{[o['bf16']['losses'][0] for o in ranks]} vs {rl:.6f}, "
-              f"losses {b0['losses']} vs {ref['bfloat16']['losses']}, least "
+              f"losses {b0['losses']} vs {ref['bf16']['losses']}, least "
               f"leaf cosine {cmin:.6f} over {b0['cos'][1]} leaves "
               f"({b0['cos'][3]}), "
               f"parameters after 4 steps "
@@ -886,7 +1233,7 @@ def spatial_phase() -> dict:
               f"vs {rl}")
         check(cmin >= 0.99, f"bf16 spatial gradient cosine {cmin}")
         check(b0["sha"] == b1["sha"], "bf16 parameters differ across ranks")
-        rl32 = ref["float32"]["losses"][0]
+        rl32 = ref["f32"]["losses"][0]
         c32 = min(o["f32"]["cos"][0] for o in ranks)
         same = ranks[0]["f32"]["sha"] == ranks[1]["f32"]["sha"]
         print(f"spatial f32 train step (full_f32): loss "
@@ -895,7 +1242,7 @@ def spatial_phase() -> dict:
               f"({ranks[0]['f32']['cos'][3]}), parameters "
               f"{'bit-identical' if same else 'DIFFER'} across ranks; wall "
               f"{[round(o['f32']['walls'][0], 4) for o in ranks]} s vs "
-              f"{ref['float32']['walls'][0]:.4f} s")
+              f"{ref['f32']['walls'][0]:.4f} s")
         check(all(abs(o["f32"]["losses"][0] - rl32) <= 1e-5 * abs(rl32)
                   and o["f32"]["cos"][2] for o in ranks),
               f"f32 spatial loss {[o['f32']['losses'] for o in ranks]} vs "
@@ -922,12 +1269,12 @@ def spatial_phase() -> dict:
                           f"bf16 spatial logits outside the ps2d bounds: "
                           f"{x}")
         steady = [float(np.median(o["bf16"]["walls"][1:3])) for o in ranks]
-        one = float(np.median(ref["bfloat16"]["walls"][1:3]))
+        one = float(np.median(ref["bf16"]["walls"][1:3]))
         print(f"spatial step wall (host clock, s; median of steps 2-3): "
               f"ranks {[round(v, 4) for v in steady]} (all "
               f"{[[round(w, 4) for w in o['bf16']['walls']] for o in ranks]})"
               f" vs one process {one:.4f} "
-              f"({[round(w, 4) for w in ref['bfloat16']['walls']]}); the "
+              f"({[round(w, 4) for w in ref['bf16']['walls']]}); the "
               f"instrumented 4th step {[round(o['timed_step_s'], 4) for o in ranks]} s")
         for r, o in enumerate(ranks):
             c = o["collectives"]
@@ -940,17 +1287,21 @@ def spatial_phase() -> dict:
                   f"({c.get('loss', (0, 0))[1]}), gradient reduction "
                   f"{c.get('grads', (0, 0))[0]:.2f} ({c.get('grads', (0, 0))[1]})"
                   f"; peak memory {o['peak_bytes'] / 2 ** 30:.2f} GiB vs one "
-                  f"process {ref['bfloat16']['peak_bytes'] / 2 ** 30:.2f} GiB"
-                  f" ({o['peak_bytes'] / ref['bfloat16']['peak_bytes']:.3f}x)")
+                  f"process {ref['bf16']['peak_bytes'] / 2 ** 30:.2f} GiB"
+                  f" ({o['peak_bytes'] / ref['bf16']['peak_bytes']:.3f}x)")
+        region_checks(ranks, ref, S)
         print(f"spatial: the two ranks' processes {ranks_s:.2f} s in all")
         out = {"step_s": steady, "ref_step_s": one,
                "walls": [o["bf16"]["walls"] for o in ranks],
-               "ref_walls": ref["bfloat16"]["walls"],
+               "ref_walls": ref["bf16"]["walls"],
                "peak_bytes": [o["peak_bytes"] for o in ranks],
-               "ref_peak_bytes": ref["bfloat16"]["peak_bytes"],
+               "ref_peak_bytes": ref["bf16"]["peak_bytes"],
                "collectives": [o["collectives"] for o in ranks],
                "bf16_cos": cmin, "f32_cos": c32,
-               "eval": [o["eval"] for o in ranks]}
+               "eval": [o["eval"] for o in ranks],
+               "region": [o["region"] for o in ranks],
+               "region_eval": [o["region_eval"] for o in ranks],
+               "ref_region": ref["ps2d_bf16"], "slab_kernels": slab}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return out
@@ -3745,7 +4096,12 @@ def main() -> int:
              "cli": report["cli"]["launches"],
              "parallel_dp_wave": report["parallel"]["dp"]["launches"],
              "groupnorm": report["groupnorm"]["launches"],
-             "wtile": report["wtile"]["launches"]}
+             "wtile": report["wtile"]["launches"],
+             "spatial_region_step": launches_of(
+                 **report["spatial"]["region"][0]["launches"][0]),
+             "spatial_region_eval": launches_of(
+                 **report["spatial"]["region_eval"][0]["bfloat16"][
+                     "launches"])}
     paths32 = {"f32region": report["f32region"]["launches"],
                "f32region_train": report["f32region"]["train_launches"],
                "f32region_wtile": report["f32region"]["wtile_launches"]}
@@ -3754,7 +4110,8 @@ def main() -> int:
                  "conv3d_same": "wtile",
                  "conv3d_halo_train_f32": "f32region_train",
                  "conv3d_same_f32": "f32region_wtile"}
-    train_paths = ("train", "trainer_steps", "f32region_train")
+    train_paths = ("train", "trainer_steps", "f32region_train",
+                   "spatial_region_step")
 
     def launches(name, path):
         """K6 has no kernel of its own: its launches are K1's on
@@ -3770,6 +4127,10 @@ def main() -> int:
             row["name"], "f32region" if f32_form else "server"))
         row["launches_by_path"] = {p: launches(row["name"], p)
                                    for p in (paths32 if f32_form else paths)}
+        # K1's and K6's forms on a D slab with live halo planes (phase
+        # spatial), timed there
+        if row["name"] in report["spatial"]["slab_kernels"]:
+            row["slab_forms"] = report["spatial"]["slab_kernels"][row["name"]]
 
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -3823,7 +4184,12 @@ def main() -> int:
           f"{[round(v, 4) for v in sp['step_s']]} s a rank against "
           f"{sp['ref_step_s']:.4f} s one process; peak "
           f"{[round(v / 2 ** 30, 2) for v in sp['peak_bytes']]} GiB against "
-          f"{sp['ref_peak_bytes'] / 2 ** 30:.2f} GiB")
+          f"{sp['ref_peak_bytes'] / 2 ** 30:.2f} GiB; the ps2d_train region "
+          f"step {[round(float(np.median(o['walls'][1:3])), 4) for o in sp['region']]}"
+          f" s a rank against "
+          f"{float(np.median(sp['ref_region']['walls'][1:3])):.4f} s, peak "
+          f"{[round(o['peak_bytes'] / 2 ** 30, 2) for o in sp['region']]} GiB "
+          f"against {sp['ref_region']['peak_bytes'] / 2 ** 30:.2f} GiB")
     print(f"total {time.perf_counter() - run.t0:.2f} s")
     print(json.dumps({"kernels": kernels_json}))
     print(smi)

@@ -379,7 +379,7 @@ def _legacy_k1(lib, xs, w, in_scale=None, in_shift=None, in_relu=False,
         xs[0].data_ptr(), T._ptr(xs[1]) if len(xs) > 1 else None, cis[0],
         cis[1] if len(xs) > 1 else 0, w.data_ptr(), T._ptr(sc), T._ptr(sh),
         int(in_relu), T._ptr(in_mul0), y.data_ptr(), stats.data_ptr(),
-        B, Dp - 2, Hp - 2, Wp - 2, co, T._stream()))
+        B, Dp - 2, Hp - 2, Wp - 2, co, T._stream(), 0))
     return y, (stats[:, 0], stats[:, 1])
 
 

@@ -121,6 +121,9 @@ struct Args {
   bf16* y;              // (B, D+2, H+2, W+2, co)
   float* part;          // (B, n_sp, 2, co) per-block sums, or null
   int D, H, W, ci_total, co;
+  int d_live;           // bit 0: plane 0, bit 1: plane D + 1 of every input
+                        // holds a D neighbour's values (loaded and
+                        // transformed as the interior); else zeros
 };
 
 // block geometry, chosen on the host
@@ -229,15 +232,16 @@ __global__ void __launch_bounds__(block_threads<N>(), specialised<N>() ? 1 : 2)
     }
   }
   // the input tile's (TD + 2, IH, IW) voxels, each one's index in the halo
-  // layout, or -1 outside the volume: computed once, so a copy costs no
-  // divisions
+  // layout, or -1 outside the volume (a live D halo plane is inside):
+  // computed once, so a copy costs no divisions
+  const int lo = a.d_live & 1, hi = (a.d_live >> 1) & 1;
   int* vox_tab = reinterpret_cast<int*>(smem + t.tab_off);
   for (unsigned p = tid; p < halo; p += kThreads) {
     const unsigned kz = p / plane, q = p - kz * plane;
     const unsigned ih = q / IW, iw = q - ih * IW;
     const int gd = d0 + (int)kz - 1, gh = h0 + (int)ih - 1, gw = w0 + (int)iw - 1;
-    const bool in = (unsigned)gd < (unsigned)a.D && (unsigned)gh < (unsigned)a.H &&
-                    (unsigned)gw < (unsigned)a.W;
+    const bool in = (unsigned)(gd + lo) < (unsigned)(a.D + lo + hi) &&
+                    (unsigned)gh < (unsigned)a.H && (unsigned)gw < (unsigned)a.W;
     vox_tab[p] = in ? ((b * Dp + gd + 1) * Hp + gh + 1) * Wp + gw + 1 : -1;
   }
   __syncthreads();
@@ -677,12 +681,18 @@ bool valid(int B, int D, int H, int W, int ci0, int ci1, int co) {
 // (n_sp from ps2d_conv3d_plan), every value of which the launch writes:
 // [b, i, 0, c] the sum and [b, i, 1, c] the sum of squares of channel c's
 // bf16 outputs inside block i's patch. ci0, ci1 multiples of 32; co 16
-// or a multiple of 32; every pointer 16 B aligned. Returns the launch's
+// or a multiple of 32; every pointer 16 B aligned. d_live: bit 0 (1)
+// says plane 0, bit 1 (2) plane D + 1 of every input (and of mul0) holds
+// a D neighbour's values, loaded and transformed as the interior; the
+// other halo voxels are read as zeros, the output's halo is zero and the
+// statistics sum the interior. It comes last, so that a build from
+// before it, called with 0, ignores it. Returns the launch's
 // cudaError_t.
 extern "C" int ps2d_conv3d(const void* x0, const void* x1, int ci0, int ci1,
                            const void* w, const void* scale, const void* shift,
                            int relu, const void* mul0, void* y, void* stats,
-                           int B, int D, int H, int W, int co, void* stream) {
+                           int B, int D, int H, int W, int co, void* stream,
+                           int d_live) {
   if (x1 == nullptr) ci1 = 0;
   if (!valid(B, D, H, W, ci0, ci1, co)) return (int)cudaErrorInvalidValue;
   const Plan p = plan(B, D, H, W, ci0, ci1, co);
@@ -704,6 +714,7 @@ extern "C" int ps2d_conv3d(const void* x0, const void* x1, int ci0, int ci1,
   a.W = W;
   a.ci_total = ci0 + ci1;
   a.co = co;
+  a.d_live = d_live & 3;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (p.MH == 2) return launch_n<32, 2>(a, B, p, s);
   return p.KC == 64 ? launch_n<64, 1>(a, B, p, s) : launch_n<32, 1>(a, B, p, s);

@@ -31,13 +31,18 @@ the compute dtype, on the kernels' bf16 or f32 forms, as JAX's kernels
 compute in their input's dtype.
 
 With a ``space_group`` (the ``space`` axis of a mesh, JAX's GSPMD
-partition of D) every forward runs the normal path on this rank's D slab
-of each activation: every 3x3x3 conv on the slab extended by one plane
-of each neighbour (``ops/conv.py::conv3d_slab``), every GroupNorm's
-statistics and the gates' pooling summed over the group; the transposed
-convs, the pools and the 1x1 convs need no neighbour while each slab's
-depth is even at every level. The train step passes the whole mesh's
-group as ``bn_group``.
+partition of D) every forward runs on this rank's D slab of each
+activation: every 3x3x3 conv of the normal path on the slab extended by
+one plane of each neighbour (``ops/conv.py::conv3d_slab``), every
+GroupNorm's statistics and the gates' pooling summed over the group; the
+transposed convs, the pools and the 1x1 convs need no neighbour while
+each slab's depth is even at every level. The ps2d regions run on the
+slab too, on the same kernels: each halo tensor's D halo planes are
+filled from the neighbours (``parallel/spatial.py::halo_exchange_planes``)
+just before the K1 / K6 that reads it, after the GroupNorm that made it,
+and K1 loads them as live planes. Deep heads at full resolution resize
+the slab extended by one edge-clamped plane of each neighbour and crop
+it. The train step passes the whole mesh's group as ``bn_group``.
 """
 
 from __future__ import annotations
@@ -62,6 +67,7 @@ from ..ops.ps2d import (conv1x1_halo, conv3d_halo, conv3d_halo_train,
                         max_pool3d_from_halo, pack_halo, pack_halo_plain,
                         pool_into_halo, up_k2s2_into_halo)
 from ..ops.resize import resize_trilinear
+from ..parallel.spatial import halo_exchange_d, halo_exchange_planes
 
 
 class GroupNorm(nn.Module):
@@ -79,21 +85,22 @@ class GroupNorm(nn.Module):
         return group_norm(x, self.scale, self.bias, self.num_groups,
                           self.eps, space_group)
 
-    def s2d(self, x):
+    def s2d(self, x, space_group=None):
         """The arithmetic of the JAX ``group_norm_s2d``."""
         return group_norm_s2d(x, self.scale, self.bias, self.num_groups,
-                              self.eps)
+                              self.eps, space_group)
 
-    def halo(self, x, sums=None):
+    def halo(self, x, sums=None, space_group=None):
         """On a halo tensor (JAX ``group_norm_flat``)."""
         return group_norm_halo(x, self.scale, self.bias, self.num_groups,
-                               self.eps, sums)
+                               self.eps, sums, space_group)
 
-    def halo_affine(self, x, sums=None):
+    def halo_affine(self, x, sums=None, space_group=None):
         """(scale, shift) for the next conv's on-load transform (JAX
         ``group_norm_flat_affine``)."""
         return group_norm_halo_affine(x, self.scale, self.bias,
-                                      self.num_groups, self.eps, sums)
+                                      self.num_groups, self.eps, sums,
+                                      space_group)
 
 
 class BatchNorm(nn.Module):
@@ -146,70 +153,94 @@ class DoubleConv3D(nn.Module):
             return out + x
         return out + self.gn_proj(self.proj(x), g)
 
-    def forward_entry(self, x):
+    def forward_entry(self, x, space_group=None):
         """The region's entry block (enc0; JAX ``_ps2d_entry``): conv1
         and the projection stay library ops on the few-channel NDHWC
         input; their outputs are packed into the halo layout (K3) and
         conv2 runs on K1 with gn1's affine + ReLU applied on load.
-        Returns the block's output in the halo layout."""
+        Returns the block's output in the halo layout. ``space_group``:
+        on this rank's D slab (the module's docstring)."""
         if self.in_ch == self.out_ch:
             raise ValueError("the entry block needs a projection residual")
-        out1 = pack_halo(self.conv1(x))
-        sc1, sh1 = self.gn1.halo_affine(out1)
+        g = space_group
+        out1 = pack_halo(self.conv1(x, g))
+        sc1, sh1 = self.gn1.halo_affine(out1, space_group=g)
+        out1, live = halo_exchange_planes(out1, g)
         out, st2 = conv3d_halo((out1,), self.conv2.kernel, in_scale=sc1,
-                               in_shift=sh1, in_relu=True, emit_stats=True)
-        out = torch.relu(self.gn2.halo(out, sums=st2))
-        return out + pack_halo(self.gn_proj.s2d(self.proj(x)))
+                               in_shift=sh1, in_relu=True, emit_stats=True,
+                               d_live=live)
+        out = torch.relu(self.gn2.halo(out, sums=st2, space_group=g))
+        return out + pack_halo(self.gn_proj.s2d(self.proj(x), g))
 
-    def forward_entry_train(self, x):
+    def forward_entry_train(self, x, space_group=None):
         """The entry block at train (JAX ``_ps2d_entry(trainable=True)``):
         conv1's output packed by K3's plain version (JAX's XLA pad),
         gn1 + ReLU as plain ops, conv2 on K6; the projection residual on
         the NDHWC input, packed at the add."""
         if self.in_ch == self.out_ch:
             raise ValueError("the entry block needs a projection residual")
+        g = space_group
         # GroupNorm.halo re-zeroes the halo after its affine: relu(gn(x))
         # would otherwise leave relu(shift) there, which the plain K1
         # reads and the card's K1 ignores (the CPU and card answers split)
-        out = torch.relu(self.gn1.halo(pack_halo_plain(self.conv1(x))))
-        out = conv3d_halo_train((out,), self.conv2.kernel)
-        out = torch.relu(self.gn2.halo(out))
-        return out + pack_halo_plain(self.gn_proj.s2d(self.proj(x)))
+        out = torch.relu(self.gn1.halo(pack_halo_plain(self.conv1(x, g)),
+                                       space_group=g))
+        out, live = halo_exchange_planes(out, g)
+        out = conv3d_halo_train((out,), self.conv2.kernel, live)
+        out = torch.relu(self.gn2.halo(out, space_group=g))
+        return out + pack_halo_plain(self.gn_proj.s2d(self.proj(x), g))
 
-    def forward_halo_train(self, xs):
+    def forward_halo_train(self, xs, space_group=None):
         """The dec0 block on halo tensors at train (JAX ``_ps2d(trainable=
         True)``): both convs on K6 (the inputs' concat in its K), the
         GroupNorms and ReLUs as plain ops, the projection residual; the
         gate was applied by the caller."""
-        out = conv3d_halo_train(xs, self.conv1.kernel)
-        out = torch.relu(self.gn1.halo(out))
-        out = conv3d_halo_train((out,), self.conv2.kernel)
-        out = torch.relu(self.gn2.halo(out))
-        return out + self.gn_proj.halo(conv1x1_halo(xs, self.proj.kernel))
+        g = space_group
+        xs_live, live = _exchanged(xs, g)
+        out = conv3d_halo_train(xs_live, self.conv1.kernel, live)
+        out = torch.relu(self.gn1.halo(out, space_group=g))
+        out, live = halo_exchange_planes(out, g)
+        out = conv3d_halo_train((out,), self.conv2.kernel, live)
+        out = torch.relu(self.gn2.halo(out, space_group=g))
+        return out + self.gn_proj.halo(conv1x1_halo(xs, self.proj.kernel),
+                                       space_group=g)
 
-    def forward_halo(self, xs, gate=None):
+    def forward_halo(self, xs, gate=None, space_group=None):
         """The block on halo tensors (JAX ``_ps2d``): ``xs`` is a tuple
         whose channel concat is the input (folded into K1's K, never
         stored). ``gate`` = (psi (B, D+2, H+2, W+2, 1), se (B, c0)) from
         ``AttentionGate3D.fold_halo`` gates input 0 inside conv1's load
         and inside the projection's weights."""
+        g = space_group
         psi = se = mask0 = None
+        xs_live, live = _exchanged(xs, g)
         if gate is not None:
             psi, se = gate
-            mask0 = psi * se.to(psi.dtype)[:, None, None, None, :]
-        out, st1 = conv3d_halo(xs, self.conv1.kernel, in_mul0=mask0,
-                               emit_stats=True)
-        sc1, sh1 = self.gn1.halo_affine(out, sums=st1)
+            # K1 reads the mask on the live planes too: the neighbour's psi
+            mask0 = (halo_exchange_planes(psi, g)[0]
+                     * se.to(psi.dtype)[:, None, None, None, :])
+        out, st1 = conv3d_halo(xs_live, self.conv1.kernel, in_mul0=mask0,
+                               emit_stats=True, d_live=live)
+        sc1, sh1 = self.gn1.halo_affine(out, sums=st1, space_group=g)
+        out, live = halo_exchange_planes(out, g)
         out, st2 = conv3d_halo((out,), self.conv2.kernel, in_scale=sc1,
-                               in_shift=sh1, in_relu=True, emit_stats=True)
-        out = torch.relu(self.gn2.halo(out, sums=st2))
+                               in_shift=sh1, in_relu=True, emit_stats=True,
+                               d_live=live)
+        out = torch.relu(self.gn2.halo(out, sums=st2, space_group=g))
         if self.in_ch == self.out_ch:
             if len(xs) != 1 or gate is not None:
                 raise ValueError("identity residual needs a single "
                                  "ungated input")
             return out + xs[0]
         res = conv1x1_halo(xs, self.proj.kernel, None, se0=se, psi0=psi)
-        return out + self.gn_proj.halo(res)
+        return out + self.gn_proj.halo(res, space_group=g)
+
+
+def _exchanged(xs, group):
+    """Each halo tensor of ``xs`` with its D halo planes filled from the
+    neighbours, and their ``d_live`` (the same for all)."""
+    pairs = [halo_exchange_planes(x, group) for x in xs]
+    return tuple(p[0] for p in pairs), pairs[0][1]
 
 
 class AttentionGate3D(nn.Module):
@@ -240,26 +271,29 @@ class AttentionGate3D(nn.Module):
         psi = torch.sigmoid(self.gn_psi(self.psi(torch.relu(g1 + x1)), sg))
         return x * psi * self._se(global_avg_pool(x, sg))
 
-    def fold_halo(self, g, x):
+    def fold_halo(self, g, x, space_group=None):
         """On halo tensors, returning the factors instead of the gated
         skip (JAX ``_ps2d(fold=True)``): psi (B, D+2, H+2, W+2, 1) — 0.5
-        on the halo, where x is zero — and se (B, C)."""
+        on the halo, where x is zero — and se (B, C). ``space_group``:
+        on D slabs, the statistics and the pooling over the group."""
         if g.shape != x.shape:
             raise ValueError("the halo gate needs matching g/x shapes")
+        sg = space_group
 
         def branch(conv, gn, t):
-            return gn.halo(conv1x1_halo((t,), conv.kernel, conv.bias))
+            return gn.halo(conv1x1_halo((t,), conv.kernel, conv.bias),
+                           space_group=sg)
 
         psi = torch.relu(branch(self.w_g, self.gn_g, g)
                          + branch(self.w_x, self.gn_x, x))
         psi = torch.sigmoid(branch(self.psi, self.gn_psi, psi))
-        se = self._se(global_avg_pool_halo(x))
+        se = self._se(global_avg_pool_halo(x, sg))
         return psi, se.reshape(x.shape[0], x.shape[-1])
 
-    def forward_halo(self, g, x):
+    def forward_halo(self, g, x, space_group=None):
         """The gated skip on halo tensors (JAX ``_ps2d(fold=False)``, the
         train path): x * psi * se, zero on the halo."""
-        psi, se = self.fold_halo(g, x)
+        psi, se = self.fold_halo(g, x, space_group)
         return x * psi * se[:, None, None, None, :]
 
 
@@ -395,32 +429,37 @@ class UNet3D(nn.Module):
             return checkpoint(block, x, space_group, use_reentrant=False)
         return block(x, space_group)
 
-    def check_slab(self, depth: int, ranks: int, train: bool) -> None:
+    def check_slab(self, depth: int, ranks: int) -> None:
         """Refuse what the slab forward cannot run: a slab ``depth`` whose
         pools would leave an odd depth before the bottleneck (the global
-        depth must be a multiple of ``ranks * 2^len(features)``), the
-        ps2d region, and deep heads at full resolution."""
+        depth must be a multiple of ``ranks * 2^len(features)``); the
+        ps2d regions' pools and K2's doubling need no more."""
         n = len(self.features)
-        if self.ps2d_train if train else self.ps2d_eval:
-            raise NotImplementedError(
-                "the ps2d region on D slabs (mesh space > 1) comes with "
-                "the next spatial slice; build the model without "
-                "ps2d_train / ps2d_eval")
-        if train and self.deep_sup_full_res:
-            raise NotImplementedError(
-                "deep_sup_full_res on D slabs (its trilinear resize reads "
-                "the D neighbours) is left for a later spatial slice")
         if depth % 2 ** n:
             raise ValueError(
                 f"a D slab of {depth} planes over {ranks} ranks: the global "
                 f"depth {depth * ranks} must be a multiple of space * "
                 f"2^{n} = {ranks * 2 ** n}")
 
-    def _deep(self, i: int, x, full):
+    def _deep(self, i: int, x, full, space_group=None):
         """Deep-supervision head i (train only), at its level's scale or
-        resized to the input's."""
+        resized to the input's (``full``, the whole volume's shape). On
+        a D slab the head at 1/f of the depth is extended by one
+        edge-clamped plane of each neighbour, resized by f (JAX's
+        half-pixel linear resize reads no further) and cropped by f
+        planes each side: the slab of the whole volume's resize."""
         d = getattr(self, f"deep{i}")(x)
-        return resize_trilinear(d, full) if self.deep_sup_full_res else d
+        if not self.deep_sup_full_res:
+            return d
+        if space_group is None:
+            return resize_trilinear(d, full)
+        n = d.shape[1]
+        f = full[0] // (n * dist.get_world_size(space_group))
+        if f == 1:
+            return resize_trilinear(d, (n,) + tuple(full[1:]))
+        ext = halo_exchange_d(d, 1, space_group, "edge")
+        return resize_trilinear(ext, ((n + 2) * f,) + tuple(full[1:]))[
+            :, f:-f]
 
     def _forward(self, x, train: bool, generator=None, bn_stats=None,
                  bn_group=None, space_group=None):
@@ -431,7 +470,7 @@ class UNet3D(nn.Module):
         full = tuple(x.shape[1:4])
         if sg is not None:
             k = dist.get_world_size(sg)
-            self.check_slab(full[0], k, train)
+            self.check_slab(full[0], k)
             full = (full[0] * k,) + full[1:]
         if min(full) < 2 ** n:
             raise ValueError(f"input spatial dims {full} too small for {n} "
@@ -446,18 +485,18 @@ class UNet3D(nn.Module):
         for i in range(n):
             block = getattr(self, f"down{i}")
             if i < halo and train:
-                x = block.forward_entry_train(x)
+                x = block.forward_entry_train(x, sg)
                 skips.append(x)
                 x = halo_to_normal(x)
                 if i < n - 1:
-                    deep.append(self._deep(i, x, full))
+                    deep.append(self._deep(i, x, full, sg))
                 x = max_pool3d(x)
             elif i < halo:
                 # the skip stays in the halo layout until its decoder
                 # stage; level 0 pools straight into the level-1 halo
                 # layout (K4) when level 1 is a region too
-                x = (block.forward_entry(x) if i == 0
-                     else block.forward_halo((x,)))
+                x = (block.forward_entry(x, sg) if i == 0
+                     else block.forward_halo((x,), space_group=sg))
                 skips.append(x)
                 x = (pool_into_halo(x) if i + 1 < halo
                      else max_pool3d_from_halo(x))
@@ -465,7 +504,7 @@ class UNet3D(nn.Module):
                 x = self._block(block, x, train, sg)
                 skips.append(x)
                 if train and i < n - 1:
-                    deep.append(self._deep(i, x, full))
+                    deep.append(self._deep(i, x, full, sg))
                 x = max_pool3d(x)
             if train:
                 # channel dropout: one mask value per (batch, channel)
@@ -480,13 +519,14 @@ class UNet3D(nn.Module):
                 # the library up into the halo layout; the gate applied
                 # as plain ops, then both convs on K6
                 up_h = up.halo_train(x)
-                skip_g = att.forward_halo(g=up_h, x=skip)
-                x = halo_to_normal(dec.forward_halo_train((skip_g, up_h)))
+                skip_g = att.forward_halo(g=up_h, x=skip, space_group=sg)
+                x = halo_to_normal(dec.forward_halo_train((skip_g, up_h),
+                                                          sg))
             elif n - 1 - i < halo:
                 # halo_levels' gate makes the up double back exactly
                 up_h = up_k2s2_into_halo(x, up.kernel, up.bias)
-                gate = att.fold_halo(g=up_h, x=skip)
-                x = halo_to_normal(dec.forward_halo((skip, up_h), gate))
+                gate = att.fold_halo(g=up_h, x=skip, space_group=sg)
+                x = halo_to_normal(dec.forward_halo((skip, up_h), gate, sg))
             else:
                 x = up(x)
                 x_att = att(g=x, x=skip, space_group=sg)

@@ -30,12 +30,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_K1 = (_P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P)
+_K1 = (_P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+       _I)
 _K2 = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
 _K7 = (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
 # C entry points: name -> argument types (every one returns cudaError_t);
 # the f32 forms of K1 and K2 take the bf16 forms' arguments (K1's weights
-# as bf16 in both); K7's f32 form takes scratch for its weights' split
+# as bf16 in both; its live D halo planes last, after the stream); K7's f32 form takes scratch for its weights' split
 # after w, and that split, the first of its two kernels, has an entry of
 # its own for timing
 SIGNATURES = {

@@ -33,19 +33,18 @@ def group_affine(s1: torch.Tensor, s2: torch.Tensor, gamma: torch.Tensor,
     return rstd_c * gm, beta.float() - mean_c * rstd_c * gm
 
 
-def sharded_moments(xf: torch.Tensor, group):
-    """Per-(sample, channel) means of f32 (N, ..., C) ``xf`` and of its
-    square over a volume whose slabs lie on the ranks of ``group``: the
-    slab's sums and voxel count, summed over the group by one
-    differentiable all-reduce (its backward sums the moments' cotangents
-    over the group), then divided."""
+def group_means(sums, count: int, group=None):
+    """Sums over this rank's ``count`` voxels -> the means over the
+    volume whose D slabs (of ``count`` voxels each) lie on the ranks of
+    ``group``: the sums added over the group by one differentiable
+    all-reduce (its backward sums their cotangents over the group), then
+    divided by the group's count; without a group, ``sums / count``."""
+    if group is None:
+        return [s / count for s in sums]
+    import torch.distributed as dist
     from ..parallel.mesh import all_reduce_sum
-    axes = tuple(range(1, xf.ndim - 1))
-    count = torch.full((xf.shape[0], xf.shape[-1]),
-                       float(xf[0, ..., 0].numel()), device=xf.device)
-    s = all_reduce_sum(torch.stack([xf.sum(axes), xf.square().sum(axes),
-                                    count]), group)
-    return s[0] / s[2], s[1] / s[2]
+    total = all_reduce_sum(torch.stack(list(sums)), group)
+    return [s / (count * dist.get_world_size(group)) for s in total]
 
 
 def group_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -55,25 +54,29 @@ def group_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     and the affine in f32, one rounding to ``x.dtype`` at the end.
     ``group``: ``x`` is this rank's D slab of a volume sharded over that
     process group (the ``space`` group); the statistics are the whole
-    volume's (``sharded_moments``)."""
+    volume's (``group_means``)."""
     axes = tuple(range(1, x.ndim - 1))
     xf = x.float()
     moments = ((xf.mean(axes), xf.square().mean(axes)) if group is None
-               else sharded_moments(xf, group))
+               else group_means((xf.sum(axes), xf.square().sum(axes)),
+                                xf[0, ..., 0].numel(), group))
     scale, shift = group_affine(*moments, gamma, beta, num_groups, eps)
     shape = (x.shape[0],) + (1,) * (x.ndim - 2) + (x.shape[-1],)
     return (xf * scale.reshape(shape) + shift.reshape(shape)).to(x.dtype)
 
 
-def bf16_moments(x: torch.Tensor, count: int):
+def bf16_moments(x: torch.Tensor, count: int, group=None):
     """Per-channel means of an (N, ..., C) tensor and of its square over
     ``count`` voxels: f32 accumulation of the values, and of the squares
     rounded to ``x.dtype`` (the JAX ``group_norm_s2d`` and
     ``group_norm_flat`` statistics, bf16 there). ``count`` is the true voxel count,
-    so zero padding in ``x`` does not change the result."""
+    so zero padding in ``x`` does not change the result. ``group``:
+    ``x`` is this rank's D slab of a volume sharded over that group
+    (``group_means``)."""
     axes = tuple(range(1, x.ndim - 1))
-    return (x.sum(axes, dtype=torch.float32) / count,
-            x.square().sum(axes, dtype=torch.float32) / count)
+    return group_means((x.sum(axes, dtype=torch.float32),
+                        x.square().sum(axes, dtype=torch.float32)), count,
+                       group)
 
 
 def apply_affine(x: torch.Tensor, scale: torch.Tensor,
@@ -87,11 +90,12 @@ def apply_affine(x: torch.Tensor, scale: torch.Tensor,
 
 def group_norm_s2d(x: torch.Tensor, gamma: torch.Tensor,
                    beta: torch.Tensor, num_groups: int,
-                   eps: float = 1e-5) -> torch.Tensor:
+                   eps: float = 1e-5, group=None) -> torch.Tensor:
     """GroupNorm with the arithmetic of the JAX ``group_norm_s2d``:
-    ``bf16_moments`` statistics, affine applied in ``x.dtype``."""
+    ``bf16_moments`` statistics (over ``group``'s slabs), affine applied
+    in ``x.dtype``."""
     count = x[0, ..., 0].numel()
-    scale, shift = group_affine(*bf16_moments(x, count), gamma, beta,
+    scale, shift = group_affine(*bf16_moments(x, count, group), gamma, beta,
                                 num_groups, eps)
     return apply_affine(x, scale, shift)
 

@@ -39,6 +39,14 @@ as six over an exact split of its activations and its weights
 A wrapper takes its plain version for tensors on the CPU only; for a
 CUDA tensor it launches its kernel or raises. Each keeps a count of its
 launches in ``<wrapper>.launches``.
+
+On a D slab of a volume sharded over a ``space`` group, the region runs
+per slab: K1 and K6 take ``d_live`` = (lo, hi), which says that plane 0
+and/or plane D+1 of every input holds a D neighbour's values (written
+there by ``parallel/spatial.py::halo_exchange_planes``) and is loaded
+and transformed as the interior; the GroupNorms and the gate's pooling
+sum over the slab and then over the ``group``. K2-K4 and the pointwise
+glue need no neighbour while each slab's depth is even.
 """
 
 from __future__ import annotations
@@ -48,8 +56,11 @@ import torch.nn.functional as F
 from torch.nn.grad import conv3d_weight
 
 from .conv import BF16, F32, SPLIT6_PASSES, accumulate, matmul, split3_bf16
-from .norm import apply_affine, bf16_moments, group_affine
+from .norm import apply_affine, bf16_moments, group_affine, group_means
 from .pool import max_pool3d
+
+# no live D halo plane: the one-process region, and a slab at both ends
+NO_LIVE = (False, False)
 
 # ----------------------------------------------------------------------
 # launch plumbing
@@ -110,12 +121,14 @@ def _lib():
 # ----------------------------------------------------------------------
 
 
-def halo_mask(x: torch.Tensor) -> torch.Tensor:
+def halo_mask(x: torch.Tensor, d_live=NO_LIVE) -> torch.Tensor:
     """(1, D+2, H+2, W+2, 1) mask of a halo tensor: 1 inside, 0 on the
-    halo, in ``x``'s dtype."""
+    halo, in ``x``'s dtype; 1 also on a live D halo plane (``d_live`` =
+    (plane 0, plane D+1))."""
     Dp, Hp, Wp = x.shape[1:4]
+    lo, hi = (int(bool(v)) for v in d_live)
     m = torch.zeros((1, Dp, Hp, Wp, 1), dtype=x.dtype, device=x.device)
-    m[:, 1:-1, 1:-1, 1:-1] = 1
+    m[:, 1 - lo:Dp - 1 + hi, 1:-1, 1:-1] = 1
     return m
 
 
@@ -317,9 +330,11 @@ def _k1_weights(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return w + (wr.to(dtype) - w).detach()
 
 
-def _transform_inputs(xs, in_scale, in_shift, in_relu, in_mul0):
+def _transform_inputs(xs, in_scale, in_shift, in_relu, in_mul0,
+                      d_live=NO_LIVE):
     """The on-load transform of K1 as tensor ops in the inputs' dtype,
-    each step rounded as the kernel rounds it."""
+    each step rounded as the kernel rounds it; a live D halo plane is
+    transformed as the interior."""
     B = xs[0].shape[0]
     affine = in_scale is not None or in_shift is not None
     if affine:
@@ -336,7 +351,7 @@ def _transform_inputs(xs, in_scale, in_shift, in_relu, in_mul0):
             v = v * sc + sh
             if in_relu:
                 v = torch.relu(v)
-            v = v * halo_mask(v)
+            v = v * halo_mask(v, d_live)
         if i == 0 and in_mul0 is not None:
             v = v * in_mul0
         vs.append(v)
@@ -345,11 +360,13 @@ def _transform_inputs(xs, in_scale, in_shift, in_relu, in_mul0):
 
 
 def conv3d_halo_plain(xs, w, in_scale=None, in_shift=None, in_relu=False,
-                      in_mul0=None, emit_stats=False):
+                      in_mul0=None, emit_stats=False, d_live=NO_LIVE):
     """Plain version of K1: transform, concat, one VALID conv over the
     halo (== SAME conv of the interior) with f32 accumulation, in the
-    inputs' dtype with the weights' values rounded to bf16."""
-    vs = _transform_inputs(xs, in_scale, in_shift, in_relu, in_mul0)
+    inputs' dtype with the weights' values rounded to bf16. The
+    statistics are f32 sums (float64 ones for float64 inputs)."""
+    vs = _transform_inputs(xs, in_scale, in_shift, in_relu, in_mul0,
+                           d_live)
     xcat = torch.cat(vs, dim=-1) if len(vs) > 1 else vs[0]
     wn = _k1_weights(w, xcat.dtype).permute(4, 3, 0, 1, 2).contiguous()
     y = accumulate(F.conv3d, xcat.permute(0, 4, 1, 2, 3), wn)
@@ -357,12 +374,12 @@ def conv3d_halo_plain(xs, w, in_scale=None, in_shift=None, in_relu=False,
     out = pack_halo_plain(y)
     if not emit_stats:
         return out
-    yf = y.float()
+    yf = y.to(torch.promote_types(y.dtype, torch.float32))
     return out, (yf.sum((1, 2, 3)), yf.square().sum((1, 2, 3)))
 
 
 def conv3d_halo(xs, w, in_scale=None, in_shift=None, in_relu=False,
-                in_mul0=None, emit_stats=False):
+                in_mul0=None, emit_stats=False, d_live=NO_LIVE):
     """K1 (JAX ``ps2d_conv3d_flat_multi``): bias-free 3x3x3 SAME conv
     of the channel concat of 1-2 halo tensors (the concat is never
     stored), bf16 or f32 in, f32 accumulation, halo-layout out in the
@@ -377,6 +394,10 @@ def conv3d_halo(xs, w, in_scale=None, in_shift=None, in_relu=False,
       multiplier on input 0 (the attention gate's psi * SE).
     * ``emit_stats``: also return ``(s1, s2)``, each (B, co) f32, the
       per-channel sum and sum of squares of the output.
+    * ``d_live`` (lo, hi): plane 0 / plane D+1 of every input (and of
+      ``in_mul0``) holds a D neighbour's values, loaded and transformed
+      as the interior; the output is this slab's interior with a zero
+      halo, its statistics the interior's.
 
     Kernel limits: each input's channels a multiple of 32, co 16 or a
     multiple of 32."""
@@ -385,7 +406,7 @@ def conv3d_halo(xs, w, in_scale=None, in_shift=None, in_relu=False,
         raise ValueError("conv3d_halo: in_relu applies after an affine")
     if _on_cpu(xs[0]):
         return conv3d_halo_plain(xs, w, in_scale, in_shift, in_relu,
-                                 in_mul0, emit_stats)
+                                 in_mul0, emit_stats, d_live)
     B, Dp, Hp, Wp, _ = xs[0].shape
     cis = [x.shape[-1] for x in xs]
     ci_total, co = sum(cis), w.shape[-1]
@@ -428,7 +449,8 @@ def conv3d_halo(xs, w, in_scale=None, in_shift=None, in_relu=False,
         xs[0].data_ptr(), _ptr(xs[1]) if len(xs) > 1 else None, cis[0],
         ci1, wb.data_ptr(), _ptr(sc), _ptr(sh),
         int(in_relu), _ptr(in_mul0), y.data_ptr(), _ptr(parts),
-        B, Dp - 2, Hp - 2, Wp - 2, co, _stream()))
+        B, Dp - 2, Hp - 2, Wp - 2, co, _stream(),
+        int(bool(d_live[0])) | 2 * int(bool(d_live[1]))))
     conv3d_halo.launches += 1
     if not emit_stats:
         return y
@@ -503,19 +525,35 @@ pool_into_halo.launches = 0
 # ----------------------------------------------------------------------
 
 
-def conv3d_halo_dgrad(dy: torch.Tensor, w: torch.Tensor, i: int, cis):
+def conv3d_halo_dgrad(dy: torch.Tensor, w: torch.Tensor, i: int, cis,
+                      d_live=NO_LIVE):
     """K6's data gradient for input ``i`` of a conv of inputs with
     ``cis`` channels: K1 on the cotangent ``dy`` (halo layout) with the
     flipped taps of that input's slice of ``w``, ci and co swapped (the
     transpose of a SAME 3x3x3 conv), and the identity on-load affine,
     as JAX's backward runs it (``ps2d.py:856-877``): the output's halo
     is a constant zero, so its cotangent must not reach dx. The plain K1
-    zeroes the halo under an affine; the card's K1 never loads it."""
+    zeroes the halo under an affine; the card's K1 never loads it.
+
+    With a live D halo plane the input's planes 0 and D+1 were read too,
+    and their cotangents go back to the neighbours that sent them: K1
+    runs on dy's interior padded with two zero planes each side in D, a
+    halo tensor of D+2 interior planes, whose output's interior is the
+    cotangent of all D+2 input planes (H and W halo zero); a plane that
+    was not live gets zero, as the one-process K6 gives its halo."""
     off = sum(cis[:i])
     w_t = w[:, :, :, off:off + cis[i]].flip(0, 1, 2).transpose(3, 4)
     ones = torch.ones((dy.shape[0], dy.shape[-1]), dtype=dy.dtype,
                       device=dy.device)
-    return conv3d_halo((dy,), w_t, in_scale=ones, in_shift=ones * 0)
+    if not any(d_live):
+        return conv3d_halo((dy,), w_t, in_scale=ones, in_shift=ones * 0)
+    dyp = F.pad(dy[:, 1:-1], (0, 0, 0, 0, 0, 0, 2, 2))
+    dx = conv3d_halo((dyp,), w_t, in_scale=ones, in_shift=ones * 0)
+    dx = dx[:, 1:-1]
+    for plane, live in zip((0, -1), d_live):
+        if not live:
+            dx[:, plane] = 0
+    return dx.contiguous()
 
 
 def conv3d_halo_wgrad(xs, dy: torch.Tensor) -> torch.Tensor:
@@ -536,27 +574,30 @@ def conv3d_halo_wgrad(xs, dy: torch.Tensor) -> torch.Tensor:
 class _ConvHaloTrain(torch.autograd.Function):
     """K1 with a backward (JAX ``ps2d_conv3d_flat_train``'s custom VJP,
     ``ps2d.py:839-890``): the data gradients on K1, the weight gradient
-    a library call, both blind to the cotangent's halo."""
+    a library call, both blind to the cotangent's halo. The weight
+    gradient reads the inputs' live D halo planes as they are (their
+    other halo voxels are zero)."""
 
     @staticmethod
-    def forward(ctx, w, *xs):
+    def forward(ctx, w, d_live, *xs):
         ctx.save_for_backward(w, *xs)
-        return conv3d_halo(xs, w)
+        ctx.d_live = d_live
+        return conv3d_halo(xs, w, d_live=d_live)
 
     @staticmethod
     def backward(ctx, dy):
         w, *xs = ctx.saved_tensors
         dy = _aligned(dy)               # in its own dtype, the output's
         cis = [x.shape[-1] for x in xs]
-        dxs = [conv3d_halo_dgrad(dy, w, i, cis)
-               if ctx.needs_input_grad[1 + i] else None
+        dxs = [conv3d_halo_dgrad(dy, w, i, cis, ctx.d_live)
+               if ctx.needs_input_grad[2 + i] else None
                for i in range(len(xs))]
         dw = (conv3d_halo_wgrad(xs, dy).to(w.dtype)
               if ctx.needs_input_grad[0] else None)
-        return (dw, *dxs)
+        return (dw, None, *dxs)
 
 
-def conv3d_halo_train(xs, w) -> torch.Tensor:
+def conv3d_halo_train(xs, w, d_live=NO_LIVE) -> torch.Tensor:
     """K6 (JAX ``ps2d_conv3d_flat_train``): ``conv3d_halo(xs, w)`` (bf16
     or f32 halo tensors in, the halo-layout output in their dtype) with
     gradients to every input and to ``w``. On CUDA tensors the forward
@@ -564,16 +605,19 @@ def conv3d_halo_train(xs, w) -> torch.Tensor:
     ``conv3d_halo.launches``); on the CPU they run K1's plain version.
     The weight gradient is a library weight-grad conv, as JAX's is
     XLA's (in f32 with TF32 off for f32 tensors). No fused transforms:
-    the train path applies its GroupNorms as separate ops."""
-    return _ConvHaloTrain.apply(w.to(xs[0].dtype), *xs)
+    the train path applies its GroupNorms as separate ops. ``d_live``
+    as ``conv3d_halo``'s: the live planes are read, and each input's
+    gradient then holds their cotangents too."""
+    return _ConvHaloTrain.apply(w.to(xs[0].dtype), tuple(d_live), *xs)
 
 
-def conv3d_halo_train_plain(xs, w) -> torch.Tensor:
+def conv3d_halo_train_plain(xs, w, d_live=NO_LIVE) -> torch.Tensor:
     """Plain version of K6: autograd through ``conv3d_halo_plain``, the
-    inputs' halos masked (zero, and passing no gradient) and the
-    output's halo a constant (its cotangent dropped)."""
-    xs = [x * halo_mask(x) for x in xs]
-    return conv3d_halo_plain(xs, w.to(xs[0].dtype))
+    inputs' halos but their live D planes masked (zero, and passing no
+    gradient) and the output's halo a constant (its cotangent
+    dropped)."""
+    xs = [x * halo_mask(x, d_live) for x in xs]
+    return conv3d_halo_plain(xs, w.to(xs[0].dtype), d_live=d_live)
 
 
 KERNELS = (conv3d_halo, up_k2s2_into_halo, pack_halo, pool_into_halo)
@@ -594,27 +638,30 @@ def launch_counts() -> dict:
 
 
 def group_norm_halo_affine(x: torch.Tensor, gamma, beta, num_groups: int,
-                           eps: float = 1e-5, sums=None):
+                           eps: float = 1e-5, sums=None, group=None):
     """GroupNorm statistics of a halo tensor -> per-channel (scale,
     shift), each (B, C) f32 (JAX ``group_norm_flat_affine``). ``sums``:
     K1's emitted (sum, sum of squares); without them the statistics
-    are read from ``x`` (f32 accumulation, squares rounded to bf16).
+    are read from ``x`` (f32 accumulation, squares rounded to bf16; its
+    halo must be zero). ``group``: ``x`` is this rank's D slab of a
+    volume sharded over that group, and the sums are added over it.
     Under autograd the halo's share of the gradient is dropped by the
     producer of ``x`` (K6's backward, ``F.pad``), not here."""
     n = interior_count(x)
     if sums is None:
-        s1, s2 = bf16_moments(x, n)
+        s1, s2 = bf16_moments(x, n, group)
     else:
-        s1, s2 = sums[0] / n, sums[1] / n
+        s1, s2 = group_means(sums, n, group)
     return group_affine(s1, s2, gamma, beta, num_groups, eps)
 
 
 def group_norm_halo(x: torch.Tensor, gamma, beta, num_groups: int,
-                    eps: float = 1e-5, sums=None) -> torch.Tensor:
+                    eps: float = 1e-5, sums=None,
+                    group=None) -> torch.Tensor:
     """GroupNorm of a halo tensor, applied in x's dtype, halo re-zeroed
-    (JAX ``group_norm_flat``)."""
+    (JAX ``group_norm_flat``); ``group`` as ``group_norm_halo_affine``'s."""
     scale, shift = group_norm_halo_affine(x, gamma, beta, num_groups, eps,
-                                          sums)
+                                          sums, group)
     return apply_affine(x, scale, shift) * halo_mask(x)
 
 
@@ -647,11 +694,13 @@ def conv1x1_halo(xs, w: torch.Tensor, bias=None, se0=None,
     return y * halo_mask(y)
 
 
-def global_avg_pool_halo(x: torch.Tensor) -> torch.Tensor:
-    """AdaptiveAvgPool3d(1) of a halo tensor over its true voxels ->
-    (B, 1, 1, 1, C) in ``x.dtype`` (JAX ``global_avg_pool_flat``)."""
+def global_avg_pool_halo(x: torch.Tensor, group=None) -> torch.Tensor:
+    """AdaptiveAvgPool3d(1) of a halo tensor (zero halo) over its true
+    voxels -> (B, 1, 1, 1, C) in ``x.dtype`` (JAX
+    ``global_avg_pool_flat``); ``group``: over the volume whose D slabs
+    lie on that group's ranks."""
     s = x.sum((1, 2, 3), keepdim=True, dtype=torch.float32)
-    return (s / interior_count(x)).to(x.dtype)
+    return group_means([s], interior_count(x), group)[0].to(x.dtype)
 
 
 def max_pool3d_from_halo(x: torch.Tensor) -> torch.Tensor:

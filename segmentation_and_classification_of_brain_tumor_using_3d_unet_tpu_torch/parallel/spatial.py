@@ -9,9 +9,11 @@ that exchange (point-to-point sends to both neighbours), and
 ``sharded_conv3d`` / ``zero_boundary_halo_conv`` wrap a conv around it.
 The exchange is differentiable, as JAX's ``ppermute`` is: its backward
 sends each received plane's cotangent back to the rank it came from.
-The U-Net's normal path runs on these slabs (``UNet3D`` with a
-``space_group``); ``make_spatial_apply`` is its sliding-window apply
-function.
+``halo_exchange_planes`` is the same exchange for a tensor that already
+has its one-voxel halo (the ps2d region's halo layout): it fills the D
+halo planes in place of padding. The U-Net, its ps2d region included,
+runs on these slabs (``UNet3D`` with a ``space_group``);
+``make_spatial_apply`` is its sliding-window apply function.
 """
 
 from __future__ import annotations
@@ -130,6 +132,56 @@ def halo_exchange_d(x_shard: torch.Tensor, halo: int, group=None,
         return _HaloExchange.apply(x_shard, halo, group, boundary)
     edge_lo, edge_hi = _end_pads(x_shard, halo, boundary)
     return torch.cat([edge_lo, x_shard, edge_hi], dim=1)
+
+
+class _HaloPlanes(torch.autograd.Function):
+    """The halo-layout exchange over a group; its backward sends the
+    cotangents of the filled planes back to their senders, which add
+    them into the edge interior planes they sent."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        from_left, from_right = _swap(x[:, 1:2], x[:, -2:-1], group, 4)
+        y = x.clone()
+        if from_left is not None:
+            y[:, :1] = from_left
+        if from_right is not None:
+            y[:, -1:] = from_right
+        ctx.live = (from_left is not None, from_right is not None)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        from_left, from_right = _swap(g[:, :1], g[:, -1:], ctx.group, 6)
+        gx = g.clone()
+        if from_left is not None:
+            gx[:, :1] = 0           # overwritten: x's own plane 0 unread
+            gx[:, 1:2] += from_left
+        if from_right is not None:
+            gx[:, -1:] = 0
+            gx[:, -2:-1] += from_right
+        return gx, None
+
+
+def halo_exchange_planes(x_halo: torch.Tensor, group=None):
+    """Fill the D halo planes of this rank's slab ``x_halo`` (B, D+2,
+    H+2, W+2, C) in the halo layout: plane 0 with the left neighbour's
+    last interior plane, plane D+1 with the right neighbour's first.
+    Returns (the filled tensor, ``d_live``): ``d_live`` = (lo, hi) says
+    which planes hold a neighbour's values, for K1 and K6 to read; at
+    the volume's ends the plane is left as it is (zero in the region)
+    and reported not live. Differentiable: the backward sends the
+    filled planes' cotangents back and adds them into the sender's edge
+    interior plane. Without a group, ``x_halo`` and no live plane."""
+    if group is None:
+        return x_halo, (False, False)
+    if x_halo.shape[1] < 3:
+        raise ValueError(f"a halo-layout slab {tuple(x_halo.shape)} has no "
+                         f"interior plane")
+    n = dist.get_world_size(group)
+    i = dist.get_group_rank(group, dist.get_rank())
+    return _HaloPlanes.apply(x_halo, group), (i > 0, i < n - 1)
 
 
 def sharded_conv3d(mesh: Mesh, conv_fn: Callable,

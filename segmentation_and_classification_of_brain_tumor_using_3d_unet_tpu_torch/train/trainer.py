@@ -56,7 +56,7 @@ class ModernBrainTumorTrainer:
     ``UNet3DWithClassifier``'s trunk) on its device. ``device``, when
     given, must be the model's; ``mesh``: a (data, space) mesh
     (``parallel.mesh.create_mesh``); on a ``space`` axis longer than 1
-    the model runs its slab forward, which has no ps2d region yet."""
+    the model runs its slab forward, its ps2d regions included."""
 
     def __init__(self, model, device=None, learning_rate: float = 1e-4,
                  experiment_name: Optional[str] = None,
@@ -64,12 +64,6 @@ class ModernBrainTumorTrainer:
                  mesh=None, use_wandb: Optional[bool] = None,
                  hausdorff_every: int = 1,
                  save_latest_every: int = 0):
-        if (mesh is not None and mesh.shape.get("space", 1) > 1
-                and getattr(model, "ps2d_train", False)):
-            raise NotImplementedError(
-                "the ps2d region on D slabs (mesh space > 1) comes with "
-                "the next spatial slice; train the normal path "
-                "(ps2d_train=False)")
         self.mesh = mesh
         self.primary = is_primary()
         self.model = model

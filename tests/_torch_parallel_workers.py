@@ -60,6 +60,14 @@ class World:
         self.deadline = time.monotonic() + timeout
         self.timeout = timeout
 
+    def stop(self) -> None:
+        """Stop every process still running (a world whose results no
+        test asked for: its ranks would wait on the queue for ever)."""
+        for p in self.procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+
     def results(self) -> list:
         """The ranks' results in rank order; a rank that fails, dies or
         passes the timeout fails the caller, and every process is
@@ -356,7 +364,10 @@ def _refused(fn):
 def spatial_model(rank, world, state, joint_state, batch, vol):
     """On a (1, 2) mesh (this rank's D slab of ``batch``): the f32 train
     step (and with remat), the joint step, the eval step, the spatial
-    sliding window, the slab forward's refusals."""
+    sliding window, the slab forward's refusal, and the slab forwards
+    that an earlier slice refused: the ps2d regions (features (32, 64),
+    their wrappers counted) and deep heads at full resolution (features
+    (8, 16, 32))."""
     from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.inference.sliding_window import (
         sliding_window_inference)
     from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.models import (
@@ -383,15 +394,30 @@ def spatial_model(rank, world, state, joint_state, batch, vol):
     gen = torch.Generator().manual_seed(0)
     out["refusals"] = {
         "odd_depth": _refused(lambda: _unet(state, **kw).forward_train(
-            x[:, :6], gen, space_group=g)),
-        "deep_sup_full_res": _refused(lambda: UNet3D(
-            device="cpu", deep_sup_full_res=True, **kw).forward_train(
+            x[:, :6], gen, space_group=g))}
+    from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.models import (
+        unet3d)
+    calls = _counted(unet3d, REGION_KERNELS)
+    wide = dict(kw, features=(32, 64))
+
+    def ran(fn):
+        calls.update({k: 0 for k in calls})
+        o = fn()
+        o = o if isinstance(o, dict) else {"logits": o, "deep": []}
+        return {"logits": tuple(o["logits"].shape),
+                "deep": [tuple(t.shape) for t in o["deep"]],
+                "finite": bool(torch.isfinite(o["logits"]).all()),
+                "calls": dict(calls)}
+    out["runs"] = {
+        "deep_sup_full_res": ran(lambda: UNet3D(
+            device="cpu", deep_sup_full_res=True,
+            **dict(kw, features=(8, 16, 32))).forward_train(
                 x, gen, space_group=g)),
-        "ps2d_train": _refused(lambda: UNet3D(
-            device="cpu", ps2d_train=True, **kw).forward_train(
+        "ps2d_train": ran(lambda: UNet3D(
+            device="cpu", ps2d_train=True, **wide).forward_train(
                 x, gen, space_group=g)),
-        "ps2d_eval": _refused(lambda: UNet3D(
-            device="cpu", ps2d_eval=True, **kw)(x, space_group=g))}
+        "ps2d_eval": ran(lambda: UNet3D(
+            device="cpu", ps2d_eval=True, **wide)(x, space_group=g))}
     return out
 
 
@@ -458,3 +484,125 @@ def spatial_trainer(rank, world, root, conf_dirs):
                        trainer.state.model.named_parameters()},
             "shapes": [tuple(b["image"].shape) for b in train]
             + [tuple(b["mask"].shape) for b in val]}
+
+
+# ------------------------------------------------------- space: ps2d region
+
+def _slab_of(t, rank, halo):
+    """This rank's D slab of a (B, D, ...) numpy array over two ranks,
+    ``halo`` planes of the array on each side (a halo-layout tensor's
+    slab: its interior planes and the planes around them)."""
+    d = (t.shape[1] - 2 * halo) // 2
+    return torch.from_numpy(np.ascontiguousarray(
+        t[:, d * rank:d * rank + d + 2 * halo]))
+
+
+def ps2d_pieces(rank, world, d):
+    """float64, on a (1, 2) mesh, this rank's D slab of each global
+    array of ``d``: the halo-layout exchange's gradient, K1's plain
+    version with live planes (two inputs, affine + ReLU + ``in_mul0`` +
+    statistics) and K6's forward and gradients."""
+    from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.ops import (
+        ps2d as T)
+    from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.parallel import (
+        create_mesh, spatial as S)
+    mesh = create_mesh(1, 2)
+    g = mesh.group("space")
+    out = {}
+    # 1. the exchange: a VALID conv of the exchanged slab of a halo
+    # tensor (values everywhere, the halo too), garbage on the plane the
+    # neighbour fills
+    xh = _slab_of(d["xh"], rank, 1).requires_grad_()
+    xg = xh.clone()
+    xg[:, -1 if rank == 0 else 0] = 7.0
+    y, out["live"] = S.halo_exchange_planes(xg, g)
+    y = _ndhwc_conv(torch.from_numpy(d["w_x"]), 0)(y)
+    (y * _slab_of(d["c_x"], rank, 0)).sum().backward()
+    out["exchange"] = _np(xh.grad)
+    # 2. K1's plain version on the exchanged slabs, each with a zero D
+    # halo until the exchange fills it (the mask's 0.5, as psi has)
+    def slab(k, fill):
+        t = _slab_of(d[k], rank, 1).clone()
+        t[:, [0, -1]] = fill
+        return S.halo_exchange_planes(t, g)
+    xs = [slab(k, 0.0)[0] for k in ("x0", "x1")]
+    m, live = slab("mul0", 0.5)
+    y, (s1, s2) = T.conv3d_halo(
+        xs, torch.from_numpy(d["w1"]), in_scale=torch.from_numpy(d["scale"]),
+        in_shift=torch.from_numpy(d["shift"]), in_relu=True, in_mul0=m,
+        emit_stats=True, d_live=live)
+    out["k1"] = (_np(y), _np(s1), _np(s2))
+    # 3. K6 on the packed, exchanged slabs of two interiors
+    leaves = [_slab_of(d[k], rank, 0).requires_grad_() for k in ("i0", "i1")]
+    w6 = torch.from_numpy(d["w6"]).requires_grad_()
+    hs, live = zip(*(S.halo_exchange_planes(T.pack_halo_plain(v), g)
+                     for v in leaves))
+    y = T.conv3d_halo_train(hs, w6, live[0])
+    (y * _slab_of(d["c6"], rank, 1)).sum().backward()
+    out["k6"] = (_np(y), *(_np(v.grad) for v in leaves), _np(w6.grad))
+    return out
+
+
+def _counted(module, names):
+    """Replace each function ``names`` of ``module`` by one that counts
+    its calls; the counts, by name."""
+    calls = {}
+    for name in names:
+        fn = getattr(module, name)
+
+        def wrapper(*a, _fn=fn, _name=name, **k):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*a, **k)
+        setattr(module, name, wrapper)
+        calls[name] = 0
+    return calls
+
+
+REGION_KERNELS = ("conv3d_halo", "up_k2s2_into_halo", "pack_halo",
+                  "pool_into_halo", "conv3d_halo_train")
+
+
+def spatial_ps2d_train(rank, world, d):
+    """On a (1, 2) mesh, this rank's D slab of ``d["batch"]``: the
+    ``ps2d_train`` step in f32 and in bf16 at features (32, 64), with the
+    region's wrapper calls counted."""
+    from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.models import (
+        unet3d)
+    from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.parallel import (
+        create_mesh, shard_batch)
+    mesh = create_mesh(1, 2)
+    local = shard_batch(d["batch"], mesh)
+    calls = _counted(unet3d, REGION_KERNELS)
+    out = {"depth": local["image"].shape[1]}
+    for dt in ("float32", "bfloat16"):
+        model = _unet(d["state"], features=(32, 64), ps2d_train=True,
+                      dropout_rate=0.0, compute_dtype=dt)
+        out[dt] = dp_train_step(model, local, mesh)
+        out[dt]["calls"] = dict(calls)
+        calls.update({k: 0 for k in calls})
+    return out
+
+
+def spatial_ps2d_eval(rank, world, d):
+    """On a (1, 2) mesh: the eval forward of ``d["wins"]`` at
+    ``ps2d_eval, ps2d_levels=2`` (features (32, 64)) through
+    ``make_spatial_apply``, the region's wrapper calls counted, and the
+    ``deep_sup_full_res`` train step at features (8, 16, 32) on this
+    rank's D slab of ``d["batch"]``."""
+    from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.models import (
+        unet3d)
+    from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.parallel import (
+        create_mesh, make_spatial_apply, shard_batch)
+    mesh = create_mesh(1, 2)
+    calls = _counted(unet3d, REGION_KERNELS)
+    model = _unet(d["state"], features=(32, 64), ps2d_eval=True,
+                  ps2d_levels=2, compute_dtype="float32")
+    with torch.no_grad():
+        out = {"eval": _np(make_spatial_apply(model, mesh)(
+            torch.from_numpy(d["wins"])))}
+    out["eval_calls"] = dict(calls)
+    out["deep"] = dp_train_step(
+        _unet(d["deep_state"], features=(8, 16, 32), deep_sup_full_res=True,
+              dropout_rate=0.0, compute_dtype="float32"),
+        shard_batch(d["batch"], mesh), mesh)
+    return out

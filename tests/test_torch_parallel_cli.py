@@ -6,11 +6,11 @@
   checkpoint, both in float32: masks equal, confidences within 1.8e-5,
   and the index's device count;
 * ``Predictor(config.inference.window_parallel)``: a no-op at world 1;
-* what stays refused with ``space > 1`` (a ``ps2d_train`` model in the
-  trainer, naming the next spatial slice; a slab depth that pools to an
-  odd depth), ``--mesh_data 2`` in a world of one refused as JAX's mesh
-  refuses it, and the train CLI with ``--mesh_space 2`` for one epoch on
-  a two-rank world of CPU processes.
+* with ``space > 1``: the trainer taking a ``ps2d_train`` model, and
+  what stays refused (a slab depth that pools to an odd depth);
+  ``--mesh_data 2`` in a world of one refused as JAX's mesh refuses it,
+  and the train CLI with ``--mesh_space 2`` for one epoch on a two-rank
+  world of CPU processes.
 
 The trainer and the CLIs on two ranks are in
 tests/test_torch_parallel_trainer.py.
@@ -97,13 +97,15 @@ def test_space_sharding_is_refused(tmp_path):
     """What stays refused with ``space`` > 1, and the train CLI with
     ``--mesh_space 2`` for one epoch on a two-rank world of CPU
     processes, which then refuses an image depth whose slabs pool to an
-    odd depth."""
+    odd depth. The trainer takes a ``ps2d_train`` model on a data x
+    space mesh (the region runs on the slabs)."""
     mesh = M.Mesh(np.arange(2).reshape(1, 2), rank=0)
-    with pytest.raises(NotImplementedError, match="next spatial slice"):
-        ModernBrainTumorTrainer(UNet3D(features=(8, 16), device="cpu",
-                                       ps2d_train=True),
-                                config=tcfg.Config(use_tensorboard=False),
-                                mesh=mesh)
+    trainer = ModernBrainTumorTrainer(
+        UNet3D(features=(32, 64), device="cpu", ps2d_train=True),
+        config=tcfg.Config(use_tensorboard=False,
+                           results_dir=str(tmp_path / "results")),
+        mesh=mesh)
+    assert trainer.mesh is mesh and trainer.model.ps2d_train
     with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         train_main(["--mesh_data", "2", "--device", "cpu"])
     if not torch.cuda.is_available():

@@ -19,8 +19,10 @@ package and against one process:
   JAX's unsharded one within ``atol 1e-4, rtol 1e-3``
   (``__graft_entry__.py``'s tolerance); the eval step's loss, region
   Dice and HD95 against one process;
-* the slab forward's refusals, and the deep-supervision targets: a
-  slab's nearest-resized targets are the resized targets' slab.
+* the slab forward's refusal of an odd depth, the slab forwards that
+  the previous slice refused (the ps2d regions, ``deep_sup_full_res``)
+  running on each slab, and the deep-supervision targets: a slab's
+  nearest-resized targets are the resized targets' slab.
 
 Both worlds start first; the model's runs while JAX compiles its step
 and its sliding window and one process takes its steps, in threads.
@@ -383,14 +385,33 @@ def test_spatial_eval_step_equals_one_process(worlds):
 
 
 @pytest.mark.parametrize("what,kind,words", [
-    ("odd_depth", "ValueError", "multiple of space * 2^2 = 8"),
-    ("deep_sup_full_res", "NotImplementedError", "later spatial slice"),
-    ("ps2d_train", "NotImplementedError", "next spatial slice"),
-    ("ps2d_eval", "NotImplementedError", "next spatial slice")])
+    ("odd_depth", "ValueError", "multiple of space * 2^2 = 8")])
 def test_slab_forward_refusals(worlds, what, kind, words):
     for r in worlds["two"]:
         got = r["refusals"][what]
         assert got is not None and got[0] == kind and words in got[1], got
+
+
+@pytest.mark.parametrize("what,logits,deep,calls", [
+    # deep heads at full resolution: the slab's depth at every level
+    ("deep_sup_full_res", (2, 8, 16, 16, 4), [(2, 8, 16, 16, 4)] * 2,
+     {}),
+    # the train region: K6 three times (enc0.conv2, dec0's two convs)
+    ("ps2d_train", (2, 8, 16, 16, 4), [(2, 8, 16, 16, 4)],
+     {"conv3d_halo_train": 3}),
+    # the level-0 eval region: K1 three times, K2 once, K3 twice
+    ("ps2d_eval", (2, 8, 16, 16, 4), [],
+     {"conv3d_halo": 3, "up_k2s2_into_halo": 1, "pack_halo": 2})])
+def test_slab_forward_runs_what_was_refused(worlds, what, logits, deep,
+                                            calls):
+    """The slab forwards that the previous spatial slice refused run on
+    each rank's slab (their values against the whole volume:
+    tests/test_torch_spatial_ps2d*.py)."""
+    for r in worlds["two"]:
+        got = r["runs"][what]
+        assert got["finite"] and got["logits"] == logits, got
+        assert got["deep"] == deep, got
+        assert {k: v for k, v in got["calls"].items() if v} == calls, got
 
 
 @pytest.mark.parametrize("ranks", [2, 4])
