@@ -206,6 +206,22 @@ Phase 14, after them all:
      bf16 under the ps2d logit bounds and the margin rule). It prints
      each rank's step walls, the collectives' ms and counts and each
      rank's peak memory against one process's, for both paths;
+  17. int8 — int8 serving as the JAX package's ``bench.py --int8``
+     drives it: a full-width UNet3D (ps2d_eval, ps2d_levels=2, seeded
+     weights) calibrated by ``calibrate_int8`` on the first volume's
+     bucket crop (160x192x160; 22 scales, no kernel launched); Q8, the
+     int8 conv (``csrc/conv3d_int8.cu``), at each of the 17 distinct
+     (ci, co, side) shapes of the 22 DoubleConv convs at a 4 x 128^3
+     window batch, with the model's weights and scales, bit-equal to its
+     plain version and two runs bit-identical, timed (CUDA events,
+     median) beside its bound (bytes over 3.35 TB/s, int8 operations over
+     1979 TOP/s), the plain version, bf16 F.conv3d and bf16 K7; then the
+     cropped request on the three volumes (crop, sliding window of 8
+     windows in 2 forwards, argmax, paste) through the int8 model (Q8 44
+     launches, K1-K4 none), the bf16 normal path and the bf16 levels=2
+     region on the same weights, each wall printed, the int8 logits' max
+     |d| and label agreement against the normal path's, no label flipped
+     where the normal path's top-2 margin exceeds twice the max drift;
 
 It prints the per-kernel JSON line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Any failure, or a run past
@@ -226,6 +242,7 @@ import numpy as np
 
 BUDGET_S = 600.0          # the whole run, build included
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_INT8_OPS = 1979e12   # H100 SXM dense int8 (NVIDIA data sheet)
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
 VOLUME_SHAPE = (240, 240, 155)
 # K7's entry point at benchmarks/bench_wtile.py's nine (ci, co, D, H, W)
@@ -1326,6 +1343,7 @@ def main() -> int:
         T = import_module(PKG + ".ops.ps2d")
         GN = import_module(PKG + ".ops.groupnorm")
         K7 = import_module(PKG + ".ops.conv3d")
+        Q8 = import_module(PKG + ".ops.conv_int8")
         native = import_module(PKG + ".ops.native")
         cfg = import_module(PKG + ".config")
         train_mod = import_module(PKG + ".train")
@@ -1337,7 +1355,7 @@ def main() -> int:
                   ".train.trainer", ".train.checkpoints", ".data.pipeline",
                   ".serve.jobs", ".data.native", ".inference.cli",
                   ".inference.evaluate", ".parallel", ".parallel.infer",
-                  ".parallel.spatial"):
+                  ".parallel.spatial", ".inference.quantize"):
             import_module(PKG + m)     # the later phases', in the JAX check
     except ImportError as e:
         print(f"chip_smoke: run from the root of a checkout ({e})",
@@ -1543,7 +1561,8 @@ def main() -> int:
     forms, k3_in, k2_in, k4_in = run.phase("kernels", kernels)
 
     counted = (T.conv3d_halo, T.up_k2s2_into_halo, T.pack_halo,
-               T.pool_into_halo, GN.fused_group_norm, K7.conv3d_same)
+               T.pool_into_halo, GN.fused_group_norm, K7.conv3d_same,
+               Q8.conv3d_int8)
 
     def launches_of(**nonzero):
         """A launch count for every kernel: ``nonzero``'s, else 0."""
@@ -4081,6 +4100,205 @@ def main() -> int:
     run.phase("parallel", parallel)
     report["spatial"] = run.phase("spatial", spatial_phase)
 
+    # ---------------------------------------------------------------- 17
+    def int8():
+        """int8 serving as JAX's ``bench.py --int8`` drives it: a
+        full-width UNet3D (ps2d_eval, ps2d_levels=2, seeded weights)
+        calibrated on the first volume's bucket crop, then the cropped
+        request on the three volumes through the int8 model (the
+        DoubleConv convs on Q8, the region off), beside the bf16 normal
+        path and the bf16 levels=2 region on the same weights; before it,
+        Q8 against its plain version at each distinct DoubleConv shape of
+        a 4 x 128^3 window batch."""
+        QZ = import_module(PKG + ".inference.quantize")
+        conf = cfg.Config(model=cfg.ModelConfig(ps2d_eval=True,
+                                                ps2d_levels=2))
+        ic = conf.inference
+        feats = conf.model.features
+        check(feats == (32, 64, 128, 256, 512), "not the full-width model")
+        model = models.UNet3D(features=feats, ps2d_eval=True, ps2d_levels=2,
+                              seed=0)
+        model.eval()
+        plans = [cropping.plan_crop(v, multiple=16, min_size=min(ic.roi_size),
+                                    ladder=ic.crop_bucket_ladder)
+                 for v in vols]
+        check(tuple(plans[0][1]) == (160, 192, 160),
+              f"first volume's bucket {plans[0][1]}")
+        crop0 = cropping.extract_crop(vols[0], *plans[0])
+        t = time.perf_counter()
+        qvars, counts = request_counts(
+            lambda: QZ.calibrate_int8(model, None, [crop0]))
+        calib_s = time.perf_counter() - t
+
+        def leaves(tree, pre=""):
+            for k, v in tree.items():
+                if isinstance(v, dict):
+                    yield from leaves(v, f"{pre}{k}.")
+                else:
+                    yield f"{pre}{k}", float(v)
+        scales = dict(leaves(qvars["quant"]))
+        print(f"calibrate_int8 on the (160, 192, 160) crop: {len(scales)} "
+              f"scales in {calib_s:.3f} s, from {min(scales.values()):.3e} "
+              f"to {max(scales.values()):.3e}; launches {counts}")
+        check(len(scales) == 22 and all(v > 0 for v in scales.values()),
+              f"{len(scales)} scales")
+        check(counts == launches_of(), f"calibration launched {counts}")
+        qm = model.with_quant_mode("int8")
+        qm.load_state_dict(models.load_flax_params(qvars))
+        normal = model.with_quant_mode("off")
+        normal.ps2d_eval = False          # the same weights, no region
+        check(qm.halo_levels((S, S, S)) == normal.halo_levels((S, S, S)) == 0
+              and model.halo_levels((S, S, S)) == 2, "region gates")
+
+        # Q8 at each distinct DoubleConv shape of a 4 x 128^3 window batch,
+        # with the model's weights and calibrated scales
+        n = len(feats)
+        side = {f"down{i}": S >> i for i in range(n)}
+        side.update({"bottleneck": S >> n},
+                    **{f"dec{i}": S >> (n - 1 - i) for i in range(n)})
+        shapes = {}
+        for name, block in qm.double_convs():
+            for c in ("conv1", "conv2"):
+                conv = getattr(block, c)
+                ci, co = conv.kernel.shape[3:]
+                shapes.setdefault((ci, co, side[name]), []).append(
+                    (f"{name}.{c}", conv))
+        check(sum(map(len, shapes.values())) == 22, "22 DoubleConv convs")
+
+        def median_ms(fn, n):
+            fn()
+            times = []
+            for _ in range(n):
+                a, b = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(2))
+                a.record()
+                fn()
+                b.record()
+                b.synchronize()
+                times.append(a.elapsed_time(b))
+            return float(np.median(times))
+
+        rows, worst = [], 0.0
+        for (ci, co, s), convs in shapes.items():
+            name, conv = convs[0]
+            w, a = conv.kernel, conv.act_scale
+            x = (torch.randn((B, s, s, s, ci), device=dev, generator=g)
+                 * (a.item() * 127 / 4)).to(bf16)
+            y = Q8.conv3d_int8(x, w, a)
+            y2 = Q8.conv3d_int8(x, w, a)
+            t = time.perf_counter()
+            ref = Q8.conv3d_int8_plain(x, w, a)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t
+            err = (y.float() - ref.float()).abs().max().item()
+            same = torch.equal(y, y2)
+            check(torch.equal(y, ref),
+                  f"Q8 {ci}->{co} @{s}^3 differs from its plain version "
+                  f"(max |d| {err})")
+            check(same, f"Q8 {ci}->{co} @{s}^3: two runs differ")
+            del y2, ref
+            big = x.numel() * co > 2e9
+            reps = 5 if big else 20
+            ms = median_ms(lambda: Q8.conv3d_int8(x, w, a), reps)
+            plain_ms = 1e3 * plain_s if big else median_ms(
+                lambda: Q8.conv3d_int8_plain(x, w, a), 3)
+            xn = x.permute(0, 4, 1, 2, 3)
+            wn = w.to(bf16).permute(4, 3, 0, 1, 2).contiguous()
+            conv_ms = median_ms(lambda: F.conv3d(xn, wn, padding=1), reps)
+            k7_ms = (median_ms(lambda: K7.conv3d_same(x, w), reps)
+                     if ci % 32 == 0 and co % 32 == 0 else None)
+            vox = x.numel() // ci
+            nb = nbytes(x, w, y)
+            ops = 2.0 * 27 * ci * co * vox
+            bms, by = bound_ms(nb, ops, PEAK_INT8_OPS)
+            plan = Q8.conv3d_int8_plan(B, s, s, s, ci, co)
+            shape = f"{ci}->{co} @(4,{s}^3)"
+            rows.append({"shape": shape, "convs": [c for c, _ in convs],
+                         "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                         "bound_ms": bms, "bound_by": by, "bytes": nb,
+                         "int8_ops": ops, "bf16_conv3d_ms": conv_ms,
+                         "bf16_k7_ms": k7_ms, "max_abs_err": err,
+                         "two_runs_identical": same, "plan": plan})
+            worst = max(worst, err)
+            print(f"conv3d_int8 {shape} ({', '.join(c for c, _ in convs)}): "
+                  f"bit-equal to plain, two runs identical; {ms:.4f} ms "
+                  f"(median), bound {bms:.4f} ms ({by}; {nb} bytes, "
+                  f"{ops:.4e} int8 ops), bf16 F.conv3d {conv_ms:.4f} ms, "
+                  f"bf16 K7 "
+                  + ("n/a (ci not a multiple of 32)" if k7_ms is None
+                     else f"{k7_ms:.4f} ms")
+                  + f", plain {plain_ms:.2f} ms; plan {plan}", flush=True)
+            del x, y, xn, wn
+        torch.cuda.empty_cache()
+
+        # the cropped request: crop, sliding window, argmax, paste
+        def request(m, vol, plan):
+            offs, bucket = plan
+            crop = torch.from_numpy(cropping.extract_crop(vol, offs,
+                                                          bucket)).to(dev)
+            logits = sw.sliding_window_inference(
+                crop, m, roi_size=ic.roi_size, overlap=ic.overlap,
+                sw_batch_size=ic.sw_batch_size, blend_mode=ic.blend_mode)
+            lab = logits.argmax(-1).to(torch.int8).cpu().numpy()
+            return cropping.paste_full(lab, offs, VOLUME_SHAPE), logits
+
+        want = {"int8": launches_of(conv3d_int8=44),
+                "normal": launches_of(),
+                "region": launches_of(conv3d_halo=14, up_k2s2_into_halo=4,
+                                      pack_halo=4, pool_into_halo=2)}
+        paths = {"int8": qm, "normal": normal, "region": model}
+        walls = {k: [] for k in paths}
+        worst_d, agree = 0.0, []
+        for vi, (vol, plan) in enumerate(zip(vols, plans)):
+            logits = {}
+            for kind, m in paths.items():
+                t = time.perf_counter()
+                (lab, logits[kind]), counts = request_counts(
+                    lambda: request(m, vol, plan))
+                walls[kind].append(time.perf_counter() - t)
+                check(counts == want[kind],
+                      f"{kind} request launches {counts} != {want[kind]}")
+                check(lab.shape == VOLUME_SHAPE and lab.max() < 4,
+                      f"{kind} label map")
+            li, ln = logits["int8"], logits["normal"]
+            check(bool(torch.isfinite(li).all()), "non-finite int8 logits")
+            d = (li - ln).abs()
+            top2 = ln.topk(2, dim=-1).values
+            margin = top2[..., 0] - top2[..., 1]
+            flips = li.argmax(-1) != ln.argmax(-1)
+            wide = (flips & (margin > 2 * d.max())).sum().item()
+            agree.append(1 - flips.float().mean().item())
+            worst_d = max(worst_d, d.max().item())
+            print(f"int8 request, volume seed {vi}: bucket {plan[1]}; wall "
+                  f"{walls['int8'][-1]:.4f} s (bf16 normal path "
+                  f"{walls['normal'][-1]:.4f} s, bf16 levels=2 region "
+                  f"{walls['region'][-1]:.4f} s); int8 vs bf16 normal "
+                  f"logits max |d| {d.max().item():.5f} (scale "
+                  f"{ln.abs().max().item():.4f}), labels agree "
+                  f"{agree[-1]:.5f}, flips at margin > 2x max drift: {wide}")
+            check(wide == 0, "int8 labels flip above the margin")
+            del logits, li, ln, d, top2, margin, flips
+        del qm, normal, model
+        torch.cuda.empty_cache()
+        m = rows[[r["shape"] for r in rows].index("32->32 @(4,128^3)")]
+        return {"launches": want["int8"], "walls_s": walls,
+                "calibrate_s": calib_s, "max_logit_drift": worst_d,
+                "label_agreement": agree,
+                "kernel": {
+                    "name": "conv3d_int8", "route": "cuda",
+                    "source": f"{PKG}/csrc/conv3d_int8.cu",
+                    # no TPU kernel: JAX's int8 conv is an XLA conv
+                    "replaces": f"{REF}/ops/conv.py:197",
+                    "tpu_kernel": None, "launches": None,
+                    "launches_by_path": None, "max_abs_err": worst,
+                    "ms": m["ms"], "plain_ms": m["plain_ms"],
+                    "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+                    "library_ms": None,
+                    "bf16_conv3d_ms": m["bf16_conv3d_ms"],
+                    "bf16_k7_ms": m["bf16_k7_ms"], "shape": m["shape"],
+                    "forms": rows}}
+    report["int8"] = run.phase("int8", int8)
+
     # launches per path: the server requests' (K1-K4), the five
     # train steps' (K1, forwards and K6's data gradients), the
     # entry points' of K5 and K7; the f32 forms' on the f32region phase's
@@ -4101,13 +4319,16 @@ def main() -> int:
                  **report["spatial"]["region"][0]["launches"][0]),
              "spatial_region_eval": launches_of(
                  **report["spatial"]["region_eval"][0]["bfloat16"][
-                     "launches"])}
+                     "launches"]),
+             "int8": report["int8"]["launches"]}
     paths32 = {"f32region": report["f32region"]["launches"],
                "f32region_train": report["f32region"]["train_launches"],
                "f32region_wtile": report["f32region"]["wtile_launches"]}
+    kernels_json.append(report["int8"]["kernel"])
     main_path = {"conv3d_halo_train": "train",
                  "fused_group_norm": "groupnorm",
                  "conv3d_same": "wtile",
+                 "conv3d_int8": "int8",
                  "conv3d_halo_train_f32": "f32region_train",
                  "conv3d_same_f32": "f32region_wtile"}
     train_paths = ("train", "trainer_steps", "f32region_train",
@@ -4115,11 +4336,14 @@ def main() -> int:
 
     def launches(name, path):
         """K6 has no kernel of its own: its launches are K1's on
-        the train paths, and none on the others."""
+        the train paths, and none on the others. Q8 is counted only in
+        this process: the ranks' counts have no key of its own."""
         counts = {**paths, **paths32}[path]
         wrapper = name.removesuffix("_f32")
         if wrapper == "conv3d_halo_train":
             return counts["conv3d_halo"] if path in train_paths else 0
+        if wrapper == "conv3d_int8":
+            return counts.get(wrapper, 0)
         return counts[wrapper]
     for row in kernels_json:
         f32_form = row["name"].endswith("_f32")
@@ -4190,6 +4414,15 @@ def main() -> int:
           f"{float(np.median(sp['ref_region']['walls'][1:3])):.4f} s, peak "
           f"{[round(o['peak_bytes'] / 2 ** 30, 2) for o in sp['region']]} GiB "
           f"against {sp['ref_region']['peak_bytes'] / 2 ** 30:.2f} GiB")
+    q8 = report["int8"]
+    print(f"int8 (full width, calibrated on the first crop): cropped "
+          f"requests {[round(v, 4) for v in q8['walls_s']['int8']]} s against "
+          f"the bf16 normal path's "
+          f"{[round(v, 4) for v in q8['walls_s']['normal']]} s and the bf16 "
+          f"levels=2 region's "
+          f"{[round(v, 4) for v in q8['walls_s']['region']]} s; logits max "
+          f"|d| against the normal path {q8['max_logit_drift']:.5f}, labels "
+          f"agree {[round(v, 5) for v in q8['label_agreement']]}")
     print(f"total {time.perf_counter() - run.t0:.2f} s")
     print(json.dumps({"kernels": kernels_json}))
     print(smi)

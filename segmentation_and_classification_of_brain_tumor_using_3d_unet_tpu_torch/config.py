@@ -28,6 +28,9 @@ class ModelConfig:
     compute_dtype: str = "bfloat16"
     param_dtype: str = "float32"
     remat: bool = True
+    # JAX's space-to-depth layout at level 0 (ops/s2d.py), which fills the
+    # TPU's lanes and computes the same function: the port's model takes
+    # both flags and runs the normal path for them
     s2d_eval: bool = False
     s2d_train: bool = False
     # level-0 region of the eval forward on the hand-written kernels

@@ -82,7 +82,8 @@ class Predictor:
             in_channels=mc.in_channels, out_channels=mc.out_channels,
             features=mc.features, ps2d_eval=mc.ps2d_eval,
             ps2d_levels=mc.ps2d_levels, seed=seed, device=self.device,
-            compute_dtype=mc.compute_dtype)
+            compute_dtype=mc.compute_dtype, s2d_eval=mc.s2d_eval,
+            s2d_train=mc.s2d_train)
         self.seg_model.eval()
         if seg_variables is not None:
             self.load_seg_params(seg_variables["params"],

@@ -47,6 +47,8 @@ it. The train step passes the whole mesh's group as ``bn_group``.
 
 from __future__ import annotations
 
+import copy
+import itertools
 from typing import Sequence
 
 import torch
@@ -55,8 +57,8 @@ import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
-from ..ops.conv import (BF16, Conv1x1, FastConv3D, FastConvTranspose3D,
-                        set_compute_dtype)
+from ..ops.conv import (BF16, QUANT_MODES, Conv1x1, FastConv3D,
+                        FastConvTranspose3D, set_compute_dtype)
 from ..ops.dropout import dropout
 from ..ops.norm import (batch_norm_infer, batch_norm_train, group_norm,
                         group_norm_s2d)
@@ -131,14 +133,18 @@ class BatchNorm(nn.Module):
 
 class DoubleConv3D(nn.Module):
     """Conv3-GN8-ReLU x2 with a residual: identity when in == out, else
-    a 1x1 conv + GN8 projection (JAX ``DoubleConv3D``)."""
+    a 1x1 conv + GN8 projection (JAX ``DoubleConv3D``). ``quant_mode``
+    goes to the two 3x3x3 convs only (``FastConv3D``)."""
 
-    def __init__(self, in_ch: int, out_ch: int, generator=None):
+    def __init__(self, in_ch: int, out_ch: int, generator=None,
+                 quant_mode: str = "off"):
         super().__init__()
         self.in_ch, self.out_ch = in_ch, out_ch
-        self.conv1 = FastConv3D(in_ch, out_ch, generator=generator)
+        self.conv1 = FastConv3D(in_ch, out_ch, generator=generator,
+                                quant_mode=quant_mode)
         self.gn1 = GroupNorm(out_ch, 8)
-        self.conv2 = FastConv3D(out_ch, out_ch, generator=generator)
+        self.conv2 = FastConv3D(out_ch, out_ch, generator=generator,
+                                quant_mode=quant_mode)
         self.gn2 = GroupNorm(out_ch, 8)
         if in_ch != out_ch:
             self.proj = Conv1x1(in_ch, out_ch, use_bias=False,
@@ -309,20 +315,35 @@ class UNet3D(nn.Module):
     initialisers; the values differ from JAX's) on ``device``.
     ``ps2d_levels`` >= 2 turns the level-1 region on at eval, as in
     JAX; ``ps2d_train`` the level-0 region at train. ``compute_dtype``
-    (a torch dtype, or "bfloat16" / "float32") is JAX's ``dtype``."""
+    (a torch dtype, or "bfloat16" / "float32") is JAX's ``dtype``.
+
+    ``quant_mode`` ("off", "calib" or "int8"; JAX's int8 serving,
+    ``inference/quantize.py``) applies to the DoubleConv blocks' 3x3x3
+    convs, of the blocks whose name starts with one of ``quant_blocks``
+    where that is given (JAX's prefix filter); the head, the gates, the
+    1x1 projections and the upsamplers stay in the compute dtype. Any
+    mode but "off" turns the ps2d regions off (``halo_levels`` is 0), as
+    in JAX, and is eval only: ``forward_train`` raises.
+    ``with_quant_mode`` is JAX's ``model.clone(quant_mode=...)``.
+    ``s2d_eval`` / ``s2d_train`` are accepted and run the normal path: the
+    JAX package's space-to-depth layout (``ops/s2d.py``) fills the TPU's
+    128 lanes and computes the same function."""
 
     def __init__(self, in_channels: int = 4, out_channels: int = 4,
                  features: Sequence[int] = (32, 64, 128, 256, 512),
                  ps2d_eval: bool = False, ps2d_levels: int = 1,
                  seed: int = 0, device="cuda", dropout_rate: float = 0.2,
                  remat: bool = False, ps2d_train: bool = False,
-                 deep_sup_full_res: bool = False, compute_dtype=BF16):
+                 deep_sup_full_res: bool = False, compute_dtype=BF16,
+                 quant_mode: str = "off", quant_blocks=None,
+                 s2d_eval: bool = False, s2d_train: bool = False):
         super().__init__()
         feats = tuple(features)
         self.features, self.ps2d_eval = feats, ps2d_eval
         self.ps2d_levels = ps2d_levels
         self.dropout_rate, self.remat = dropout_rate, remat
         self.ps2d_train = ps2d_train
+        self.s2d_eval, self.s2d_train = s2d_eval, s2d_train
         # deep heads at full resolution (the reference model's written
         # behaviour) instead of their native scale
         self.deep_sup_full_res = deep_sup_full_res
@@ -347,7 +368,48 @@ class UNet3D(nn.Module):
         self.head_bn = BatchNorm(feats[0] // 2)
         self.head_out = Conv1x1(feats[0] // 2, out_channels, generator=gen)
         self.compute_dtype = set_compute_dtype(self, compute_dtype)
+        self._set_quant_mode(quant_mode, quant_blocks)
         self.to(resolve_device(device))
+
+    def double_convs(self):
+        """(name, DoubleConv3D) of every block, in the flax tree's names."""
+        n = len(self.features)
+        names = ([f"down{i}" for i in range(n)] + ["bottleneck"]
+                 + [f"dec{i}" for i in range(n)])
+        return [(name, getattr(self, name)) for name in names]
+
+    def _set_quant_mode(self, quant_mode: str, quant_blocks=None) -> None:
+        """Set ``quant_mode`` and ``quant_blocks`` in place: each block's
+        two 3x3x3 convs get the mode, or "off" where ``quant_blocks``
+        names no prefix of the block (JAX ``UNet3D.__call__``'s
+        ``block``)."""
+        if quant_mode not in QUANT_MODES:
+            raise ValueError(f"quant_mode must be one of {QUANT_MODES}, got "
+                             f"{quant_mode!r}")
+        self.quant_mode = quant_mode
+        self.quant_blocks = (None if quant_blocks is None
+                             else tuple(quant_blocks))
+        for name, block in self.double_convs():
+            qm = quant_mode
+            if self.quant_blocks is not None and not any(
+                    name.startswith(p) for p in self.quant_blocks):
+                qm = "off"
+            block.conv1.set_quant_mode(qm)
+            block.conv2.set_quant_mode(qm)
+
+    def with_quant_mode(self, quant_mode: str, quant_blocks=...):
+        """JAX's ``model.clone(quant_mode=...)``: a model with this one's
+        parameters and buffers, the same tensors (nothing is copied, so a
+        weight loaded into one is the other's), with ``quant_mode`` and
+        its own ``act_scale`` buffers; ``quant_blocks`` as this model's
+        unless given."""
+        shared = {id(t): t for name, t in itertools.chain(
+            self.named_parameters(), self.named_buffers())
+            if not name.endswith((".act_scale", ".absmax"))}
+        clone = copy.deepcopy(self, shared)
+        clone._set_quant_mode(quant_mode, self.quant_blocks
+                              if quant_blocks is ... else quant_blocks)
+        return clone
 
     def halo_levels(self, shape) -> int:
         """How many levels (from 0) run in the halo layout for an input
@@ -358,7 +420,8 @@ class UNet3D(nn.Module):
         32-multiple level-1 width, D % 4 == 0 and H, W % 8 == 0. (JAX
         also drops a level whose TPU kernel plan does not fit its
         on-chip memory budget; that limit has no counterpart here.) The
-        gate is the same in bf16 and in f32."""
+        gate is the same in bf16 and in f32. Any ``quant_mode`` but "off"
+        gives 0, during calibration too."""
         return self._halo_levels(shape, self.ps2d_eval, self.ps2d_levels)
 
     def k1_kernel_names(self, levels: int) -> list:
@@ -378,7 +441,7 @@ class UNet3D(nn.Module):
 
     def _halo_levels(self, shape, on: bool, levels: int) -> int:
         feats, (D, H, W) = self.features, tuple(shape)
-        if not (on and feats[0] % 32 == 0
+        if not (on and self.quant_mode == "off" and feats[0] % 32 == 0
                 and D % 2 == 0 and H % 2 == 0 and W % 2 == 0):
             return 0
         if (levels >= 2 and len(feats) >= 2
@@ -416,7 +479,11 @@ class UNet3D(nn.Module):
         batch sharded over that group, every output this slab's (the
         dropout masks, one value per (sample, channel), must then be
         drawn alike on every rank of the group). Nothing of the module is
-        written: the train step stores the new statistics."""
+        written: the train step stores the new statistics. A model with a
+        ``quant_mode`` other than "off" does not train (``ValueError``);
+        JAX's trainer never builds one."""
+        if self.quant_mode != "off":
+            raise ValueError(f"quant_mode {self.quant_mode!r} is eval only")
         return self._forward(x, train=True, generator=generator,
                              bn_stats=batch_stats, bn_group=bn_group,
                              space_group=space_group)

@@ -9,7 +9,10 @@ it once, as the JAX functions do. In f32 the library calls run with TF32
 off (``full_f32``), as JAX's f32 is full f32. Every op carries gradients
 (autograd through the library calls; on the CPU through the widened
 operands). Kernels are kept in flax's layouts (DHWIO), so parameters
-move between the packages unchanged.
+move between the packages unchanged. The one exception is the int8 conv
+of int8 serving (``conv3d_zcat_int8``, eval only): PyTorch has no int8
+3-D conv, so on the card it is a hand-written kernel
+(``ops/conv_int8.py``).
 """
 
 from __future__ import annotations
@@ -254,6 +257,38 @@ def conv3d_slab(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                         bias, dtype, valid_d=True)
 
 
+def quantize_weights_int8(w: torch.Tensor):
+    """Symmetric per-output-channel int8 weights (JAX
+    ``conv3d_zcat_int8``, ``ops/conv.py:225-228``): ``w_scale =
+    max(max|w| over (kd, kh, kw, ci), 1e-12) / 127`` in f32 and ``wq =
+    clip(round(w / w_scale), -127, 127)``, half to even. w (3, 3, 3, ci,
+    co) -> (wq int8 of w's shape, w_scale f32 (co,))."""
+    w = w.float()
+    # 127 as a tensor on w's device: by a Python scalar, torch's CUDA
+    # division multiplies by its reciprocal (not always the same bits)
+    w_scale = w.abs().amax(dim=(0, 1, 2, 3)).clamp_min(1e-12) / torch.full(
+        (), 127.0, device=w.device)
+    wq = torch.round(w / w_scale).clamp(-127, 127).to(torch.int8)
+    return wq, w_scale
+
+
+def conv3d_zcat_int8(x: torch.Tensor, w: torch.Tensor, act_scale,
+                     bias: torch.Tensor = None) -> torch.Tensor:
+    """Quantized 3x3x3 SAME conv, inference only (JAX
+    ``conv3d_zcat_int8``): x (B, D, H, W, ci) any float, quantized per
+    tensor as ``clip(round(x_f32 / act_scale), -127, 127)``; w (3, 3, 3,
+    ci, co) per output channel (``quantize_weights_int8``); the int8
+    products summed exactly, then ``y_f32 * (act_scale * w_scale)``,
+    ``+ bias`` in f32 and one rounding to bf16. ``act_scale``: a scalar
+    (f32 tensor or float). On CUDA tensors it launches the int8 kernel
+    (``ops/conv_int8.py``), on the CPU it runs its plain version."""
+    if tuple(w.shape[:3]) != (3, 3, 3):
+        raise ValueError(f"conv3d_zcat_int8 expects 3x3x3 kernels, got "
+                         f"{tuple(w.shape)}")
+    from .conv_int8 import conv3d_int8
+    return conv3d_int8(x, w, act_scale, bias)
+
+
 def conv_transpose3d_k2s2(x: torch.Tensor, w: torch.Tensor,
                           bias: torch.Tensor = None,
                           dtype: torch.dtype = BF16) -> torch.Tensor:
@@ -350,16 +385,55 @@ class Conv1x1(_ConvParams):
         return conv1x1(x, self.kernel, self.bias, self.compute_dtype)
 
 
+QUANT_MODES = ("off", "calib", "int8")
+
+
 class FastConv3D(_ConvParams):
-    """3x3x3 SAME conv; parameters as flax ``nn.Conv(features, (3,3,3))``."""
+    """3x3x3 SAME conv; parameters as flax ``nn.Conv(features, (3,3,3))``.
+
+    ``quant_mode`` (JAX ``FastConv3D.quant_mode``): ``"off"``, the conv in
+    ``compute_dtype``; ``"calib"``, the same conv, and the buffer
+    ``absmax`` (not saved) keeps the largest ``max|x|`` of its inputs over
+    calls (JAX's ``quant_stats`` sow); ``"int8"``, ``conv3d_zcat_int8``
+    with the buffer ``act_scale`` (JAX's ``quant`` collection). Only a
+    conv whose mode is not ``"off"`` has ``act_scale`` (1.0 until loaded,
+    as JAX's init), so a model without quantization keeps its
+    ``state_dict`` keys."""
 
     def __init__(self, cin: int, features: int, use_bias: bool = False,
-                 generator=None):
+                 generator=None, quant_mode: str = "off"):
         super().__init__((3, 3, 3, cin, features), use_bias, generator)
+        self.set_quant_mode(quant_mode)
+
+    def set_quant_mode(self, mode: str) -> None:
+        """Switch this conv's ``quant_mode``, adding its ``act_scale`` and
+        ``absmax`` buffers (or dropping them for ``"off"``); a loaded
+        ``act_scale`` is kept across ``"calib"`` and ``"int8"``."""
+        if mode not in QUANT_MODES:
+            raise ValueError(f"quant_mode must be one of {QUANT_MODES}, got "
+                             f"{mode!r}")
+        self.quant_mode = mode
+        if mode == "off":
+            self._buffers.pop("act_scale", None)
+            self._buffers.pop("absmax", None)
+        elif "act_scale" not in self._buffers:
+            dev = self.kernel.device
+            self.register_buffer("act_scale", torch.ones((), device=dev))
+            self.register_buffer("absmax", torch.zeros((), device=dev),
+                                 persistent=False)
 
     def forward(self, x, space_group=None):
         """``space_group``: ``x`` is this rank's D slab of a volume
-        sharded over that group (``conv3d_slab``)."""
+        sharded over that group (``conv3d_slab``); not with
+        quantization."""
+        if self.quant_mode != "off" and space_group is not None:
+            raise ValueError("quant_mode runs on whole volumes, not on D "
+                             "slabs")
+        if self.quant_mode == "calib":
+            # |x| and its maximum are exact in x's dtype: no f32 copy
+            self.absmax = torch.maximum(self.absmax, x.abs().amax().float())
+        elif self.quant_mode == "int8":
+            return conv3d_zcat_int8(x, self.kernel, self.act_scale, self.bias)
         if space_group is not None:
             return conv3d_slab(x, self.kernel, self.bias,
                                self.compute_dtype, space_group)

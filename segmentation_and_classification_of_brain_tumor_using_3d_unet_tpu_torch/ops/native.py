@@ -52,6 +52,10 @@ SIGNATURES = {
     "conv3d_same": _K7,
     "conv3d_same_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "conv3d_same_f32_split_weights": (_P, _P, _I, _I, _P),
+    # Q8, the int8 conv (x, x is bf16, w, act_scale, bias, the quantized
+    # weights' scratch, the f32 scratch, y, B, D, H, W, ci, co, stream)
+    "conv3d_int8": (_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                    _P),
 }
 
 

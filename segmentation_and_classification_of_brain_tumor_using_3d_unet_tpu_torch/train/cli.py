@@ -154,6 +154,7 @@ def train_main(argv: Optional[Sequence[str]] = None):
     model = UNet3D(in_channels=mc.in_channels, out_channels=mc.out_channels,
                    features=mc.features, dropout_rate=mc.dropout_rate,
                    remat=mc.remat, compute_dtype=mc.compute_dtype,
+                   s2d_train=mc.s2d_train, s2d_eval=mc.s2d_eval,
                    deep_sup_full_res=cfg.loss.deep_supervision_full_res,
                    seed=cfg.seed, device=device)
     trainer = ModernBrainTumorTrainer(

@@ -32,6 +32,10 @@ their activations and weights) also err against a float64 conv of the
 same inputs by at most 4x the plain f32 conv's own error; K7's and K2's
 errors hold none of the share of any of their three smallest passes
 (least squares, |beta| <= 0.5; -1 would be a pass dropped).
+
+The int8 conv of int8 serving (Q8) against its plain version (a float64
+conv of the quantized integers, exact): bit-equal, two runs
+bit-identical.
 """
 
 import numpy as np
@@ -984,3 +988,70 @@ def test_wtile_conv3d_f32_grads_match_plain(f32_exact, ci, co, D, H, W):
     assert K7.conv3d_same.launches == before + 2
     for a, b in zip((dx, dw), run(K7.wtile_conv3d_plain)):
         _rel_close(a, b)
+
+
+# Q8, the int8 conv (ops/conv_int8.py, csrc/conv3d_int8.cu), against its
+# plain version (a float64 conv of the quantized integers, exact, then
+# the same f32 epilogue): bit-equal bf16 outputs, two runs bit-identical.
+# (ci, co, (B, D, H, W), x dtype, bias): the DoubleConv widths (ci = 4
+# padded to 32, one and several 32-channel chunks, N = 32 and 64 tiles)
+# over ragged volumes, ci not a multiple of 8 (scalar loads), co = 8 and
+# 48 (a partly masked channel tile), small volumes whose patch holds
+# several samples (the bottleneck's 4^3 at batch 4), 1024 -> 1024
+Q8_CASES = [
+    (4, 32, (2, 5, 19, 37), "bf16", False),
+    (4, 32, (2, 5, 19, 37), "f32", True),
+    (32, 32, (2, 6, 17, 23), "bf16", False),
+    (64, 32, (1, 9, 16, 16), "bf16", True),
+    (32, 64, (2, 8, 24, 40), "bf16", False),
+    (96, 64, (2, 5, 9, 11), "f32", False),
+    (128, 128, (4, 8, 8, 8), "bf16", False),
+    (12, 16, (2, 3, 7, 10), "bf16", True),
+    (20, 8, (1, 4, 5, 6), "f32", False),
+    (64, 48, (2, 4, 6, 9), "bf16", True),
+    (512, 1024, (4, 4, 4, 4), "bf16", False),
+    (1024, 1024, (4, 4, 4, 4), "bf16", False),
+    (32, 32, (3, 1, 2, 3), "bf16", False),
+]
+
+
+def _q8_inputs(dev, ci, co, shape, dt, bias):
+    g = torch.Generator(device=dev).manual_seed(ci * 7 + co)
+    x = torch.randn((*shape, ci), device=dev, generator=g)
+    x = x.to(BF16) if dt == "bf16" else x
+    w = torch.randn((3, 3, 3, ci, co), device=dev, generator=g) * 0.05
+    b = torch.randn((co,), device=dev, generator=g) if bias else None
+    s = (x.float().abs().amax() * 0.8 / 127).reshape(())
+    return x, w, s, b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ci,co,shape,dt,bias", Q8_CASES)
+def test_conv3d_int8_kernel_matches_plain(cuda, ci, co, shape, dt, bias):
+    from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.ops import conv_int8 as Q8
+    x, w, s, b = _q8_inputs(cuda, ci, co, shape, dt, bias)
+    before = Q8.conv3d_int8.launches
+    y = Q8.conv3d_int8(x, w, s, b)
+    again = Q8.conv3d_int8(x, w, s, b)
+    torch.cuda.synchronize()
+    assert Q8.conv3d_int8.launches == before + 2
+    assert y.dtype == BF16 and tuple(y.shape) == (*shape, co)
+    ref = Q8.conv3d_int8_plain(x, w, s, b)
+    assert torch.equal(y, ref), (y.float() - ref.float()).abs().max().item()
+    assert torch.equal(y, again)
+    p = Q8.conv3d_int8_plan(*shape, ci, co)
+    assert p["TB"] * p["TD"] * p["TH"] * p["TW"] <= 256, p
+    assert p["N"] in (32, 64) and p["smem"] <= 227 * 1024, p
+
+
+@pytest.mark.gpu
+def test_conv3d_int8_python_scale_and_refusals(cuda):
+    """A Python float scale gives the tensor scale's bits; co not a
+    multiple of 8 and a non-float x are refused."""
+    from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.ops import conv_int8 as Q8
+    x, w, s, _ = _q8_inputs(cuda, 32, 32, (1, 4, 8, 8), "bf16", False)
+    assert torch.equal(Q8.conv3d_int8(x, w, float(s)), Q8.conv3d_int8(x, w, s))
+    with pytest.raises(ValueError):
+        Q8.conv3d_int8(x, w[..., :12], s)
+    with pytest.raises(ValueError):
+        Q8.conv3d_int8(x.to(torch.float16), w, s)

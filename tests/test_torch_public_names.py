@@ -188,8 +188,7 @@ def test_batch_num_classes():
     assert batch_num_classes(Five()) == 5 == j_batch_num_classes(Five())
 
 
-NOT_PORTED = {"ops": {"conv3d_form"},
-              "inference": {"calibrate_int8", "quant_scales_from_stats"}}
+NOT_PORTED = {"ops": {"conv3d_form"}}
 
 
 @pytest.mark.parametrize("sub", ["", "ops", "data", "train", "models",
