@@ -213,12 +213,18 @@ Phase 14, after them all:
      int8 conv (``csrc/conv3d_int8.cu``), at each of the 17 distinct
      (ci, co, side) shapes of the 22 DoubleConv convs at a 4 x 128^3
      window batch, with the model's weights and scales, bit-equal to its
-     plain version and two runs bit-identical, timed (CUDA events,
-     median) beside its bound (bytes over 3.35 TB/s, int8 operations over
-     1979 TOP/s), the plain version, bf16 F.conv3d and bf16 K7; then the
-     cropped request on the three volumes (crop, sliding window of 8
-     windows in 2 forwards, argmax, paste) through the int8 model (Q8 44
-     launches, K1-K4 none), the bf16 normal path and the bf16 levels=2
+     plain version with its weights prepared once (cached, the serving
+     path) and quantized in the call, two runs bit-identical, its plan
+     (form, split of K, overlap factor) printed, timed (CUDA events,
+     median) in both forms and its weights' preparation alone, beside two
+     bounds (bytes over 3.35 TB/s, int8 operations over 1979 TOP/s; the
+     per-call one counts the f32 weights, the cached one the int8
+     weights, scales and bias), the plain version, bf16 F.conv3d and bf16
+     K7; then the cropped request on the three volumes (crop, sliding
+     window of 8 windows in 2 forwards, argmax, paste) through the int8
+     model (Q8 44 launches, its weights prepared 22 times on the first
+     request and none after, K1-K4 none), the bf16 normal path and the
+     bf16 levels=2
      region on the same weights, each wall printed, the int8 logits' max
      |d| and label agreement against the normal path's, no label flipped
      where the normal path's top-2 margin exceeds twice the max drift;
@@ -1562,7 +1568,7 @@ def main() -> int:
 
     counted = (T.conv3d_halo, T.up_k2s2_into_halo, T.pack_halo,
                T.pool_into_halo, GN.fused_group_norm, K7.conv3d_same,
-               Q8.conv3d_int8)
+               Q8.conv3d_int8, Q8.prepare_weights_int8)
 
     def launches_of(**nonzero):
         """A launch count for every kernel: ``nonzero``'s, else 0."""
@@ -4178,28 +4184,47 @@ def main() -> int:
                 times.append(a.elapsed_time(b))
             return float(np.median(times))
 
-        rows, worst = [], 0.0
+        rows, worst, worst_prep = [], 0.0, 0.0
         for (ci, co, s), convs in shapes.items():
             name, conv = convs[0]
             w, a = conv.kernel, conv.act_scale
             x = (torch.randn((B, s, s, s, ci), device=dev, generator=g)
                  * (a.item() * 127 / 4)).to(bf16)
-            y = Q8.conv3d_int8(x, w, a)
-            y2 = Q8.conv3d_int8(x, w, a)
+            prep = Q8.prepare_weights_int8(w)
+            y = Q8.conv3d_int8(x, w, a, None, prep)        # cached weights
+            y2 = Q8.conv3d_int8(x, w, a, None, prep)
+            y3 = Q8.conv3d_int8(x, w, a)                   # in the call
             t = time.perf_counter()
             ref = Q8.conv3d_int8_plain(x, w, a)
             torch.cuda.synchronize()
             plain_s = time.perf_counter() - t
             err = (y.float() - ref.float()).abs().max().item()
             same = torch.equal(y, y2)
-            check(torch.equal(y, ref),
+            check(torch.equal(y, ref) and torch.equal(y3, ref),
                   f"Q8 {ci}->{co} @{s}^3 differs from its plain version "
-                  f"(max |d| {err})")
+                  f"(max |d| {err}, in the call "
+                  f"{(y3.float() - ref.float()).abs().max().item()})")
             check(same, f"Q8 {ci}->{co} @{s}^3: two runs differ")
-            del y2, ref
+            # the prepared weights against the plain quantization, in the
+            # kernel's layout
+            wq_ref, ws_ref = Q8.quantize_weights_int8(w)
+            lay = Q8.int8_weight_layout(wq_ref)
+            perr = max(
+                (prep.wq.int() - lay.int()).abs().max().item(),
+                (prep.w_scale - ws_ref).abs().max().item())
+            check(torch.equal(prep.wq, lay) and torch.equal(prep.w_scale,
+                                                            ws_ref),
+                  f"Q8 weights {ci}->{co}: prepared != plain (max |d| "
+                  f"{perr})")
+            worst_prep = max(worst_prep, perr)
+            del y2, y3, ref, wq_ref, ws_ref, lay
             big = x.numel() * co > 2e9
             reps = 5 if big else 20
-            ms = median_ms(lambda: Q8.conv3d_int8(x, w, a), reps)
+            ms = median_ms(lambda: Q8.conv3d_int8(x, w, a, None, prep), reps)
+            call_ms = median_ms(lambda: Q8.conv3d_int8(x, w, a), reps)
+            prep_ms = median_ms(lambda: Q8.prepare_weights_int8(w), reps)
+            prep_plain_ms = median_ms(lambda: Q8.int8_weight_layout(
+                Q8.quantize_weights_int8(w)[0]), 3)
             plain_ms = 1e3 * plain_s if big else median_ms(
                 lambda: Q8.conv3d_int8_plain(x, w, a), 3)
             xn = x.permute(0, 4, 1, 2, 3)
@@ -4208,28 +4233,52 @@ def main() -> int:
             k7_ms = (median_ms(lambda: K7.conv3d_same(x, w), reps)
                      if ci % 32 == 0 and co % 32 == 0 else None)
             vox = x.numel() // ci
-            nb = nbytes(x, w, y)
             ops = 2.0 * 27 * ci * co * vox
+            nb_call = nbytes(x, w, y)
+            nb = nbytes(x, prep.wq, prep.w_scale, y)
             bms, by = bound_ms(nb, ops, PEAK_INT8_OPS)
-            plan = Q8.conv3d_int8_plan(B, s, s, s, ci, co)
+            bms_call, by_call = bound_ms(nb_call, ops, PEAK_INT8_OPS)
+            plan = Q8.conv3d_int8_plan_of(B, s, s, s, ci, co)
+            check(Q8.conv3d_int8_plan(B, s, s, s, ci, co) == plan,
+                  "the C plan != its mirror")
             shape = f"{ci}->{co} @(4,{s}^3)"
             rows.append({"shape": shape, "convs": [c for c, _ in convs],
-                         "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-                         "bound_ms": bms, "bound_by": by, "bytes": nb,
+                         "ms": ms, "per_call_ms": call_ms,
+                         "prepare_ms": prep_ms,
+                         "prepare_plain_ms": prep_plain_ms,
+                         "plain_ms": plain_ms,
+                         "library_ms": None, "bound_ms": bms,
+                         "bound_by": by, "bytes": nb,
+                         "bound_ms_per_call": bms_call,
+                         "bound_by_per_call": by_call,
+                         "bytes_per_call": nb_call,
                          "int8_ops": ops, "bf16_conv3d_ms": conv_ms,
                          "bf16_k7_ms": k7_ms, "max_abs_err": err,
-                         "two_runs_identical": same, "plan": plan})
+                         "two_runs_identical": same, "plan": plan,
+                         "prepare_bytes": nbytes(w, prep.wq, prep.w_scale)})
             worst = max(worst, err)
             print(f"conv3d_int8 {shape} ({', '.join(c for c, _ in convs)}): "
-                  f"bit-equal to plain, two runs identical; {ms:.4f} ms "
-                  f"(median), bound {bms:.4f} ms ({by}; {nb} bytes, "
-                  f"{ops:.4e} int8 ops), bf16 F.conv3d {conv_ms:.4f} ms, "
-                  f"bf16 K7 "
+                  f"bit-equal to plain (cached and in the call), two runs "
+                  f"identical; cached {ms:.4f} ms (median; bound {bms:.4f} "
+                  f"ms, {by}, {nb} bytes, {ops:.4e} int8 ops, "
+                  f"{bms / ms:.1%}), in the call {call_ms:.4f} ms (bound "
+                  f"{bms_call:.4f} ms, {by_call}, {bms_call / call_ms:.1%}),"
+                  f" weights prepared alone {prep_ms:.4f} ms; bf16 F.conv3d "
+                  f"{conv_ms:.4f} ms, bf16 K7 "
                   + ("n/a (ci not a multiple of 32)" if k7_ms is None
                      else f"{k7_ms:.4f} ms")
-                  + f", plain {plain_ms:.2f} ms; plan {plan}", flush=True)
-            del x, y, xn, wn
+                  + f", plain {plain_ms:.2f} ms; plan {plan['form']}, "
+                  f"split of K {plan['splits']} over {plan['chunks']} "
+                  f"chunks, overlap {plan['overlap']:.3f} (x quantized "
+                  f"once), {plan}", flush=True)
+            del x, y, xn, wn, prep
         torch.cuda.empty_cache()
+        for form in ("ms", "per_call_ms", "bf16_conv3d_ms"):
+            total = sum(len(r["convs"]) * r[form] for r in rows)
+            lvl0 = sum(len(r["convs"]) * r[form] for r in rows
+                       if r["shape"].endswith("128^3)"))
+            print(f"conv3d_int8 22 convs a forward, {form}: {total:.4f} ms "
+                  f"(level 0's four {lvl0:.4f} ms)")
 
         # the cropped request: crop, sliding window, argmax, paste
         def request(m, vol, plan):
@@ -4242,7 +4291,8 @@ def main() -> int:
             lab = logits.argmax(-1).to(torch.int8).cpu().numpy()
             return cropping.paste_full(lab, offs, VOLUME_SHAPE), logits
 
-        want = {"int8": launches_of(conv3d_int8=44),
+        want = {"int8": launches_of(conv3d_int8=44,
+                                    prepare_weights_int8=22),
                 "normal": launches_of(),
                 "region": launches_of(conv3d_halo=14, up_k2s2_into_halo=4,
                                       pack_halo=4, pool_into_halo=2)}
@@ -4258,6 +4308,10 @@ def main() -> int:
                 walls[kind].append(time.perf_counter() - t)
                 check(counts == want[kind],
                       f"{kind} request launches {counts} != {want[kind]}")
+                if kind == "int8" and vi == 0:
+                    first = counts
+                    # the weights are prepared on the first request only
+                    want["int8"] = launches_of(conv3d_int8=44)
                 check(lab.shape == VOLUME_SHAPE and lab.max() < 4,
                       f"{kind} label map")
             li, ln = logits["int8"], logits["normal"]
@@ -4281,7 +4335,9 @@ def main() -> int:
         del qm, normal, model
         torch.cuda.empty_cache()
         m = rows[[r["shape"] for r in rows].index("32->32 @(4,128^3)")]
-        return {"launches": want["int8"], "walls_s": walls,
+        wb = rows[[r["shape"] for r in rows].index("1024->1024 @(4,4^3)")]
+        pb, pby = bound_ms(wb["prepare_bytes"], 0.0, PEAK_INT8_OPS)
+        return {"launches": first, "walls_s": walls,
                 "calibrate_s": calib_s, "max_logit_drift": worst_d,
                 "label_agreement": agree,
                 "kernel": {
@@ -4293,10 +4349,23 @@ def main() -> int:
                     "launches_by_path": None, "max_abs_err": worst,
                     "ms": m["ms"], "plain_ms": m["plain_ms"],
                     "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
-                    "library_ms": None,
+                    "library_ms": None, "per_call_ms": m["per_call_ms"],
+                    "bound_ms_per_call": m["bound_ms_per_call"],
                     "bf16_conv3d_ms": m["bf16_conv3d_ms"],
                     "bf16_k7_ms": m["bf16_k7_ms"], "shape": m["shape"],
-                    "forms": rows}}
+                    "forms": rows},
+                "weights_kernel": {
+                    "name": "prepare_weights_int8", "route": "cuda",
+                    "source": f"{PKG}/csrc/conv3d_int8.cu",
+                    # no TPU kernel: JAX quantizes the weights in XLA
+                    "replaces": f"{REF}/ops/conv.py:225",
+                    "tpu_kernel": None, "launches": None,
+                    "launches_by_path": None, "max_abs_err": worst_prep,
+                    "ms": wb["prepare_ms"], "plain_ms": wb["prepare_plain_ms"],
+                    "bound_ms": pb, "bound_by": pby, "library_ms": None,
+                    "shape": "(3,3,3,1024,1024) f32 -> int8",
+                    "prepare_ms_by_shape": {r["shape"]: r["prepare_ms"]
+                                            for r in rows}}}
     report["int8"] = run.phase("int8", int8)
 
     # launches per path: the server requests' (K1-K4), the five
@@ -4325,10 +4394,12 @@ def main() -> int:
                "f32region_train": report["f32region"]["train_launches"],
                "f32region_wtile": report["f32region"]["wtile_launches"]}
     kernels_json.append(report["int8"]["kernel"])
+    kernels_json.append(report["int8"]["weights_kernel"])
     main_path = {"conv3d_halo_train": "train",
                  "fused_group_norm": "groupnorm",
                  "conv3d_same": "wtile",
                  "conv3d_int8": "int8",
+                 "prepare_weights_int8": "int8",
                  "conv3d_halo_train_f32": "f32region_train",
                  "conv3d_same_f32": "f32region_wtile"}
     train_paths = ("train", "trainer_steps", "f32region_train",
@@ -4336,13 +4407,14 @@ def main() -> int:
 
     def launches(name, path):
         """K6 has no kernel of its own: its launches are K1's on
-        the train paths, and none on the others. Q8 is counted only in
-        this process: the ranks' counts have no key of its own."""
+        the train paths, and none on the others. Q8 and its weights'
+        preparation are counted only in this process: the ranks' counts
+        have no key of their own."""
         counts = {**paths, **paths32}[path]
         wrapper = name.removesuffix("_f32")
         if wrapper == "conv3d_halo_train":
             return counts["conv3d_halo"] if path in train_paths else 0
-        if wrapper == "conv3d_int8":
+        if wrapper in ("conv3d_int8", "prepare_weights_int8"):
             return counts.get(wrapper, 0)
         return counts[wrapper]
     for row in kernels_json:

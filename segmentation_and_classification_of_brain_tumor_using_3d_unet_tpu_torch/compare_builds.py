@@ -80,6 +80,23 @@ launches between CUDA events; the script prints the median per build.
     (the statistics' two kernels, the fold, the apply) are timed apart;
     ``torch.profiler`` splits every build's call into its kernels.
 
+  * ``--kernel q8``: Q8 (``ops/conv_int8.py::conv3d_int8``) at the 17
+    distinct (ci, co, side) shapes of the full-width UNet's 22 DoubleConv
+    convs at the server's batch of 4 windows of 128^3 (x bf16, a
+    calibrated-like scale, no bias), each build's output held bit-equal
+    to the plain version; this build timed with its weights prepared once
+    ("cached", the serving path) and with them quantized in the call
+    ("per call"), and its weights' preparation alone; bf16 ``F.conv3d``
+    and bf16 K7 (where ci and co are multiples of 32) on the same inputs
+    as yardsticks; ``torch.profiler`` splits this build's cached call into
+    its kernels (x's quantizing pass, the conv, the split's memset and
+    epilogue). Rounds A B B A; each form's two bounds (the per-call
+    one counts the f32 weights, the cached one the int8 weights, scales
+    and bias that the call reads); this build's plan; the 22 convs' sum
+    per forward of each build, weighted by each shape's count. A build
+    from before the prepared weights (no ``conv3d_int8_weights``) runs
+    with its own signature (the weights quantized in every call).
+
     python -m segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.compare_builds \\
         --kernel k1 --against parent=/path/to/parent/csrc
 
@@ -586,9 +603,10 @@ def flushed_ms(fn, reps: int, scratch) -> float:
     return sum(s.elapsed_time(e) for s, e in ev) / reps
 
 
-def kernels_of(fn, calls: int = 5) -> dict:
+def kernels_of(fn, calls: int = 5, width: int = 60) -> dict:
     """Device ms per call of each kernel ``fn`` launches, from
-    ``torch.profiler`` over ``calls`` calls."""
+    ``torch.profiler`` over ``calls`` calls, by the first ``width``
+    characters of each kernel's name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -604,7 +622,7 @@ def kernels_of(fn, calls: int = 5) -> dict:
         if t is None:
             t = getattr(e, "cuda_time_total", 0.0)
         if t > 0 and e.count >= calls:
-            out[e.key[:60]] = (t / 1e3 / calls, e.count // calls)
+            out[e.key[:width]] = (t / 1e3 / calls, e.count // calls)
     return out
 
 
@@ -710,12 +728,166 @@ def compare_k5(libs, use, rounds: int) -> dict:
             "floor_share": {k: v["floor_share"] for k, v in result.items()}}
 
 
+PEAK_INT8_OPS = 1979e12   # H100 SXM dense int8 (NVIDIA data sheet)
+
+
+def q8_shapes(feats=(32, 64, 128, 256, 512), side: int = 128) -> dict:
+    """The 17 distinct (ci, co, side) of the UNet's 22 DoubleConv convs at
+    a ``side``^3 window: name lists keyed by shape (``down{i}`` at side
+    >> i from 4 input channels, the bottleneck at side >> n, ``dec{i}``
+    at side >> (n - 1 - i) on the skip concatenation)."""
+    n, out = len(feats), {}
+
+    def add(name, ci, co, s):
+        out.setdefault((ci, co, s), []).append(name)
+    for i, f in enumerate(feats):
+        add(f"down{i}.conv1", feats[i - 1] if i else 4, f, side >> i)
+        add(f"down{i}.conv2", f, f, side >> i)
+    add("bottleneck.conv1", feats[-1], 2 * feats[-1], side >> n)
+    add("bottleneck.conv2", 2 * feats[-1], 2 * feats[-1], side >> n)
+    for i in range(n):
+        f = feats[n - 1 - i]
+        add(f"dec{i}.conv1", 2 * f, f, side >> (n - 1 - i))
+        add(f"dec{i}.conv2", f, f, side >> (n - 1 - i))
+    return out
+
+
+def _legacy_q8(lib, x, w, s):
+    """A build from before the prepared weights (its C signature:
+    x, x is bf16, w, act_scale, bias, wq, f32 scratch, y, B, D, H, W, ci,
+    co, stream; the weights quantized in the call)."""
+    import ctypes
+    import torch
+    from .ops.ps2d import _stream
+    B, D, H, W, ci = x.shape
+    co = w.shape[-1]
+    fn = lib._dll["conv3d_int8"]
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = (P, I, P, P, P, P, P, P, I, I, I, I, I, I, P)
+    fn.restype = ctypes.c_int
+    wq = torch.empty((co, 27, -(-ci // 32) * 32), dtype=torch.int8,
+                     device=x.device)
+    f32s = torch.empty((33, co), dtype=torch.float32, device=x.device)
+    y = torch.empty((B, D, H, W, co), dtype=torch.bfloat16, device=x.device)
+    lib.check("conv3d_int8", fn(x.data_ptr(), int(x.dtype == torch.bfloat16),
+                                w.data_ptr(), s.data_ptr(), None,
+                                wq.data_ptr(), f32s.data_ptr(), y.data_ptr(),
+                                B, D, H, W, ci, co, _stream()))
+    return y
+
+
+def compare_q8(libs, use, rounds: int) -> dict:
+    """Q8 at the 17 DoubleConv shapes in every build (the docstring's
+    ``--kernel q8``)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from .ops import conv3d as K7
+    from .ops import conv_int8 as Q8
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    order = list(libs) + list(libs)[::-1]
+    shapes = q8_shapes()
+    result, sums = {}, {}
+    for (ci, co, side), names in sorted(shapes.items(),
+                                        key=lambda kv: -kv[0][2]):
+        name = f"{ci}->{co} @(4,{side}^3)"
+        x = torch.randn((4, side, side, side, ci), device="cuda",
+                        generator=g).to(torch.bfloat16)
+        w = torch.randn((3, 3, 3, ci, co), device="cuda", generator=g) * (
+            2 / (27 * co)) ** 0.5
+        s = (x.float().abs().amax() * 0.8 / 127).reshape(1)
+        ref = Q8.conv3d_int8_plain(x, w, s)
+        calls = {}
+        for label, lib in libs.items():
+            use(label)
+            if hasattr(lib, "conv3d_int8_weights"):
+                prep = Q8.prepare_weights_int8(w)
+                calls[f"{label} cached"] = (
+                    label, lambda prep=prep: Q8.conv3d_int8(x, w, s, None,
+                                                            prep))
+                calls[f"{label} per call"] = (
+                    label, lambda: Q8.conv3d_int8(x, w, s))
+            else:
+                calls[f"{label} per call"] = (
+                    label, lambda lib=lib: _legacy_q8(lib, x, w, s))
+        outs = {}
+        for k, (label, fn) in calls.items():
+            use(label)
+            outs[k] = fn()
+            if not torch.equal(outs[k], ref):
+                raise SystemExit(f"compare_builds: {k} differs from the "
+                                 f"plain version at {name}: max |d| "
+                                 f"{(outs[k].float() - ref.float()).abs().max().item()}")
+        use("this")
+        again = calls["this cached"][1]()
+        print(f"{name} ({', '.join(names)}): every build bit-equal to the "
+              f"plain version; this build's two runs identical "
+              f"{torch.equal(again, outs['this cached'])}")
+        del ref, outs, again
+        use("this")
+        plan = Q8.conv3d_int8_plan_of(4, side, side, side, ci, co)
+        print(f"{name}: this build's plan {plan}")
+        split = kernels_of(calls["this cached"][1], width=100)
+        print(f"{name}: this build's kernels, cached (torch.profiler, ms a "
+              f"call, launches a call): {split}")
+        xn = x.permute(0, 4, 1, 2, 3)                 # channels-last NCDHW
+        wn = w.to(torch.bfloat16).permute(4, 3, 0, 1, 2).contiguous()
+        lib_calls = {"F.conv3d bf16": lambda: F.conv3d(xn, wn, padding=1),
+                     "prepare weights": lambda: Q8.prepare_weights_int8(w)}
+        if ci % 32 == 0 and co % 32 == 0:
+            lib_calls["K7 bf16"] = lambda: K7.conv3d_same(x, w)
+        reps = 5 if side == 128 else 20
+        times = {k: [] for k in [*calls, *lib_calls]}
+        for _ in range(rounds):
+            for label in order:
+                for k, (lb, fn) in calls.items():
+                    if lb == label:
+                        use(label)
+                        times[k].append(event_ms(fn, reps))
+            use("this")
+            for k, fn in lib_calls.items():
+                times[k].append(event_ms(fn, reps))
+        med = {k: float(np.median(v)) for k, v in times.items()}
+        vox = x.numel() // ci
+        io = (x.numel() + vox * co) * 2
+        ops = 2.0 * 27 * ci * co * vox
+        b_call = max(ops / PEAK_INT8_OPS,
+                     (io + w.numel() * 4) / PEAK_HBM_BYTES) * 1e3
+        b_cached = max(ops / PEAK_INT8_OPS,
+                       (io + w.numel() + co * 4) / PEAK_HBM_BYTES) * 1e3
+        bound = {k: (b_cached if k.endswith("cached") else b_call)
+                 for k in calls}
+        result[name] = {"convs": names, "median_ms": med,
+                        "bound_ms": {"per call": b_call, "cached": b_cached},
+                        "bound_share": {k: bound[k] / med[k] for k in calls},
+                        "plan": plan, "kernels": split}
+        for k in med:
+            sums[k] = sums.get(k, 0.0) + len(names) * med[k]
+        print(f"{name}: bounds per call {b_call:.4f} ms, cached "
+              f"{b_cached:.4f} ms; " + ", ".join(
+                  f"{k} {v:.4f} ms"
+                  + (f" ({bound[k] / v:.1%} of bound)" if k in bound else "")
+                  + f" [{' '.join(f'{t:.4f}' for t in times[k])}]"
+                  for k, v in med.items()), flush=True)
+        del x, w, xn, wn, calls, lib_calls
+        torch.cuda.empty_cache()
+    print("22 convs a forward (each shape's median times its count): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in sums.items()))
+    return {"forms": {k: v["median_ms"] for k, v in result.items()},
+            "bound_ms": {k: v["bound_ms"] for k, v in result.items()},
+            "bound_share": {k: v["bound_share"] for k, v in result.items()},
+            "plans": {k: v["plan"] for k, v in result.items()},
+            "kernels": {k: v["kernels"] for k, v in result.items()},
+            "forward_22_ms": sums}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", action="append", default=[],
                     metavar="LABEL=DIR", help="a csrc directory to compare")
     ap.add_argument("--kernel", choices=("k1", "k1f32", "k2", "k2f32", "k5",
-                                         "k7", "k7f32"), default="k1")
+                                         "k7", "k7f32", "q8"), default="k1")
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--reps", type=int, default=10,
                     help="launches per timing (k1, k1f32; k2 takes 20, "
@@ -746,7 +918,8 @@ def main(argv=None) -> int:
                  "k2f32": ("up_split6_kernel", "up_f32_kernel"),
                  "k7f32": ("split6_kernel", "conv_same_f32_kernel"),
                  "k5": ("gn_kernel", "stats_partial", "stats_final",
-                        "apply_kernel")}.get(
+                        "apply_kernel"),
+                 "q8": ("conv3d_int8",)}.get(
             args.kernel, ("conv_kernel",))
         for i, line in enumerate(log):
             if "entry function" in line and any(e in line for e in entry):
@@ -759,6 +932,8 @@ def main(argv=None) -> int:
 
     if args.kernel == "k5":
         out = compare_k5(libs, use, args.rounds)
+    elif args.kernel == "q8":
+        out = compare_q8(libs, use, args.rounds)
     elif args.kernel == "k7":
         out = compare_k7(libs, use, args.rounds)
     elif args.kernel == "k7f32":

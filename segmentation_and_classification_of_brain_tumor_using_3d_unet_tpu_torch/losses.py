@@ -5,13 +5,15 @@ computes in float32), targets integer ``(B, D, H, W)``. Every term
 reduces as a per-sample mean, so a loss over microbatches averages to
 the loss over their batch (train/loop.py's ``grad_accum``).
 
-``combined_loss`` and ``deep_supervision_loss`` take a ``group`` (the
-``space`` group of a mesh): the logits and targets are then this rank's
-D slabs, and the Dice sums, the cross-entropy and focal sums and the
-voxel count are summed over the group by ``parallel.mesh.replica_sum``,
-so every rank holds the whole volume's loss, and each rank's backward of
-it gives that rank's share of the gradient (summed over the group by the
-train step).
+``combined_loss``, ``boundary_loss``, ``combined_loss3d`` and
+``deep_supervision_loss`` take a ``group`` (the ``space`` group of a
+mesh): the logits and targets are then this rank's D slabs, and the Dice
+sums, the cross-entropy, focal and boundary sums and the voxel count are
+summed over the group by ``parallel.mesh.replica_sum``, so every rank
+holds the whole volume's loss, and each rank's backward of it gives that
+rank's share of the gradient (summed over the group by the train step).
+The boundary term's D difference at a slab's last plane takes the next
+slab's first plane (``parallel.spatial.halo_exchange_d``).
 
   * ``combined_loss`` — the trainer criterion, 0.5 dice + 0.3 CE + 0.2
     focal, all three from ONE log-softmax;
@@ -103,34 +105,73 @@ def combined_loss(logits: torch.Tensor, targets: torch.Tensor,
     return weights[0] * dice + weights[1] * ce + weights[2] * focal
 
 
-def boundary_loss(logits: torch.Tensor,
-                  targets: torch.Tensor) -> torch.Tensor:
+def _boundary_sq(probs: torch.Tensor, onehot: torch.Tensor,
+                 group=None) -> torch.Tensor:
+    """The map boundary_loss averages: the squared difference of the
+    gradient magnitudes of the softmax and of the one-hot (this rank's
+    slab of it over a ``group``). Each axis's forward difference takes
+    one plane past the end: along D the next slab's first plane, past
+    the volume's end the last plane repeated ("edge"), as along H and W,
+    whose difference is 0, as JAX's pad of the whole volume's."""
+    from .parallel.spatial import halo_exchange_d
+    both = torch.cat([probs, onehot], dim=-1)
+    total = torch.zeros_like(both)
+    for ax in SPATIAL:
+        if ax == 1:
+            ext = halo_exchange_d(both, 1, group, "edge")[:, 1:]
+        else:
+            ext = torch.cat([both, both.narrow(ax, both.shape[ax] - 1, 1)],
+                            dim=ax)
+        total = total + torch.diff(ext, dim=ax).abs()
+    gp, go = total.split(probs.shape[-1], dim=-1)
+    return (gp - go).square()
+
+
+def boundary_loss(logits: torch.Tensor, targets: torch.Tensor,
+                  group=None) -> torch.Tensor:
     """MSE between the forward-difference gradient magnitudes of the
     softmax and of the one-hot targets (the last row of each axis gets
-    a zero difference)."""
+    a zero difference). ``group``: over D slabs (the module's
+    docstring)."""
     probs = torch.softmax(logits.float(), dim=-1)
-    onehot = _one_hot(targets, logits.shape[-1])
-
-    def grad_mag(t: torch.Tensor) -> torch.Tensor:
-        total = torch.zeros_like(t)
-        for ax in SPATIAL:
-            d = torch.diff(t, dim=ax).abs()
-            pad = [0, 0] * (t.ndim - 1 - ax) + [0, 1]
-            total = total + torch.nn.functional.pad(d, pad)
-        return total
-
-    return (grad_mag(probs) - grad_mag(onehot)).square().mean()
+    sq = _boundary_sq(probs, _one_hot(targets, logits.shape[-1]), group)
+    if group is None:
+        return sq.mean()
+    from .parallel.mesh import replica_sum
+    s = replica_sum(torch.stack([sq.sum(), torch.tensor(
+        float(sq.numel()), device=sq.device)]), group)
+    return s[0] / s[1]
 
 
 def combined_loss3d(logits: torch.Tensor, targets: torch.Tensor,
                     alpha: float = 0.5, beta: float = 0.3,
-                    gamma: float = 0.2, smooth: float = 1e-5
+                    gamma: float = 0.2, smooth: float = 1e-5, group=None
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """alpha * dice + beta * focal(0.25, 2) + gamma * boundary, and the
-    parts."""
-    dice = softmax_dice_loss(logits, targets, smooth)
-    focal = focal_loss(logits, targets, alpha=0.25, gamma=2.0)
-    boundary = boundary_loss(logits, targets)
+    parts, each the value of its own function. ``group``: over D slabs
+    (the module's docstring), the three terms' sums in one
+    ``replica_sum``."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    probs = torch.softmax(logits.float(), dim=-1)
+    onehot = _one_hot(targets, logits.shape[-1])
+    inter = (probs * onehot).sum(SPATIAL)
+    union = probs.sum(SPATIAL) + onehot.sum(SPATIAL)
+    ce = _ce_map(logp, onehot)
+    focal_map = 0.25 * (1.0 - torch.exp(-ce)) ** 2.0 * ce
+    sq = _boundary_sq(probs, onehot, group)
+    if group is None:
+        focal, boundary = focal_map.mean(), sq.mean()
+    else:
+        from .parallel.mesh import replica_sum
+        n = inter.numel()
+        count = torch.full((1,), float(ce.numel()), device=ce.device)
+        s = replica_sum(torch.cat([inter.reshape(-1), union.reshape(-1),
+                                   focal_map.sum()[None], sq.sum()[None],
+                                   count]), group)
+        inter, union = s[:n].view_as(inter), s[n:2 * n].view_as(union)
+        focal = s[2 * n] / s[-1]
+        boundary = s[2 * n + 1] / (s[-1] * logits.shape[-1])
+    dice = 1.0 - ((2.0 * inter + smooth) / (union + smooth)).mean()
     total = alpha * dice + beta * focal + gamma * boundary
     return total, {"dice_loss": dice, "focal_loss": focal,
                    "boundary_loss": boundary, "total_loss": total}

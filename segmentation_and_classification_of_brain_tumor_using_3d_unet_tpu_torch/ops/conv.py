@@ -273,7 +273,7 @@ def quantize_weights_int8(w: torch.Tensor):
 
 
 def conv3d_zcat_int8(x: torch.Tensor, w: torch.Tensor, act_scale,
-                     bias: torch.Tensor = None) -> torch.Tensor:
+                     bias: torch.Tensor = None, weights=None) -> torch.Tensor:
     """Quantized 3x3x3 SAME conv, inference only (JAX
     ``conv3d_zcat_int8``): x (B, D, H, W, ci) any float, quantized per
     tensor as ``clip(round(x_f32 / act_scale), -127, 127)``; w (3, 3, 3,
@@ -281,12 +281,14 @@ def conv3d_zcat_int8(x: torch.Tensor, w: torch.Tensor, act_scale,
     products summed exactly, then ``y_f32 * (act_scale * w_scale)``,
     ``+ bias`` in f32 and one rounding to bf16. ``act_scale``: a scalar
     (f32 tensor or float). On CUDA tensors it launches the int8 kernel
-    (``ops/conv_int8.py``), on the CPU it runs its plain version."""
+    (``ops/conv_int8.py``), on the CPU it runs its plain version.
+    ``weights``: w's ``prepare_weights_int8``, else prepared in the
+    call."""
     if tuple(w.shape[:3]) != (3, 3, 3):
         raise ValueError(f"conv3d_zcat_int8 expects 3x3x3 kernels, got "
                          f"{tuple(w.shape)}")
     from .conv_int8 import conv3d_int8
-    return conv3d_int8(x, w, act_scale, bias)
+    return conv3d_int8(x, w, act_scale, bias, weights)
 
 
 def conv_transpose3d_k2s2(x: torch.Tensor, w: torch.Tensor,
@@ -398,11 +400,15 @@ class FastConv3D(_ConvParams):
     with the buffer ``act_scale`` (JAX's ``quant`` collection). Only a
     conv whose mode is not ``"off"`` has ``act_scale`` (1.0 until loaded,
     as JAX's init), so a model without quantization keeps its
-    ``state_dict`` keys."""
+    ``state_dict`` keys. In ``"int8"`` the kernel's prepared int8 weights
+    are kept across calls in ``_int8_weights`` (a plain attribute, not
+    state: ``Int8WeightCache``), prepared anew when ``kernel`` changes."""
 
     def __init__(self, cin: int, features: int, use_bias: bool = False,
                  generator=None, quant_mode: str = "off"):
         super().__init__((3, 3, 3, cin, features), use_bias, generator)
+        from .conv_int8 import Int8WeightCache
+        self._int8_weights = Int8WeightCache()
         self.set_quant_mode(quant_mode)
 
     def set_quant_mode(self, mode: str) -> None:
@@ -413,6 +419,7 @@ class FastConv3D(_ConvParams):
             raise ValueError(f"quant_mode must be one of {QUANT_MODES}, got "
                              f"{mode!r}")
         self.quant_mode = mode
+        self._int8_weights.clear()
         if mode == "off":
             self._buffers.pop("act_scale", None)
             self._buffers.pop("absmax", None)
@@ -433,7 +440,8 @@ class FastConv3D(_ConvParams):
             # |x| and its maximum are exact in x's dtype: no f32 copy
             self.absmax = torch.maximum(self.absmax, x.abs().amax().float())
         elif self.quant_mode == "int8":
-            return conv3d_zcat_int8(x, self.kernel, self.act_scale, self.bias)
+            return conv3d_zcat_int8(x, self.kernel, self.act_scale, self.bias,
+                                    self._int8_weights.get(self.kernel))
         if space_group is not None:
             return conv3d_slab(x, self.kernel, self.bias,
                                self.compute_dtype, space_group)

@@ -52,10 +52,13 @@ SIGNATURES = {
     "conv3d_same": _K7,
     "conv3d_same_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "conv3d_same_f32_split_weights": (_P, _P, _I, _I, _P),
-    # Q8, the int8 conv (x, x is bf16, w, act_scale, bias, the quantized
-    # weights' scratch, the f32 scratch, y, B, D, H, W, ci, co, stream)
-    "conv3d_int8": (_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                    _P),
+    # Q8, the int8 conv (x, x is bf16, the prepared wq and w_scale,
+    # act_scale, bias, x's int8 scratch, the split's int32 scratch, y, B,
+    # D, H, W, ci, co, stream) and its weights' preparation (w, wq, the f32
+    # scratch of w_scale and the maxima, ci, co, stream)
+    "conv3d_int8": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                    _I, _P),
+    "conv3d_int8_weights": (_P, _P, _P, _I, _I, _P),
 }
 
 

@@ -606,3 +606,29 @@ def spatial_ps2d_eval(rank, world, d):
               dropout_rate=0.0, compute_dtype="float32"),
         shard_batch(d["batch"], mesh), mesh)
     return out
+
+
+def loss3d_slabs(rank, world, logits, targets):
+    """``boundary_loss`` and ``combined_loss3d`` over a (1, 2) mesh on this
+    rank's D slab of ``logits`` (float32) and ``targets``: each loss's
+    value (and ``combined_loss3d``'s parts) and its gradient with respect
+    to the slab."""
+    from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch import (
+        losses as L)
+    from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.parallel import (
+        mesh as M)
+    m = M.create_mesh(1, 2)
+    g = m.group("space")
+    tg = M.shard_batch(torch.from_numpy(targets), m)
+    out = {}
+    for name in ("boundary", "combined3d"):
+        lg = M.shard_batch(torch.from_numpy(logits), m).clone()
+        lg.requires_grad_()
+        if name == "boundary":
+            loss, parts = L.boundary_loss(lg, tg, group=g), {}
+        else:
+            loss, parts = L.combined_loss3d(lg, tg, group=g)
+        loss.backward()
+        out[name] = (float(loss), {k: float(v) for k, v in parts.items()},
+                     _np(lg.grad))
+    return out

@@ -34,8 +34,11 @@ errors hold none of the share of any of their three smallest passes
 (least squares, |beta| <= 0.5; -1 would be a pass dropped).
 
 The int8 conv of int8 serving (Q8) against its plain version (a float64
-conv of the quantized integers, exact): bit-equal, two runs
-bit-identical.
+conv of the quantized integers, exact): bit-equal, with prepared
+(cached) weights and with the weights quantized in the call, two runs
+bit-identical; its prepared weights equal to the plain quantization in
+the kernel's layout; its launch plan equal to the Python mirror; its
+int8 wgmma tile step alone equal to the integer product.
 """
 
 import numpy as np
@@ -994,10 +997,14 @@ def test_wtile_conv3d_f32_grads_match_plain(f32_exact, ci, co, D, H, W):
 # plain version (a float64 conv of the quantized integers, exact, then
 # the same f32 epilogue): bit-equal bf16 outputs, two runs bit-identical.
 # (ci, co, (B, D, H, W), x dtype, bias): the DoubleConv widths (ci = 4
-# padded to 32, one and several 32-channel chunks, N = 32 and 64 tiles)
-# over ragged volumes, ci not a multiple of 8 (scalar loads), co = 8 and
-# 48 (a partly masked channel tile), small volumes whose patch holds
-# several samples (the bottleneck's 4^3 at batch 4), 1024 -> 1024
+# packed, one and several 32-channel chunks, N = 32 and 64 tiles) over
+# ragged volumes, ci not a multiple of 8 (scalar loads), co = 8 and 48 (a
+# partly masked channel tile), small volumes whose patch holds several
+# samples (the bottleneck's 4^3 at batch 4), 1024 -> 1024; then x at and
+# beside the rounding ties (k + 0.5) * act_scale ("-ties"), ci = 4 on
+# ragged volumes at B = 1 and 3, the split-K shapes (512 -> 512 and
+# 1024 -> 512 at (4, 8^3); 1024 -> 640 at (1, 4^3) splits 32 chunks 13
+# ways, unevenly), D = 1 and 2
 Q8_CASES = [
     (4, 32, (2, 5, 19, 37), "bf16", False),
     (4, 32, (2, 5, 19, 37), "f32", True),
@@ -1012,16 +1019,39 @@ Q8_CASES = [
     (512, 1024, (4, 4, 4, 4), "bf16", False),
     (1024, 1024, (4, 4, 4, 4), "bf16", False),
     (32, 32, (3, 1, 2, 3), "bf16", False),
+    (32, 32, (2, 6, 17, 23), "bf16-ties", False),
+    (64, 64, (1, 5, 9, 11), "f32-ties", True),
+    (4, 32, (2, 5, 19, 37), "bf16-ties", False),
+    (4, 32, (1, 7, 13, 21), "bf16", True),
+    (4, 64, (3, 5, 9, 6), "f32", False),
+    (512, 512, (4, 8, 8, 8), "bf16", False),
+    (1024, 512, (4, 8, 8, 8), "bf16", True),
+    (1024, 640, (1, 4, 4, 4), "bf16", False),
+    (32, 32, (2, 1, 12, 20), "bf16", True),
+    (64, 64, (1, 2, 16, 16), "f32", False),
 ]
 
 
 def _q8_inputs(dev, ci, co, shape, dt, bias):
     g = torch.Generator(device=dev).manual_seed(ci * 7 + co)
-    x = torch.randn((*shape, ci), device=dev, generator=g)
-    x = x.to(BF16) if dt == "bf16" else x
+    if dt.endswith("-ties"):
+        # act_scale a power of two and x = (k + 0.5) * s exactly (bf16
+        # holds k + 0.5 for |k| <= 127), each tie, the values one ulp of
+        # x's dtype below and above it, and a few past the clip
+        s = torch.tensor(2.0 ** -3, device=dev)
+        k = torch.randint(-130, 130, (*shape, ci), device=dev, generator=g)
+        tie = (k.float() + 0.5) * s
+        x = tie.to(BF16 if dt.startswith("bf16") else torch.float32)
+        # a neighbour in the bit pattern: one ulp off (x is never 0)
+        bits = x.view(torch.int16 if x.dtype == BF16 else torch.int32)
+        step = torch.randint(-1, 2, x.shape, device=dev, generator=g)
+        x = (bits + step.to(bits.dtype)).view(x.dtype)
+    else:
+        x = torch.randn((*shape, ci), device=dev, generator=g)
+        x = x.to(BF16) if dt == "bf16" else x
+        s = (x.float().abs().amax() * 0.8 / 127).reshape(())
     w = torch.randn((3, 3, 3, ci, co), device=dev, generator=g) * 0.05
     b = torch.randn((co,), device=dev, generator=g) if bias else None
-    s = (x.float().abs().amax() * 0.8 / 127).reshape(())
     return x, w, s, b
 
 
@@ -1030,18 +1060,65 @@ def _q8_inputs(dev, ci, co, shape, dt, bias):
 def test_conv3d_int8_kernel_matches_plain(cuda, ci, co, shape, dt, bias):
     from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.ops import conv_int8 as Q8
     x, w, s, b = _q8_inputs(cuda, ci, co, shape, dt, bias)
+    if dt.endswith("-ties"):   # ties are there, and the ulp either side
+        r = x.float() / s
+        assert (r - r.floor() == 0.5).any() and (r - r.floor() != 0.5).any()
     before = Q8.conv3d_int8.launches
-    y = Q8.conv3d_int8(x, w, s, b)
-    again = Q8.conv3d_int8(x, w, s, b)
+    prep = Q8.prepare_weights_int8(w)
+    y = Q8.conv3d_int8(x, w, s, b)                  # weights in the call
+    cached = Q8.conv3d_int8(x, w, s, b, prep)
+    again = Q8.conv3d_int8(x, w, s, b, prep)
     torch.cuda.synchronize()
-    assert Q8.conv3d_int8.launches == before + 2
+    assert Q8.conv3d_int8.launches == before + 3
     assert y.dtype == BF16 and tuple(y.shape) == (*shape, co)
     ref = Q8.conv3d_int8_plain(x, w, s, b)
     assert torch.equal(y, ref), (y.float() - ref.float()).abs().max().item()
-    assert torch.equal(y, again)
+    assert torch.equal(cached, y) and torch.equal(again, cached)
+    wq, ws = Q8.quantize_weights_int8(w)
+    assert torch.equal(prep.wq, Q8.int8_weight_layout(wq))
+    assert torch.equal(prep.w_scale, ws)
     p = Q8.conv3d_int8_plan(*shape, ci, co)
-    assert p["TB"] * p["TD"] * p["TH"] * p["TW"] <= 256, p
+    assert p == Q8.conv3d_int8_plan_of(*shape, ci, co)
+    assert p["TB"] * p["TD"] * p["TH"] * p["TW"] <= 256 * (2 - p["resident"]), p
     assert p["N"] in (32, 64) and p["smem"] <= 227 * 1024, p
+    if (ci, co, shape) == (1024, 640, (1, 4, 4, 4)):
+        assert p["splits"] == 13 and p["chunks"] % p["splits"], p
+
+
+@pytest.mark.gpu
+def test_conv3d_int8_plan_matches_mirror_at_the_model_shapes(cuda):
+    """The card's plan equals ``conv3d_int8_plan_of`` at the 17 distinct
+    DoubleConv shapes of a full-width 4 x 128^3 batch."""
+    from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.compare_builds import q8_shapes
+    from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.ops import conv_int8 as Q8
+    shapes = q8_shapes()
+    assert len(shapes) == 17 and sum(map(len, shapes.values())) == 22
+    for ci, co, s in sorted(shapes):
+        assert (Q8.conv3d_int8_plan(4, s, s, s, ci, co)
+                == Q8.conv3d_int8_plan_of(4, s, s, s, ci, co)), (ci, co, s)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [32, 64])
+def test_conv3d_int8_wgmma_tile_step(cuda, n):
+    """One int8 wgmma through the kernel's fragment loads, weight layout
+    and descriptor (the C entry ``conv3d_int8_wgmma_probe``: d (64, n)
+    int32 = a (64, 32) int8 @ b (n, 32) int8 transposed) equals the
+    integer product."""
+    import ctypes
+    from segmentation_and_classification_of_brain_tumor_using_3d_unet_tpu_torch.ops.ps2d import _lib, _stream
+    g = torch.Generator(device=cuda).manual_seed(n)
+    a = torch.randint(-127, 128, (64, 32), device=cuda, generator=g)
+    b = torch.randint(-127, 128, (n, 32), device=cuda, generator=g)
+    a8, b8 = a.to(torch.int8).contiguous(), b.to(torch.int8).contiguous()
+    d = torch.empty((64, n), dtype=torch.int32, device=cuda)
+    lib = _lib()
+    fn = lib._dll.conv3d_int8_wgmma_probe
+    fn.argtypes = (ctypes.c_void_p,) * 3 + (ctypes.c_int, ctypes.c_void_p)
+    fn.restype = ctypes.c_int
+    lib.check("conv3d_int8_wgmma_probe", fn(a8.data_ptr(), b8.data_ptr(),
+                                            d.data_ptr(), n, _stream()))
+    assert torch.equal(d.cpu(), (a.cpu() @ b.cpu().T).int())
 
 
 @pytest.mark.gpu
